@@ -1,0 +1,2 @@
+"""The hand-written CUDA kernels, their plain PyTorch versions, and the
+device dispatch between them."""

@@ -1,0 +1,44 @@
+"""Wrapper of the CUDA matadd kernel (``csrc/matadd.cu``), the port of the
+Pallas TPU kernel ``repro/kernels/matadd.py::matadd``.
+
+Elementwise ``a + b`` in the input dtype for float32, bfloat16 or int32
+CUDA tensors of any (equal) shape; both operands must be contiguous.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel; raises on an input it does not take."""
+    if not (a.is_cuda and b.is_cuda) or a.device != b.device:
+        raise ValueError(f"matadd kernel needs both operands on one CUDA device, "
+                         f"got {a.device} and {b.device}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"matadd kernel takes float32, bfloat16 or int32 pairs, "
+                        f"got {a.dtype} and {b.dtype}")
+    if a.shape != b.shape:
+        raise ValueError(f"matadd kernel needs equal shapes, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matadd kernel needs contiguous operands")
+    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    n = a.numel()
+    if n == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.repro_matadd(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), n, stream)
+    _build.check(err, "matadd")
+    matadd.launches += 1
+    return out
+
+
+matadd.launches = 0  # kernel launches since the last reset to 0

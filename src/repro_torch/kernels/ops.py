@@ -1,0 +1,76 @@
+"""Dispatch by device: a CUDA tensor goes to the hand-written kernel (which
+runs or raises), a CPU tensor to the plain PyTorch version.  There is no
+switch that sends CUDA tensors anywhere else."""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref as _ref
+from .matadd import matadd as _matadd_kernel
+from .matmul import matmul as _matmul_kernel
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda or b.is_cuda:
+        return _matmul_kernel(a, b)
+    return _ref.matmul(a, b)
+
+
+def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cuda or b.is_cuda:
+        return _matadd_kernel(a, b)
+    return _ref.matadd(a, b)
+
+
+def warm_up(device) -> None:
+    """Build and load the CUDA kernels and launch each once at a tiny shape,
+    so that the one-time costs (the ``nvcc`` build, loading the library and
+    its modules) stay out of a timed run.  A no-op for a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    x = torch.zeros(8, 8, device=device)
+    _matmul_kernel(x, x.T)
+    _matadd_kernel(x, x)
+    torch.cuda.synchronize(device)
+
+
+# ---------------------------------------------------------------------------
+# Super-step chain builder
+# ---------------------------------------------------------------------------
+
+def build_chain(steps, keep=None):
+    """Compose a group's intra-group kernel chain into ONE callable.
+
+    ``steps`` is a sequence of ``(fn, srcs)`` in topological order, where each
+    ``srcs`` entry names one positional argument of ``fn``:
+
+    * ``("ext", i)`` — the i-th *external* input of the chain (a block that
+      lives outside the group-step: a host seed or another group's output);
+    * ``("mem", j)`` — the output of the j-th earlier step (an intra-group
+      edge; it never touches host or comm lanes).
+
+    ``keep`` selects which step outputs the chain returns (default: all).
+    Outputs that are dead after the chain — every consumer is an earlier
+    ``("mem", ...)`` reference — should be omitted: XLA then fuses straight
+    through them instead of materializing one buffer per kernel, which is
+    most of the super-step's dispatch-overhead win.
+
+    The returned ``chain(*ext) -> tuple(kept outputs)`` is pure and
+    jit-friendly: the executor jits it once per (revision, group signature,
+    shapes/dtypes) with dead external buffers donated, so a whole partition
+    group runs as a single XLA computation — one async dispatch and one
+    ready-barrier per group-step instead of one per kernel.
+    """
+    plan = [(fn, tuple(srcs)) for fn, srcs in steps]
+    keep = tuple(range(len(plan))) if keep is None else tuple(keep)
+
+    def chain(*ext):
+        outs = []
+        for fn, srcs in plan:
+            args = [ext[i] if kind == "ext" else outs[i] for kind, i in srcs]
+            outs.append(fn(*args))
+        return tuple(outs[i] for i in keep)
+
+    return chain

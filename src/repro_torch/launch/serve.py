@@ -1,0 +1,470 @@
+"""Serving driver: the request-DAG scheduling arena, simulated and executed.
+
+A batch of requests forms a task graph (prefill -> N decode chunks per
+request); every policy places the request chains on heterogeneous device
+groups (a big pod + a small pod) over a churning stream of scheduling
+intervals.  ``--arena`` replays the stream through the discrete-event
+simulator; ``--execute`` also runs it for real through
+:class:`~repro_torch.core.serving.ServingExecutor`, where every ``prefill``
+is the CUDA matmul kernel and every ``decode`` the CUDA matadd kernel, and
+writes the metrics to ``--bench-out`` (the schema
+``benchmarks/gate_serve.py`` reads).
+
+  # policy-vs-policy table on a churning serving stream (simulated)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena --requests 16 --steps 6
+
+  # the same stream executed on the card at 2048 x 2048 f32 blocks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena --execute \\
+      --requests 12 --decode-chunks 6 --steps 5 --drop-step 2 --kernel-side 2048
+
+  # ... or on the CPU, where the kernels' plain PyTorch versions run
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena --execute --device cpu
+
+The fused path (``--fused``, ``--async-groups``), the fleet router
+(``--replicas``), the scenario zoo (``--scenario``) and the model smoke run
+(``--smoke``, ``--arch``) are not ported yet (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+import torch
+
+from ..core.arena import (
+    DEFAULT_POLICIES,
+    SCENARIOS,
+    SchedulerArena,
+    format_table,
+    make_request_stream,
+)
+from ..core.comm import HierTopology, Topology
+from ..core.cost import LEAF_NIC, POD_UPLINK, RACK_UPLINK, Link
+from ..core.graph import TaskGraph
+from ..core.schedulers import as_executed, make_policy
+from ..core.serving import ServingExecutor, groups_for_platform
+from ..core.simulate import Platform, Processor, WorkerDrop
+from ..kernels import ops
+
+# every policy runs in executed mode: gp/incremental-gp produce class
+# assignments natively; eager/dmda/heft go through the worker-pull dispatch
+# shim (repro_torch.core.schedulers.as_executed)
+EXECUTED_POLICIES = ("eager", "dmda", "heft", "gp", "incremental-gp")
+
+
+def request_dag(
+    n_requests: int,
+    decode_chunks: int,
+    *,
+    prefill_ms_big: float,
+    prefill_ms_small: float,
+    decode_ms_big: float,
+    decode_ms_small: float,
+    kv_bytes: int,
+) -> TaskGraph:
+    """One prefill kernel + a chain of decode-chunk kernels per request.
+    Edge bytes = the KV cache handed from chunk to chunk (moving a request
+    between groups pays a cache migration over the slow link — the paper's
+    data-transfer cost in serving form)."""
+    g = TaskGraph()
+    for r in range(n_requests):
+        g.add(
+            f"r{r}.prefill",
+            op="prefill",
+            costs={"big": prefill_ms_big, "small": prefill_ms_small},
+            out_bytes=kv_bytes,
+        )
+        prev = f"r{r}.prefill"
+        for c in range(decode_chunks):
+            name = f"r{r}.dec{c}"
+            g.add(
+                name,
+                op="decode",
+                costs={"big": decode_ms_big, "small": decode_ms_small},
+                out_bytes=kv_bytes,
+            )
+            g.add_edge(prev, name, nbytes=kv_bytes)
+            prev = name
+    g.validate()
+    return g
+
+
+def heterogeneous_platform(
+    link_gbps: float = 6.25,
+    mem_capacity_bytes: dict | None = None,
+    lanes: int = 2,
+) -> Platform:
+    """A big pod (fast class) + a small pod (slow class) over DCN.
+    ``mem_capacity_bytes`` optionally budgets each pod's KV capacity
+    (class -> bytes), turning memory pressure on in the simulator.
+    The cross-pod DCN link carries ``lanes`` concurrent copy engines
+    (per-link transfer lanes; KV migrations overlap with compute)."""
+    procs = [
+        Processor("big0", "big", 0),
+        Processor("small0", "small", 1),
+        Processor("small1", "small", 1),
+    ]
+    dcn = Link("dcn", bw=link_gbps * 1e9, latency_ms=0.05)
+    return Platform(
+        procs,
+        link=dcn,
+        host_node=0,
+        mem_capacity_bytes=dict(mem_capacity_bytes or {}),
+        topology=Topology.dedicated(dcn, lanes=lanes),
+    )
+
+
+def hierarchical_platform(
+    n_pods: int = 2,
+    *,
+    pod_lanes: int = 1,
+    rack_lanes: int = 1,
+    leaf_lanes: int = 2,
+    leaf: Link = LEAF_NIC,
+    rack: Link = RACK_UPLINK,
+    pod: Link = POD_UPLINK,
+    mem_capacity_bytes: dict | None = None,
+) -> Platform:
+    """The rack/pod preset: each pod holds a big-class rack (1 worker) and a
+    small-class rack (2 workers); classes are named ``pod<i>.big`` /
+    ``pod<i>.small``.  Cross-rack traffic books both rack uplinks, cross-pod
+    traffic additionally the two *shared* pod uplinks (``pod_lanes`` copy
+    engines each) — the contention regime the hierarchy bench sweeps."""
+    procs: list[Processor] = []
+    node_rack: dict[int, str] = {}
+    rack_pod: dict[str, str] = {}
+    node = 0
+    for p in range(n_pods):
+        for cls_kind, n_workers in (("big", 1), ("small", 2)):
+            cls = f"pod{p}.{cls_kind}"
+            for j in range(n_workers):
+                procs.append(Processor(f"{cls}.w{j}", cls, node))
+            rack_name = f"r{node}"
+            node_rack[node] = rack_name
+            rack_pod[rack_name] = f"p{p}"
+            node += 1
+    topo = HierTopology(
+        leaf=leaf,
+        rack=rack,
+        pod=pod,
+        node_rack=node_rack,
+        rack_pod=rack_pod,
+        leaf_lanes=leaf_lanes,
+        rack_lanes=rack_lanes,
+        pod_lanes=pod_lanes,
+    )
+    return Platform(
+        procs,
+        link=pod,
+        host_node=0,
+        mem_capacity_bytes=dict(mem_capacity_bytes or {}),
+        topology=topo,
+    )
+
+
+def hier_request_costs(
+    platform: Platform,
+    *,
+    prefill_big: float = 20.0,
+    prefill_small: float = 60.0,
+    decode_big: float = 8.0,
+    decode_small: float = 24.0,
+) -> tuple[dict, dict]:
+    """Per-class cost tables for request streams on a rack/pod platform
+    (every pod's big class prices like ``big``, small like ``small``)."""
+    prefill = {
+        c: prefill_big if c.endswith("big") else prefill_small
+        for c in platform.classes
+    }
+    decode = {
+        c: decode_big if c.endswith("big") else decode_small for c in platform.classes
+    }
+    return prefill, decode
+
+
+def _arena_setup(
+    hier: bool, drop_proc: str
+) -> tuple[Platform, str, dict | None, dict | None]:
+    """Shared arena plumbing for the simulated and executed runners:
+    (platform, drop_proc, costs_prefill, costs_decode).  On the rack/pod
+    platform the default flat drop target remaps to its small-rack
+    equivalent and the cost tables grow per-pod classes."""
+    if not hier:
+        return heterogeneous_platform(), drop_proc, None, None
+    plat = hierarchical_platform()
+    if drop_proc == "small1":
+        drop_proc = "pod0.small.w1"
+    costs_prefill, costs_decode = hier_request_costs(plat)
+    return plat, drop_proc, costs_prefill, costs_decode
+
+
+def _policy_kwargs(scheduler: str) -> dict:
+    """Both GP flavours scale Formula (1)/(2) by per-class worker counts here
+    (1 big worker vs 2 small ones — without it the big pod serializes)."""
+    if scheduler in ("gp", "incremental-gp"):
+        return {"scale_by_workers": True}
+    return {}
+
+
+def run_arena(
+    n_requests: int,
+    decode_chunks: int,
+    *,
+    steps: int = 6,
+    kv_mb: float = 16.0,
+    churn: float = 0.3,
+    seed: int = 0,
+    drop_step: int | None = None,
+    drop_proc: str = "small1",
+    policies=DEFAULT_POLICIES,
+    hier: bool = False,
+    scenario: str = "serve",
+) -> tuple[list, SchedulerArena]:
+    """Replay a churning request stream through every policy (the online
+    serving experiment).  ``drop_step`` optionally kills ``drop_proc``
+    mid-run at that step — the elastic path.  ``hier=True`` swaps in the
+    rack/pod platform (shared-uplink contention + prefetch throttling).
+    ``scenario`` selects a zoo generator (:data:`repro_torch.core.arena.SCENARIOS`)
+    instead of the default prefill/decode stream; the non-serve scenarios
+    cost their kernels for the flat big/small platform only."""
+    if scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    if hier and scenario != "serve":
+        raise ValueError("--hier only supports the 'serve' scenario")
+    plat, drop_proc, costs_prefill, costs_decode = _arena_setup(hier, drop_proc)
+    events_at = {}
+    if drop_step is not None:
+        # each step simulates on a fresh platform copy, so the death must be
+        # re-injected: mid-run at the drop step, then at t=0 ever after
+        events_at[drop_step] = (WorkerDrop(30.0, drop_proc),)
+        for later in range(drop_step + 1, steps):
+            events_at[later] = (WorkerDrop(0.0, drop_proc),)
+    kw: dict = dict(
+        base_requests=n_requests,
+        churn=churn,
+        kv_bytes=int(kv_mb * 2**20),
+        seed=seed,
+        arrival_spread_ms=10.0,
+        events_at=events_at,
+    )
+    if scenario in ("serve", "colocate"):
+        kw.update(
+            decode_chunks=decode_chunks,
+            costs_prefill=costs_prefill,
+            costs_decode=costs_decode,
+        )
+    stream = SCENARIOS[scenario](steps, **kw)
+    arena = SchedulerArena(
+        plat, policies, policy_kwargs={p: _policy_kwargs(p) for p in policies}
+    )
+    rows = arena.run(stream)
+    return rows, arena
+
+
+def run_arena_executed(
+    n_requests: int,
+    decode_chunks: int,
+    *,
+    steps: int = 6,
+    kv_mb: float = 16.0,
+    churn: float = 0.3,
+    seed: int = 0,
+    drop_step: int | None = None,
+    drop_proc: str = "small1",
+    policies=EXECUTED_POLICIES,
+    side: int = 48,
+    drop_t_ms: float = 1.0,
+    hier: bool = False,
+    device: torch.device | None = None,
+) -> tuple[list, SchedulerArena]:
+    """The arena stream EXECUTED on real device groups.
+
+    Same stream construction as :func:`run_arena`, but each interval is
+    dispatched through :class:`~repro_torch.core.serving.ServingExecutor`:
+    kernels run for real, per-kernel wall times feed the measured-cost /
+    heartbeat loop, and drop events fire on the virtual stream clock
+    (``drop_t_ms`` — virtual milliseconds, so a mid-interval drop actually
+    lands mid-interval regardless of host speed).  ``hier=True`` executes on
+    the rack/pod platform: every pull books the tiered lanes (shared-uplink
+    contention + prefetch throttling), matching the simulated
+    ``run_arena(hier=True)`` stream.  Every class runs on ``device``
+    (default ``cuda:0``; raises when CUDA is missing)."""
+    plat, drop_proc, costs_prefill, costs_decode = _arena_setup(hier, drop_proc)
+    events_at = {}
+    if drop_step is not None:
+        events_at[drop_step] = (WorkerDrop(drop_t_ms, drop_proc),)
+        for later in range(drop_step + 1, steps):
+            events_at[later] = (WorkerDrop(0.0, drop_proc),)
+    stream = make_request_stream(
+        steps,
+        base_requests=n_requests,
+        decode_chunks=decode_chunks,
+        churn=churn,
+        kv_bytes=int(kv_mb * 2**20),
+        seed=seed,
+        costs_prefill=costs_prefill,
+        costs_decode=costs_decode,
+        arrival_spread_ms=0.5,
+        events_at=events_at,
+    )
+    devices = None if device is None else [device]
+    executor = ServingExecutor(groups_for_platform(plat, devices), plat, side=side)
+    factories = {
+        p: (lambda n=p: as_executed(make_policy(n, **_policy_kwargs(n))))
+        for p in policies
+    }
+    arena = SchedulerArena(plat, factories)
+    rows = arena.run_executed(stream, executor)
+    return rows, arena
+
+
+def device_name(device) -> str:
+    """What a result was measured on: the card's name, or ``cpu``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def write_bench(
+    path: str, *, meta: dict, sim_rows=(), arena=None, device="cpu"
+) -> dict:
+    """Dump the serving benchmark to JSON (the ``benchmarks/gate_serve.py``
+    schema).  ``simulated`` rows are fully deterministic (the regression gate
+    compares them against a baseline); ``executed`` rows carry measured wall
+    quantities (the gate only sanity-checks their counters).  ``meta``
+    records the torch version and the name of the ``device`` that ran."""
+    doc = {
+        "meta": dict(
+            meta,
+            torch=torch.__version__,
+            device=device_name(device),
+            python=sys.version.split()[0],
+        ),
+        "simulated": {r.policy: dataclasses.asdict(r) for r in sim_rows},
+        "executed": {
+            name: rep.to_dict()
+            for name, rep in (arena.reports if arena else {}).items()
+        },
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+    return doc
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--decode-chunks", type=int, default=8)
+    ap.add_argument(
+        "--arena",
+        action="store_true",
+        help="replay a churning request stream through every "
+        "policy and print the comparison table",
+    )
+    ap.add_argument(
+        "--hier",
+        action="store_true",
+        help="with --arena (and --execute): run the stream on "
+        "the rack/pod platform — shared-uplink contention "
+        "+ prefetch throttling, simulated and executed",
+    )
+    ap.add_argument(
+        "--steps",
+        type=int,
+        default=6,
+        help="stream length (scheduling intervals) for --arena",
+    )
+    ap.add_argument(
+        "--drop-step",
+        type=int,
+        default=None,
+        help="kill a small-pod worker at this arena step",
+    )
+    ap.add_argument(
+        "--execute",
+        action="store_true",
+        help="with --arena: also run the stream on real device "
+        "groups under every policy through the serving "
+        "executor and dump metrics to --bench-out",
+    )
+    ap.add_argument(
+        "--bench-out",
+        type=str,
+        default="BENCH_serve.json",
+        help="JSON metrics path for --execute",
+    )
+    ap.add_argument(
+        "--kernel-side",
+        type=int,
+        default=48,
+        help="square matrix side for executed kernels",
+    )
+    ap.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="with --execute: run the kernels on cuda:0 (the CUDA kernels) "
+        "or on the CPU (their plain PyTorch versions)",
+    )
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not args.arena:
+        ap.error("only --arena [--execute] is ported; see ROADMAP queue 1")
+
+    rows, _ = run_arena(
+        args.requests,
+        args.decode_chunks,
+        steps=args.steps,
+        drop_step=args.drop_step,
+        seed=args.seed,
+        hier=args.hier,
+    )
+    print(format_table(rows))
+    if not args.execute:
+        return
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: CUDA is not available (pass --device cpu)")
+        device = torch.device("cuda", 0)
+    else:
+        device = torch.device("cpu")
+    # the kernel build and first launches must not land in a timed kernel
+    ops.warm_up(device)
+    xrows, xarena = run_arena_executed(
+        args.requests,
+        args.decode_chunks,
+        steps=args.steps,
+        drop_step=args.drop_step,
+        seed=args.seed,
+        side=args.kernel_side,
+        hier=args.hier,
+        device=device,
+    )
+    print(
+        f"\n[serve] executed on {device_name(device)} "
+        f"({', '.join(r.policy for r in xrows)}):"
+    )
+    print(format_table(xrows))
+    meta = {
+        "requests": args.requests,
+        "decode_chunks": args.decode_chunks,
+        "steps": args.steps,
+        "drop_step": args.drop_step,
+        "seed": args.seed,
+        "kernel_side": args.kernel_side,
+        "hier": args.hier,
+        "fused": False,
+        "async_groups": False,
+    }
+    write_bench(
+        args.bench_out, meta=meta, sim_rows=rows, arena=xarena, device=device
+    )
+    print(f"[serve] wrote {args.bench_out}")
+
+
+if __name__ == "__main__":
+    main()
