@@ -7,31 +7,47 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
-   kernels from ``src/repro_torch/csrc`` and print ``ptxas``'s register and
-   shared-memory report;
+   kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
+   together) and print ``ptxas``'s register and shared-memory report;
 2. K1 (matmul) against its plain PyTorch version on the card: 2048^3 f32,
    the serving ``prefill`` operand ``x.T``, a ragged 2047x1999x1000 f32, and
    1024^3 bf16;
 3. K2 (matadd) bit-exact against its plain version: f32, bf16 and int32 at
    2048^2, (512, 384), (64, 128) and a ragged (33, 77);
-4. each kernel's time at the main path's 2048 shapes (median over batches
+4. K3 (flash attention) against its plain version: f32 and bf16, causal and
+   not, ``kv_len`` < Sk and 0, Sq != Sk, GQA 32/8, ragged S = 33 and 77, and
+   the granite-3-2b prefill shape, on the model's strided (B, S, H, hd) views;
+5. K4 (WKV6) against its plain version, output and final state, at
+   N = 32 and 64, S = 33 and 2048, and the rwkv6-3b prefill shape;
+6. each kernel's time at its main path's shape (median over batches
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
-   (``torch.matmul`` without TF32, ``torch.add``) and the card's bound;
-5. one request chain executed on the card and on the CPU from the same
+   where one computes the same function, and the card's bound;
+7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
-6. the executed serving arena: the pinned CI stream (12 requests, 6 decode
+8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
    chunks, 5 steps, a worker drop at step 2, seed 0) at 2048 x 2048 f32
    blocks on ``cuda:0`` under all five policies.  Launch counters are set
    to 0 just before and read just after: every ``prefill`` must have been a
-   matmul launch and every ``decode`` a matadd launch.
+   matmul launch and every ``decode`` a matadd launch;
+9. a 2-layer, full-width cut of granite-3-2b and of rwkv6-3b in f32 (batch
+   2, prompt 128, 4 decode steps), run on the card and on the CPU from the
+   same parameters: prefill and decode logits compared;
+10. full-width serving through ``serve_smoke``: granite-3-2b, then
+   rwkv6-3b, 8 requests x 2048-token prompts, 32 greedy decode tokens, bf16
+   activations.  Counters set to 0 just before each model: K3 must have run
+   40 times per prefill (one per layer) and K4 32 times.  Then one prefill
+   and 4 decode steps of each model under ``torch.profiler``: device kernel
+   time against wall, and the kernels that take most of it.
 
 The line before the last is a JSON object listing each kernel with its
-launches on the main path, error, times and bound; the last line is
+launches on its main path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -49,23 +65,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAM = dict(n_requests=12, decode_chunks=6, steps=5, drop_step=2, seed=0)
 SIDE = 2048
 
-# published peaks of each H100 part (NVIDIA's data sheets, full power limit):
-# f32 FLOP/s outside the tensor cores, device memory bytes/s; the first key
+# published peaks of each H100 part (NVIDIA's H100 data sheet, dense rates
+# without sparsity, full power limit): f32 FLOP/s outside the tensor cores,
+# bf16 FLOP/s on the tensor cores, device memory bytes/s; the first key
 # found in torch's device name wins (SXM5 reports "NVIDIA H100 80GB HBM3")
 PEAKS = (
-    ("H100 PCIe", (51e12, 2.0e12)),
-    ("H100 NVL", (60e12, 3.9e12)),
-    ("H100", (67e12, 3.35e12)),
+    ("H100 PCIe", {"f32": 51e12, "bf16": 756e12, "bytes": 2.0e12}),
+    ("H100 NVL", {"f32": 60e12, "bf16": 835e12, "bytes": 3.9e12}),
+    ("H100", {"f32": 67e12, "bf16": 989e12, "bytes": 3.35e12}),
 )
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:44",
     "matadd": "src/repro/kernels/matadd.py:28",
+    "flash_attention": "src/repro/kernels/flash_attention.py:95",
+    "wkv6": "src/repro/kernels/wkv6.py:52",
 }
+# the main paths' shapes: granite-3-2b prefill attention (8 requests x 2048
+# tokens, 32 query heads over 8 KV heads of 64) and rwkv6-3b prefill
+# recurrence (40 heads of 64)
+SERVE = dict(n_requests=8, prompt_len=2048, decode_len=32)
+K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
+K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
+SERVED = (("granite_3_2b", "flash_attention"), ("rwkv6_3b", "wkv6"))
 
 
-def bound(flops: float, nbytes: float, peaks: tuple[float, float]) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float
+          ) -> tuple[float, str]:
     """-> (least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    t_ops, t_bytes = flops / flop_rate, nbytes / byte_rate
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -159,6 +186,243 @@ def check_matadd(matadd, ref, gen) -> float:
     return worst
 
 
+def _strided(shape_bshd, dtype, gen):
+    """A (B, S, H, d) tensor on the card, returned as its (B, H, S, d) view:
+    the layout the model hands to K3 and K4."""
+    x = torch.randn(shape_bshd, device="cuda", generator=gen).to(dtype)
+    return x.transpose(1, 2)
+
+
+def check_flash(flash, ref, gen) -> float:
+    """-> max |error| at the main path's shape.  Tolerances: the test
+    suite's, 2e-5 in f32 and 2e-2 in bf16 (rtol = atol; the outputs are
+    averages of unit-normal V, so of size ~1)."""
+    main_err = None
+    B0, H0, K0, S0, hd0 = K3_SHAPE
+    cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
+        (B0, H0, K0, S0, S0, hd0, torch.bfloat16, True, None),
+        (2, 32, 8, 2048, 2048, 64, torch.float32, True, None),
+        (2, 4, 4, 256, 256, 64, torch.float32, False, None),
+        (2, 4, 2, 256, 256, 32, torch.bfloat16, False, None),
+        (1, 4, 4, 128, 128, 64, torch.float32, True, 77),
+        (1, 4, 4, 128, 128, 64, torch.bfloat16, False, 77),
+        (1, 4, 2, 96, 160, 64, torch.float32, True, 0),
+        (1, 4, 2, 96, 160, 32, torch.float32, False, 0),
+        (2, 4, 4, 64, 192, 64, torch.float32, True, None),
+        (2, 4, 4, 192, 64, 32, torch.float32, False, None),
+        (2, 32, 8, 33, 33, 64, torch.float32, True, None),
+        (2, 32, 8, 77, 77, 64, torch.bfloat16, True, None),
+    ]
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
+        q = _strided((B, Sq, H, hd), dt, gen)
+        k = _strided((B, Sk, K, hd), dt, gen)
+        v = _strided((B, Sk, K, hd), dt, gen)
+        got = flash(q, k, v, causal=causal, kv_len=kv_len)
+        want = ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"flash_attention: {got.shape} {got.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        print(f"[K3] flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
+              f"causal={causal} kv_len={kv_len} max_abs_err={err} "
+              f"(rtol=atol={tol:g}) ok")
+        if main_err is None:
+            main_err = err
+    return main_err
+
+
+def wkv6_inputs(B, H, S, N, gen):
+    """r, k, v unit normal, w = sigmoid(normal) in (0, 1), u = 0.1 normal:
+    the reference suite's distributions, as (B, H, S, N) views of
+    (B, S, H, N) tensors."""
+    r, k, v = (_strided((B, S, H, N), torch.float32, gen) for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, N), device="cuda", generator=gen))
+    u = 0.1 * torch.randn((H, N), device="cuda", generator=gen)
+    return r, k, v, w.transpose(1, 2), u
+
+
+def check_wkv6(wkv6, ref, gen) -> float:
+    """-> max |error| at the main path's shape.  Tolerance: the suite's 1e-5
+    as rtol, and atol 1e-5 x the largest plain value (the sums over N are
+    taken in another order, so the absolute error grows with the values)."""
+    main_err = None
+    for B, H, S, N in [K4_SHAPE, (2, 4, 33, 32), (2, 4, 33, 64), (2, 4, 2048, 32),
+                       (2, 4, 2048, 64)]:
+        r, k, v, w, u = wkv6_inputs(B, H, S, N, gen)
+        o, state = wkv6(r, k, v, w, u)
+        want_o, want_state = ref.wkv6(r, k, v, w, u)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want in ((o, want_o), (state, want_state)):
+            if got.shape != want.shape:
+                raise AssertionError(f"wkv6: {got.shape} != {want.shape}")
+            scale = max(1.0, want.abs().max().item())
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+            err = max(err, (got - want).abs().max().item())
+        print(f"[K4] wkv6 B{B} H{H} S{S} N{N} max_abs_err={err} (o and state; "
+              f"rtol=1e-5, atol=1e-5 x max|plain|) ok")
+        if main_err is None:
+            main_err = err
+    return main_err
+
+
+def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
+    """-> ({kernel: (ms, plain ms, library ms or None)}, {kernel: bound}) at
+    the main paths' shapes."""
+    import torch.nn.functional as F
+
+    B, H, K, S, hd = K3_SHAPE
+    q = _strided((B, S, H, hd), torch.bfloat16, gen)
+    k = _strided((B, S, K, hd), torch.bfloat16, gen)
+    v = _strided((B, S, K, hd), torch.bfloat16, gen)
+    # the library call: SDPA at Sq = Sk (where its top-left causal alignment
+    # is the reference's), K and V expanded to the 32 query heads outside
+    # the timed call
+    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
+    pairs = B * H * S * (S + 1) / 2  # (query, key) pairs the causal mask keeps
+    bf16 = 2
+    bounds = {"flash_attention": bound(4.0 * pairs * hd,
+                                       (2 * B * H * S * hd + 2 * B * K * S * hd) * bf16,
+                                       peaks["bf16"], peaks["bytes"])}
+    times = {"flash_attention": (
+        time_ms(lambda: flash(q, k, v, causal=True)),
+        time_ms(lambda: ref.flash_attention(q, k, v, causal=True), batches=3, per_batch=5),
+        time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)))}
+    del q, k, v, ke, ve
+
+    B, H, S, N = K4_SHAPE
+    r, kk, vv, w, u = wkv6_inputs(B, H, S, N, gen)
+    f32 = 4
+    # r, k, v, w read and o written, plus u read and the final state written;
+    # 7 f32 operations per state element per step (k v^T, + u k v^T, r^T.,
+    # and the decayed update)
+    nbytes = (5 * B * H * S * N + H * N + B * H * N * N) * f32
+    bounds["wkv6"] = bound(7.0 * B * H * S * N * N, nbytes, peaks["f32"], peaks["bytes"])
+    times["wkv6"] = (time_ms(lambda: wkv6(r, kk, vv, w, u)),
+                     time_ms(lambda: ref.wkv6(r, kk, vv, w, u), batches=3, per_batch=1),
+                     None)  # no single PyTorch call computes the recurrence
+    return times, bounds
+
+
+def card_vs_cpu(arch: str, dev) -> None:
+    """2 layers of ``arch`` at full width in f32, batch 2, prompt 128, 4
+    decode steps: the same parameters (drawn on the CPU) on the card and on
+    the CPU.  Tolerance: rtol 1e-4 and atol 1e-4 x the largest CPU logit
+    (f32 products of K up to 8960 summed in another order on each side)."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, activation_dtype="float32")
+    ctx = Ctx(dtype=torch.float32)
+    B, S, steps = 2, 128, 4
+    with torch.inference_mode():
+        params = init_params(T.model_param_specs(cfg), torch.Generator().manual_seed(0))
+        batch = make_batch(cfg, S, B, train=False, generator=torch.Generator().manual_seed(0))
+        sides = {"cpu": (params, batch), "card": (tree_map(lambda t: t.to(dev), params),
+                                                 {k: t.to(dev) for k, t in batch.items()})}
+        caches, logits = {}, {}
+        for side, (p, b) in sides.items():
+            caches[side], logits[side] = T.prefill(p, b, cfg, ctx, cache_len=S + steps)
+        errs = []
+        for i in range(steps + 1):
+            want, got = logits["cpu"], logits["card"].cpu()
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+            errs.append((got - want).abs().max().item())
+            if i == steps:
+                break
+            tok = want.argmax(-1)
+            for side, (p, _) in sides.items():
+                logits[side], caches[side] = T.decode_step(
+                    p, caches[side], tok.to(p["embed"].device), S + i, cfg, ctx)
+    print(f"[card-vs-cpu] {cfg.name} 2 layers full width f32 B{B} S{S}: prefill logits "
+          f"max_abs_err={errs[0]}, decode steps {errs[1:]} (rtol=1e-4, atol=1e-4 x "
+          f"max|logit|) ok")
+
+
+def serve_full_width(arch: str, kernel, dev, smi: str) -> dict:
+    """``serve_smoke`` on the unreduced ``arch`` (bf16 activations), the
+    kernel's counter set to 0 just before; -> what the run printed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve_smoke
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    tokens, stats = serve_smoke(cfg, **SERVE, seed=0, device=dev)
+    launches = kernel.launches
+    want = cfg.n_layers  # one launch per layer of the one prefill
+    if not stats.logits_finite:
+        raise AssertionError(f"{arch}: non-finite logits")
+    if tuple(tokens.shape) != (SERVE["n_requests"], SERVE["decode_len"] + 1):
+        raise AssertionError(f"{arch}: tokens {tuple(tokens.shape)}")
+    if launches != want:
+        raise AssertionError(f"{arch}: {kernel.__name__} launched {launches} times, "
+                             f"not {want} (layers x prefills)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve] {cfg.name} full width, {SERVE['n_requests']} requests x "
+          f"{SERVE['prompt_len']}-token prompts, {SERVE['decode_len']} decode tokens, bf16: "
+          f"prefill {stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} "
+          f"ms/token, {stats.tokens_per_s:.1f} tokens/s; {kernel.__name__} launches "
+          f"{launches} == {cfg.n_layers} layers x 1 prefill; peak memory {peak_gb:.1f} GB; "
+          f"{smi}")
+    return {"launches": launches, "prefill_ms": stats.prefill_ms}
+
+
+def profile_serving(arch: str, dev, steps: int = 4) -> None:
+    """One prefill and ``steps`` decode steps of the full-width ``arch`` (the
+    serving shapes, fresh weights from seed 0) under ``torch.profiler``:
+    the device kernel time against the wall of the same span, and the
+    kernels that take most of it.  Profiling inflates the wall; the
+    unprofiled times are the ``[serve]`` line's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import cast_params, init_params
+
+    cfg = get_config(arch)
+    ctx = Ctx(dtype=torch.bfloat16)
+    B, S = SERVE["n_requests"], SERVE["prompt_len"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    spans = {}
+    with torch.inference_mode():
+        gen = torch.Generator(dev).manual_seed(0)
+        params = cast_params(init_params(T.model_param_specs(cfg), gen), ctx.dtype)
+        batch = make_batch(cfg, S, B, train=False, generator=gen)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=S + steps)
+            torch.cuda.synchronize()
+            spans["prefill"] = (prof, (time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(-1)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = T.decode_step(params, cache, tok, S + i, cfg, ctx)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            spans[f"{steps} decode steps"] = (prof, (time.perf_counter() - t0) * 1e3)
+    for span, (prof, wall_ms) in spans.items():
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        launched = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[profile] {cfg.name} {span}: {launched} kernels, {busy:.1f} ms on the device in "
+              f"{wall_ms:.1f} ms of wall under the profiler (device busy "
+              f"{busy / wall_ms:.1%}); top: "
+              + "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -174,19 +438,23 @@ def main() -> int:
     if peaks is None:
         raise ValueError(f"no published peaks on record for {name!r}; add them to PEAKS")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"f32 peak {peaks[0] / 1e12:g} TFLOP/s, memory {peaks[1] / 1e12:g} TB/s")
+          f"f32 peak {peaks['f32'] / 1e12:g} TFLOP/s, bf16 tensor peak "
+          f"{peaks['bf16'] / 1e12:g} TFLOP/s, memory {peaks['bytes'] / 1e12:g} TB/s")
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.arena import make_request_stream
     from repro_torch.core.executor import TorchExecutor, attach_request_kernels
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matadd import matadd
     from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import request_dag, run_arena_executed
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. build
     t_build = time.perf_counter()
@@ -195,26 +463,29 @@ def main() -> int:
     t_build = time.perf_counter() - t_build
     print(f"[build] {os.path.relpath(lib, ROOT)} in {t_build:.1f} s")
     for line in _build.last_log.splitlines():
-        if line.startswith("==") or "registers" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    # 2-3. kernels against their plain versions
+    # 2-5. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mm_err = check_matmul(matmul, ref, gen)
-    ma_err = check_matadd(matadd, ref, gen)
+    errs = {"matmul": check_matmul(matmul, ref, gen),
+            "matadd": check_matadd(matadd, ref, gen),
+            "flash_attention": check_flash(flash_attention, ref, gen),
+            "wkv6": check_wkv6(wkv6, ref, gen)}
 
-    # 4. times at the main path's shapes: prefill = x @ x.T, decode = x + x
+    # 6. times at the main paths' shapes: prefill = x @ x.T, decode = x + x,
+    # granite-3-2b prefill attention, rwkv6-3b prefill recurrence
     a = torch.randn(SIDE, SIDE, device=dev, generator=gen)
     b = torch.randn(SIDE, SIDE, device=dev, generator=gen)
     bt = b.T
     f32 = a.element_size()
     block = SIDE * SIDE * f32  # each input read once, the output written once
     bounds = {
-        "matmul": bound(2.0 * SIDE**3, 3 * block, peaks),
-        "matadd": bound(float(SIDE * SIDE), 3 * block, peaks),
+        "matmul": bound(2.0 * SIDE**3, 3 * block, peaks["f32"], peaks["bytes"]),
+        "matadd": bound(float(SIDE * SIDE), 3 * block, peaks["f32"], peaks["bytes"]),
     }
     # the timing phase's launches are not the main path's: the counters are
-    # reset to 0 right before the arena below
+    # reset to 0 right before each path below
     times = {
         "matmul": (time_ms(lambda: matmul(a, bt)), time_ms(lambda: ref.matmul(a, bt)),
                    time_ms(lambda: torch.matmul(a, bt))),
@@ -223,12 +494,20 @@ def main() -> int:
     }
     paced = {"matmul": time_ms(lambda: matmul(a, bt), queued=False),
              "matadd": time_ms(lambda: matadd(a, b), queued=False)}
+    more_times, more_bounds = time_attention_and_wkv6(flash_attention, wkv6, ref, gen, peaks)
+    times.update(more_times)
+    bounds.update(more_bounds)
+    shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
+              "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
+              "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE)}
     for k, (ms, plain, lib_ms) in times.items():
-        print(f"[time] {k} {SIDE}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib_ms:.4f} ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
-              f"host-paced kernel {paced[k]:.4f} ms/call; {smi}")
+        lib_txt = "none (no single PyTorch call)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        extra = f"; host-paced kernel {paced[k]:.4f} ms/call" if k in paced else ""
+        print(f"[time] {k} {shapes[k]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib_txt}, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}){extra}; "
+              f"{smi}")
 
-    # 5. one request chain on the card vs the CPU, same host inputs
+    # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,
                     decode_ms_big=1.0, decode_ms_small=1.0, kv_bytes=SIDE * SIDE * f32)
     inputs = attach_request_kernels(g, SIDE)
@@ -245,8 +524,9 @@ def main() -> int:
         torch.testing.assert_close(x, want[n], **mm_tol(SIDE, torch.float32, scale))
         err = (x - want[n]).abs().max().item()
         print(f"[chain] {n}: card vs CPU max_abs_err={err} ok")
+    del a, b, bt, g, inputs, got, want
 
-    # 6. the executed serving arena, counted
+    # 8. the executed serving arena, counted
     matmul.launches = 0
     matadd.launches = 0
     wall0 = time.perf_counter()
@@ -282,8 +562,31 @@ def main() -> int:
     kernel_ms = sum(launches[k] * times[k][0] for k in launches)
     print(f"[arena] wall {arena_wall_ms:.1f} ms for all policies; launches x kernel "
           f"time {kernel_ms:.1f} ms (device busy share ~{kernel_ms / arena_wall_ms:.1%})")
+    del arena
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    errs = {"matmul": mm_err, "matadd": ma_err}
+    # 9. the model's own context: 2 full-width layers, card against CPU
+    for arch, _ in SERVED:
+        card_vs_cpu(arch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. full-width serving, one model after the other
+    kernels_by_name = {"flash_attention": flash_attention, "wkv6": wkv6}
+    for arch, kname in SERVED:
+        run = serve_full_width(arch, kernels_by_name[kname], dev, smi)
+        launches[kname] = run["launches"]
+        share = run["launches"] * times[kname][0] / run["prefill_ms"]
+        print(f"[serve] {arch}: {kname} launches x kernel time = "
+              f"{run['launches'] * times[kname][0]:.1f} ms, {share:.1%} of the prefill")
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_serving(arch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
+
     kernels = []
     for k, (ms, plain, lib_ms) in times.items():
         kernels.append({

@@ -39,11 +39,16 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # dtype, a, b, c, M, N, K, sam, sak, sbk, sbn, stream
     "repro_matmul": (_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P),
     # dtype, a, b, c, n, stream
     "repro_matadd": (_I, _P, _P, _P, _L, _P),
+    # dtype, q, k, v, o, B, H, G, Sq, Sk, hd, kv_len, causal, strides[16], stream
+    "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LP, _P),
+    # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream
+    "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,8 +7,10 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from .flash_attention import flash_attention as _flash_kernel
 from .matadd import matadd as _matadd_kernel
 from .matmul import matmul as _matmul_kernel
+from .wkv6 import wkv6 as _wkv6_kernel
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,6 +25,21 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ref.matadd(a, b)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
+    """q ``(B, H, Sq, hd)`` over k, v ``(B, K, Sk, hd)``, K dividing H."""
+    if q.is_cuda or k.is_cuda or v.is_cuda:
+        return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len)
+    return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+
+
+def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence -> (o ``(B, H, S, N)``, final state ``(B, H, N, N)``)."""
+    if any(t.is_cuda for t in (r, k, v, w, u)):
+        return _wkv6_kernel(r, k, v, w, u)
+    return _ref.wkv6(r, k, v, w, u)
+
+
 def warm_up(device) -> None:
     """Build and load the CUDA kernels and launch each once at a tiny shape,
     so that the one-time costs (the ``nvcc`` build, loading the library and
@@ -33,6 +50,9 @@ def warm_up(device) -> None:
     x = torch.zeros(8, 8, device=device)
     _matmul_kernel(x, x.T)
     _matadd_kernel(x, x)
+    a = torch.zeros(1, 1, 8, 32, device=device)
+    _flash_kernel(a, a, a)
+    _wkv6_kernel(a, a, a, a, a[0, 0, :1])
     torch.cuda.synchronize(device)
 
 

@@ -20,9 +20,18 @@ writes the metrics to ``--bench-out`` (the schema
   # ... or on the CPU, where the kernels' plain PyTorch versions run
   PYTHONPATH=src python -m repro_torch.launch.serve --arena --execute --device cpu
 
+``--smoke`` serves a model: a batch of prompts prefilled, then greedy
+decode, for the ``attn`` and ``rwkv6`` architectures (granite-3-2b,
+rwkv6-3b, ...).  Prefill attention is the CUDA flash-attention kernel (K3)
+and the RWKV-6 recurrence the CUDA WKV6 kernel (K4):
+
+  # the reduced model, f32 activations, on the CPU (the kernels' plain versions)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b --smoke \
+      --requests 2 --decode-len 4 --device cpu
+
 The fused path (``--fused``, ``--async-groups``), the fleet router
-(``--replicas``), the scenario zoo (``--scenario``) and the model smoke run
-(``--smoke``, ``--arch``) are not ported yet (ROADMAP queue 1).
+(``--replicas``) and the scenario zoo (``--scenario``) are not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -31,9 +40,11 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
 import torch
 
+from ..configs.registry import canon, get_config, make_batch
 from ..core.arena import (
     DEFAULT_POLICIES,
     SCENARIOS,
@@ -48,11 +59,96 @@ from ..core.schedulers import as_executed, make_policy
 from ..core.serving import ServingExecutor, groups_for_platform
 from ..core.simulate import Platform, Processor, WorkerDrop
 from ..kernels import ops
+from ..models import transformer as T
+from ..models.layers import Ctx
+from ..models.params import cast_params, init_params
 
 # every policy runs in executed mode: gp/incremental-gp produce class
 # assignments natively; eager/dmda/heft go through the worker-pull dispatch
 # shim (repro_torch.core.schedulers.as_executed)
 EXECUTED_POLICIES = ("eager", "dmda", "heft", "gp", "incremental-gp")
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or ``cuda:0`` when none is given; raises when CUDA is
+    missing: running on the CPU is asked for, never fallen back to."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+# ---------------------------------------------------------------------------
+# 1) real decode loop
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeStats:
+    """Times of one :func:`serve_smoke` run (host clock, each span ended by
+    a device synchronise) and whether every logit it produced was finite."""
+
+    prefill_ms: float
+    decode_ms_per_token: float
+    tokens_per_s: float  # decoded tokens (all requests) per decode second
+    logits_finite: bool
+
+
+def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
+                seed: int = 0, device=None, params=None, batch=None):
+    """Prefill a batch of prompts, decode greedily.
+
+    ``params`` (the f32 tree of :func:`T.model_param_specs`) default to
+    ``init_params`` from ``seed`` on ``device``, and ``batch`` to
+    ``make_batch`` from ``seed``; the weights are cast to the activation
+    dtype once, here.  ``device`` defaults to ``cuda:0``.  Returns the greedy
+    tokens ``(n_requests, decode_len + 1)`` on the host (the prefill's, then
+    one per decode step) and a :class:`ServeStats`."""
+    device = default_device(device)
+    ctx = Ctx(dtype=DTYPES[cfg.activation_dtype])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *a: None)
+    with torch.inference_mode():
+        if params is None:
+            gen = torch.Generator(device).manual_seed(seed)
+            params = init_params(T.model_param_specs(cfg), gen)
+        params = cast_params(params, ctx.dtype)
+        if batch is None:
+            gen = torch.Generator(device).manual_seed(seed)
+            batch = make_batch(cfg, prompt_len, n_requests, train=False, generator=gen)
+        batch = {k: v.to(device) for k, v in batch.items()}
+
+        sync(device)
+        t0 = time.perf_counter()
+        cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=prompt_len + decode_len)
+        tok = logits.argmax(-1)
+        finite = torch.isfinite(logits).all()
+        sync(device)
+        t1 = time.perf_counter()
+        out_tokens = [tok]
+        for i in range(decode_len):
+            logits, cache = T.decode_step(params, cache, tok, prompt_len + i, cfg, ctx)
+            finite &= torch.isfinite(logits).all()
+            tok = logits.argmax(-1)
+            out_tokens.append(tok)
+        sync(device)
+        t2 = time.perf_counter()
+    tokens = torch.stack(out_tokens, 1).cpu()
+    stats = ServeStats(
+        prefill_ms=(t1 - t0) * 1e3,
+        decode_ms_per_token=(t2 - t1) * 1e3 / max(decode_len, 1),
+        tokens_per_s=n_requests * decode_len / (t2 - t1) if decode_len else 0.0,
+        logits_finite=bool(finite),
+    )
+    return tokens, stats
+
+
+# ---------------------------------------------------------------------------
+# 2) request-DAG scheduling across heterogeneous groups
+# ---------------------------------------------------------------------------
 
 
 def request_dag(
@@ -357,7 +453,13 @@ def write_bench(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", type=str, default="granite_3_2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the arch's reduced config (f32 activations): "
+                    "prefill --requests prompts, then greedy decode")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-len", type=int, default=16)
     ap.add_argument("--decode-chunks", type=int, default=8)
     ap.add_argument(
         "--arena",
@@ -407,14 +509,37 @@ def main(argv=None):
         "--device",
         choices=("cuda", "cpu"),
         default="cuda",
-        help="with --execute: run the kernels on cuda:0 (the CUDA kernels) "
+        help="with --execute or --smoke: run on cuda:0 (the CUDA kernels) "
         "or on the CPU (their plain PyTorch versions)",
     )
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not args.arena:
-        ap.error("only --arena [--execute] is ported; see ROADMAP queue 1")
+    if not (args.arena or args.smoke):
+        ap.error("pass --arena [--execute] or --smoke; the other modes are not "
+                 "ported yet (ROADMAP queue 1)")
+    if args.arena:
+        _main_arena(args)
+        return
+    cfg = dataclasses.replace(get_config(canon(args.arch)).smoke(),
+                              activation_dtype="float32")
+    device = _cli_device(args.device)
+    ops.warm_up(device)
+    _, stats = serve_smoke(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
+                           decode_len=args.decode_len, seed=args.seed, device=device)
+    print(f"[serve] {cfg.name}: {args.requests} requests x {args.decode_len} tokens "
+          f"-> {stats.tokens_per_s:.1f} tok/s ({device_name(device)}; prefill "
+          f"{stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} ms/token)")
 
+
+def _cli_device(name: str) -> torch.device:
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("--device cuda: CUDA is not available (pass --device cpu)")
+    return torch.device("cuda", 0)
+
+
+def _main_arena(args) -> None:
     rows, _ = run_arena(
         args.requests,
         args.decode_chunks,
@@ -426,12 +551,7 @@ def main(argv=None):
     print(format_table(rows))
     if not args.execute:
         return
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: CUDA is not available (pass --device cpu)")
-        device = torch.device("cuda", 0)
-    else:
-        device = torch.device("cpu")
+    device = _cli_device(args.device)
     # the kernel build and first launches must not land in a timed kernel
     ops.warm_up(device)
     xrows, xarena = run_arena_executed(

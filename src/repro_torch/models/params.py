@@ -1,0 +1,115 @@
+"""Parameter specification: shapes, init recipes, and the two ways a tree
+of real tensors is made from them (the port of ``repro/models/params.py``).
+
+Models define their parameters as (nested dicts of) :class:`P` specs.
+``init_params`` draws real tensors from an explicit :class:`torch.Generator`
+with the reference's init rules; ``params_from_numpy`` carries the
+reference's own arrays across, so the parity tests run both packages on the
+same weights.  The logical sharding axes of the reference have no use on
+one device and are not kept.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """One parameter: shape, dtype and init recipe."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"  # normal | zeros | ones | embed | small
+    scale: float | None = None  # override init stddev
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # all-but-last dims are treated as input dims for scaled init
+    if len(shape) <= 1:
+        return max(shape[0] if shape else 1, 1)
+    return max(math.prod(shape[:-1]), 1)
+
+
+def init_array(spec: P, generator: torch.Generator) -> torch.Tensor:
+    device = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "embed":
+        std = spec.scale if spec.scale is not None else 0.02
+    else:
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
+        if spec.init == "small":
+            std *= 0.1
+    x = torch.randn(spec.shape, generator=generator, device=device, dtype=torch.float32)
+    return x.mul_(std).to(spec.dtype)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf (anything but a dict) of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in the reference's order (``jax.tree.leaves`` sorts dict keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def init_params(tree, generator: torch.Generator):
+    """Materialize a spec tree into real tensors on ``generator.device``,
+    leaf by leaf in the reference's order (deterministic in the generator's
+    seed; the values differ from ``jax.random``'s)."""
+
+    def walk(t):
+        if not isinstance(t, dict):
+            return init_array(t, generator)
+        made = {k: walk(t[k]) for k in sorted(t)}
+        return {k: made[k] for k in t}
+
+    return walk(tree)
+
+
+def params_from_numpy(tree, device) -> dict:
+    """The reference's parameter tree, converted leaf by leaf with
+    ``np.asarray``, as tensors on ``device`` (the same bits, bf16 included;
+    the stacked ``"unit"`` axis is kept)."""
+
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a.copy()).to(device)
+
+    return tree_map(one, tree)
+
+
+# parameters the model reads in float32 wherever it uses them (norm scales,
+# the RWKV decay and bonus, the RWKV output group norm); every other floating
+# parameter is cast to the activation dtype at each use
+F32_PARAMS = frozenset({"scale", "w0", "w_b", "u", "ln_out_scale", "ln_out_bias"})
+
+
+def cast_params(tree, dtype: torch.dtype) -> dict:
+    """Cast once, at load, what the model would cast to the activation
+    ``dtype`` at every use (``p["wq"].to(x.dtype)``): the same bits, without
+    a fresh copy of every weight in every step.  Leaves named in
+    :data:`F32_PARAMS` keep their dtype."""
+
+    def walk(t):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else v if k in F32_PARAMS or not v.is_floating_point()
+                    else v.to(dtype))
+                for k, v in t.items()}
+
+    return walk(tree)
+

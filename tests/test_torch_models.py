@@ -1,0 +1,190 @@
+"""The port's model serving path (configs, params, transformer, serve_smoke)
+against the JAX reference, for the two architectures this slice ports.
+
+``granite_3_2b`` (dense GQA attention, K3) and ``rwkv6_3b`` (RWKV-6, K4)
+run in their reduced configs with f32 activations, on the reference's own
+``init_params`` arrays carried across by ``params_from_numpy``.  Prefill
+logits and caches and four decode steps agree at 1e-4 (f32, summed in
+another order); greedy tokens are equal.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import registry as jreg
+from repro.launch import serve as jserve
+from repro.launch.steps import DistConfig, make_ctx
+from repro.models import transformer as jT
+from repro.models.params import init_params as jinit_params
+from repro_torch.configs import registry as treg
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as tT
+from repro_torch.models.layers import Ctx
+from repro_torch.models.params import (cast_params, init_params, params_from_numpy,
+                                       tree_leaves)
+
+CPU = torch.device("cpu")
+ARCHS = ["granite_3_2b", "rwkv6_3b"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, S, STEPS = 2, 12, 4
+
+
+def _cfgs(arch):
+    jcfg = dataclasses.replace(jreg.get_config(arch).smoke(), activation_dtype="float32")
+    tcfg = dataclasses.replace(treg.get_config(arch).smoke(), activation_dtype="float32")
+    return jcfg, tcfg
+
+
+def _ref_params(jcfg, seed=0):
+    return jinit_params(jT.model_param_specs(jcfg, tp=1), jax.random.PRNGKey(seed))
+
+
+def _np_leaves(tree):
+    """Leaves in sorted-key order as numpy (works on both packages' trees)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
+    if isinstance(tree, torch.Tensor):
+        return [tree.float().numpy().copy()]
+    return [np.asarray(tree, np.float32)]
+
+
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
+def test_copied_configs_equal_the_reference(arch):
+    jcfg, tcfg = jreg.get_config(arch), treg.get_config(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tcfg.smoke()) == dataclasses.asdict(jcfg.smoke())
+    assert tcfg.padded_vocab(1) == jcfg.padded_vocab(1)
+    assert treg.ARCH_IDS == jreg.ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_tree_matches_the_reference(arch):
+    jcfg, tcfg = _cfgs(arch)
+    jspecs = jT.model_param_specs(jcfg, tp=1)
+    tspecs = tT.model_param_specs(tcfg)
+    jshapes = [s.shape for s in jax.tree.leaves(jspecs, is_leaf=lambda x: hasattr(x, "axes"))]
+    assert [s.shape for s in tree_leaves(tspecs)] == jshapes
+    params = init_params(tspecs, torch.Generator().manual_seed(0))
+    assert [tuple(p.shape) for p in tree_leaves(params)] == jshapes
+    again = init_params(tspecs, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params), tree_leaves(again)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_the_reference(arch):
+    jcfg, tcfg = _cfgs(arch)
+    jparams = _ref_params(jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), CPU)
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    pctx = make_ctx(jcfg, None, "prefill", DistConfig())
+    dctx = make_ctx(jcfg, None, "decode", DistConfig(decode_seqpar=False))
+    tctx = Ctx(dtype=torch.float32)
+
+    jcache, jlogits = jT.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, pctx,
+                                 cache_len=S + STEPS)
+    with torch.inference_mode():
+        tcache, tlogits = tT.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg,
+                                     tctx, cache_len=S + STEPS)
+    assert tuple(tlogits.shape) == (B, tcfg.padded_vocab(1))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+    jl, tl = _np_leaves(jcache), _np_leaves(tcache)
+    assert [x.shape for x in tl] == [x.shape for x in jl]
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, **TOL)
+
+    tok = np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
+    assert np.array_equal(tlogits.argmax(-1).numpy(), tok)
+    with torch.inference_mode():
+        for i in range(STEPS):
+            jlogits, jcache = jT.decode_step(jparams, jcache, jnp.asarray(tok),
+                                             jnp.int32(S + i), jcfg, dctx)
+            tlogits, tcache = tT.decode_step(tparams, tcache, torch.from_numpy(tok),
+                                             S + i, tcfg, tctx)
+            np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
+            tok = np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
+            assert np.array_equal(tlogits.argmax(-1).numpy(), tok)
+    for a, b in zip(_np_leaves(tcache), _np_leaves(jcache)):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_smoke_tokens_equal_the_reference(arch):
+    jcfg, tcfg = _cfgs(arch)
+    want, _ = jserve.serve_smoke(jcfg, n_requests=B, prompt_len=S, decode_len=STEPS,
+                                 seed=0)
+    # the reference's serve_smoke draws these two from seed 0 and PRNGKey(0)
+    params = params_from_numpy(jax.tree.map(np.asarray, _ref_params(jcfg)), CPU)
+    batch = jreg.make_batch(jcfg, S, B, train=False)
+    tokens, stats = tserve.serve_smoke(
+        tcfg, n_requests=B, prompt_len=S, decode_len=STEPS, device="cpu", params=params,
+        batch={"tokens": torch.from_numpy(np.array(batch["tokens"]))})
+    assert tokens.shape == (B, STEPS + 1)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+    assert stats.logits_finite and stats.prefill_ms > 0 and stats.tokens_per_s > 0
+
+
+def test_serve_smoke_runs_from_its_own_seed_and_needs_cuda_by_default():
+    _, tcfg = _cfgs("rwkv6_3b")
+    a, _ = tserve.serve_smoke(tcfg, n_requests=2, prompt_len=5, decode_len=2, device="cpu")
+    b, _ = tserve.serve_smoke(tcfg, n_requests=2, prompt_len=5, decode_len=2, device="cpu")
+    assert torch.equal(a, b) and a.shape == (2, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.serve_smoke(tcfg, n_requests=1, prompt_len=2, decode_len=1)
+        with pytest.raises(SystemExit):
+            tserve.main(["--smoke", "--arch", "rwkv6_3b"])
+
+
+def test_make_batch_draws_from_the_generator():
+    _, tcfg = _cfgs("granite_3_2b")
+    a = treg.make_batch(tcfg, 7, 3, train=True, generator=torch.Generator().manual_seed(4))
+    b = treg.make_batch(tcfg, 7, 3, train=True, generator=torch.Generator().manual_seed(4))
+    assert set(a) == {"tokens", "labels"} and a["tokens"].shape == (3, 7)
+    assert a["tokens"].dtype == torch.int32
+    assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < tcfg.vocab
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_match_the_prefill_caches(arch):
+    _, tcfg = _cfgs(arch)
+    params = init_params(tT.model_param_specs(tcfg), torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        cache, _ = tT.prefill(params, {"tokens": torch.zeros(2, 6, dtype=torch.int32)},
+                              tcfg, Ctx(dtype=torch.float32), cache_len=9)
+    specs = tT.cache_specs(tcfg, 2, 9)
+    assert [s.shape for s in tree_leaves(specs)] == [tuple(t.shape) for t in
+                                                       tree_leaves(cache)]
+
+
+def test_cast_params_keeps_the_f32_parameters():
+    _, tcfg = _cfgs("rwkv6_3b")
+    params = init_params(tT.model_param_specs(tcfg), torch.Generator().manual_seed(0))
+    cast = cast_params(params, torch.bfloat16)
+    mixer = cast["unit"]["l0"]["mixer"]
+    assert mixer["wr"].dtype == torch.bfloat16 and cast["embed"].dtype == torch.bfloat16
+    for name in ("w0", "w_b", "u", "ln_out_scale", "ln_out_bias"):
+        assert mixer[name].dtype == torch.float32
+    assert cast["final_norm"]["scale"].dtype == torch.float32
+    assert torch.equal(mixer["wr"], params["unit"]["l0"]["mixer"]["wr"].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("variant", [
+    "minicpm3_4b", "jamba_1_5_large_398b", "granite_moe_3b_a800m", "whisper_large_v3",
+    "llava_next_mistral_7b", "deepseek_moe_16b", "granite_3_2b+softcap"])
+def test_unported_architectures_raise(variant):
+    """MLA, Mamba, MoE, enc-dec, VLM, a prefix of unstacked layers, and an
+    attention logit cap (which K3 does not take) all name their ROADMAP item."""
+    arch, _, extra = variant.partition("+")
+    cfg = treg.get_config(arch).smoke()
+    if extra:
+        cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tT.model_param_specs(cfg)
