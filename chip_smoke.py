@@ -195,8 +195,12 @@ def _strided(shape_bshd, dtype, gen):
 
 def check_flash(flash, ref, gen) -> float:
     """-> max |error| at the main path's shape.  Tolerances: the test
-    suite's, 2e-5 in f32 and 2e-2 in bf16 (rtol = atol; the outputs are
-    averages of unit-normal V, so of size ~1)."""
+    suite's elementwise 2e-5 in f32 and 2e-2 in bf16 (rtol = atol), and per
+    query row |got - plain| / |plain| (2-norms over hd) below 1e-4 in f32
+    and 1e-2 in bf16.  A causal row averages up to S values of unit-normal
+    V, so its entries shrink to ~0.05 at S = 2048; the elementwise bf16
+    tolerance alone would pass errors of half their size, the per-row one
+    holds each row to a few bf16 roundings of its own norm."""
     main_err = None
     B0, H0, K0, S0, hd0 = K3_SHAPE
     cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
@@ -222,12 +226,17 @@ def check_flash(flash, ref, gen) -> float:
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"flash_attention: {got.shape} {got.dtype}")
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        diff = got.float() - want.float()
+        err = diff.abs().max().item()
+        row_err = (diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+        tol, row_tol = (2e-2, 1e-2) if dt == torch.bfloat16 else (2e-5, 1e-4)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if not row_err < row_tol:
+            raise AssertionError(f"flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {dt}: "
+                                 f"row relative error {row_err} >= {row_tol}")
         print(f"[K3] flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
-              f"causal={causal} kv_len={kv_len} max_abs_err={err} "
-              f"(rtol=atol={tol:g}) ok")
+              f"causal={causal} kv_len={kv_len} max_abs_err={err} (rtol=atol={tol:g}) "
+              f"max_row_rel_err={row_err:.3e} (< {row_tol:g}) ok")
         if main_err is None:
             main_err = err
     return main_err
@@ -295,11 +304,14 @@ def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
     B, H, S, N = K4_SHAPE
     r, kk, vv, w, u = wkv6_inputs(B, H, S, N, gen)
     f32 = 4
-    # r, k, v, w read and o written, plus u read and the final state written;
-    # 7 f32 operations per state element per step (k v^T, + u k v^T, r^T.,
-    # and the decayed update)
+    # r, k, v, w read and o written, plus u read and the final state written.
+    # The least work per step: the bonus term factors out, o_t = r_t^T S +
+    # (sum_i r_i u_i k_i) v_t, so r^T S is 2 operations per state element and
+    # the update w S + k v^T 3 more; the factored term is 5 per column
+    # (r u k summed over i, then scaled by v and added to o)
     nbytes = (5 * B * H * S * N + H * N + B * H * N * N) * f32
-    bounds["wkv6"] = bound(7.0 * B * H * S * N * N, nbytes, peaks["f32"], peaks["bytes"])
+    flops = 5.0 * B * H * S * (N * N + N)
+    bounds["wkv6"] = bound(flops, nbytes, peaks["f32"], peaks["bytes"])
     times["wkv6"] = (time_ms(lambda: wkv6(r, kk, vv, w, u)),
                      time_ms(lambda: ref.wkv6(r, kk, vv, w, u), batches=3, per_batch=1),
                      None)  # no single PyTorch call computes the recurrence

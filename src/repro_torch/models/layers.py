@@ -30,14 +30,11 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Execution context: the activation dtype, and the reference's attention
-    chunk sizes.  The chunks pick the reference's attention branch (one
-    einsum below ``q_chunk``, blockwise above); both branches compute the
-    function K3 computes, so here they do not change the result."""
+    """Execution context: the activation dtype.  The reference's attention
+    chunk sizes are not taken: they pick one of two attention branches that
+    compute the same function, and the port sends both to one K3 call."""
 
     dtype: torch.dtype = torch.bfloat16
-    q_chunk: int = 512
-    kv_chunk: int = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +95,7 @@ def mlp(p, x, ctx: Ctx):
 # attention (K3)
 # ---------------------------------------------------------------------------
 
-def attention(q, k, v, *, causal: bool, ctx: Ctx):
+def attention(q, k, v, *, causal: bool):
     """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * G.  One K3 call on
     (B, heads, S, hd) views: no transposed copies, no K/V repeat.  The
     reference's query offset and logit cap are not taken: no configuration
@@ -156,7 +153,7 @@ def attn_block(p, x, cfg, ctx: Ctx, *, positions, causal=True):
     q, k, v = _qkv(p, x, cfg, ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=causal, ctx=ctx)
+    o = attention(q, k, v, causal=causal)
     return _out(o, p["wo"], x.dtype), (k, v)
 
 

@@ -133,8 +133,7 @@ def test_layers_attention_matches_reference_branches(chunk, seq):
     jctx = jL.Ctx(rules=TRAIN_RULES, dtype=jnp.float32, q_chunk=chunk, kv_chunk=chunk)
     expect = jL.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
                           ctx=jctx)
-    got = tL.attention(_t(q), _t(k), _t(v), causal=True,
-                       ctx=tL.Ctx(dtype=torch.float32, q_chunk=chunk, kv_chunk=chunk))
+    got = tL.attention(_t(q), _t(k), _t(v), causal=True)
     assert tuple(got.shape) == (B, seq, H, hd)
     np.testing.assert_allclose(_f32(got), _f32(expect), **F32)
 
