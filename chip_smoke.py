@@ -8,15 +8,18 @@ prints no result):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
-   together) and print ``ptxas``'s register and shared-memory report;
+   together) and print ``ptxas``'s registers, spills and shared memory of
+   each kernel; a K3 specialisation that spills fails the run;
 2. K1 (matmul) against its plain PyTorch version on the card: 2048^3 f32,
    the serving ``prefill`` operand ``x.T``, a ragged 2047x1999x1000 f32, and
    1024^3 bf16;
 3. K2 (matadd) bit-exact against its plain version: f32, bf16 and int32 at
    2048^2, (512, 384), (64, 128) and a ragged (33, 77);
-4. K3 (flash attention) against its plain version: f32 and bf16, causal and
-   not, ``kv_len`` < Sk and 0, Sq != Sk, GQA 32/8, ragged S = 33 and 77, and
-   the granite-3-2b prefill shape, on the model's strided (B, S, H, hd) views;
+4. K3 (flash attention) against its plain version: f32 and bf16 at head
+   dims 32, 64 and 128, causal and not, ``kv_len`` < Sk and 0, Sq != Sk both
+   ways, GQA 32/8 and 24/8, ragged S = 33 and 77, and the granite-3-2b and
+   minitron-4b prefill shapes, on the model's strided (B, S, H, hd) views;
+   a bf16 view whose last dimension is strided must raise ``ValueError``;
 5. K4 (WKV6) against its plain version, output and final state, at
    N = 32 and 64, S = 33 and 2048, and the rwkv6-3b prefill shape;
 6. each kernel's time at its main path's shape (median over batches
@@ -32,12 +35,13 @@ prints no result):
 9. a 2-layer, full-width cut of granite-3-2b and of rwkv6-3b in f32 (batch
    2, prompt 128, 4 decode steps), run on the card and on the CPU from the
    same parameters: prefill and decode logits compared;
-10. full-width serving through ``serve_smoke``: granite-3-2b, then
-   rwkv6-3b, 8 requests x 2048-token prompts, 32 greedy decode tokens, bf16
-   activations.  Counters set to 0 just before each model: K3 must have run
-   40 times per prefill (one per layer) and K4 32 times.  Then one prefill
-   and 4 decode steps of each model under ``torch.profiler``: device kernel
-   time against wall, and the kernels that take most of it.
+10. full-width serving through ``serve_smoke``: granite-3-2b, rwkv6-3b and
+   minitron-4b, 8 requests x 2048-token prompts, 32 greedy decode tokens,
+   bf16 activations.  Counters set to 0 just before each model: K3 must have
+   run once per layer of the prefill (40 for granite-3-2b at head_dim 64, 32
+   for minitron-4b at head_dim 128) and K4 32 times.  Then one prefill and 4
+   decode steps of granite-3-2b and rwkv6-3b under ``torch.profiler``:
+   device kernel time against wall, and the kernels that take most of it.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound; the last line is
@@ -81,12 +85,15 @@ REPLACES = {
     "wkv6": "src/repro/kernels/wkv6.py:52",
 }
 # the main paths' shapes: granite-3-2b prefill attention (8 requests x 2048
-# tokens, 32 query heads over 8 KV heads of 64) and rwkv6-3b prefill
-# recurrence (40 heads of 64)
+# tokens, 32 query heads over 8 KV heads of 64), minitron-4b's (24 over 8 of
+# 128) and rwkv6-3b prefill recurrence (40 heads of 64)
 SERVE = dict(n_requests=8, prompt_len=2048, decode_len=32)
 K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
+K3_MINITRON = (8, 24, 8, 2048, 128)
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
-SERVED = (("granite_3_2b", "flash_attention"), ("rwkv6_3b", "wkv6"))
+SERVED = (("granite_3_2b", "flash_attention"), ("rwkv6_3b", "wkv6"),
+          ("minitron_4b", "flash_attention"))
+CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b")  # also the profiled ones
 
 
 def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float
@@ -203,6 +210,7 @@ def check_flash(flash, ref, gen) -> float:
     holds each row to a few bf16 roundings of its own norm."""
     main_err = None
     B0, H0, K0, S0, hd0 = K3_SHAPE
+    Bm, Hm, Km, Sm, hdm = K3_MINITRON
     cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
         (B0, H0, K0, S0, S0, hd0, torch.bfloat16, True, None),
         (2, 32, 8, 2048, 2048, 64, torch.float32, True, None),
@@ -216,6 +224,19 @@ def check_flash(flash, ref, gen) -> float:
         (2, 4, 4, 192, 64, 32, torch.float32, False, None),
         (2, 32, 8, 33, 33, 64, torch.float32, True, None),
         (2, 32, 8, 77, 77, 64, torch.bfloat16, True, None),
+        # head_dim 128: minitron-4b's prefill shape, then the same classes
+        (Bm, Hm, Km, Sm, Sm, hdm, torch.bfloat16, True, None),
+        (2, 24, 8, 2048, 2048, 128, torch.float32, True, None),
+        (2, 24, 8, 77, 77, 128, torch.bfloat16, True, None),
+        (2, 24, 8, 77, 77, 128, torch.float32, True, None),
+        (1, 4, 4, 128, 128, 128, torch.float32, True, 77),
+        (1, 4, 4, 128, 128, 128, torch.bfloat16, False, 77),
+        (1, 4, 2, 96, 160, 128, torch.float32, True, 0),
+        (1, 4, 2, 96, 160, 128, torch.bfloat16, False, 0),
+        (2, 4, 4, 64, 192, 128, torch.bfloat16, True, None),
+        (2, 4, 4, 64, 192, 128, torch.float32, False, None),
+        (2, 4, 4, 192, 64, 128, torch.bfloat16, True, None),
+        (2, 4, 4, 192, 64, 128, torch.float32, False, None),
     ]
     for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
         q = _strided((B, Sq, H, hd), dt, gen)
@@ -239,6 +260,16 @@ def check_flash(flash, ref, gen) -> float:
               f"max_row_rel_err={row_err:.3e} (< {row_tol:g}) ok")
         if main_err is None:
             main_err = err
+    # TMA reads bf16 rows as contiguous 16-byte-aligned boxes: a strided last
+    # dimension is refused before any launch
+    x = _strided((1, 128, 4, 256), torch.bfloat16, gen)[..., ::2]
+    try:
+        flash(x, x, x)
+    except ValueError as e:
+        print(f"[K3] flash_attention bf16 view with last-dim stride {x.stride(-1)}: "
+              f"ValueError ({e}) ok")
+    else:
+        raise AssertionError("flash_attention took a bf16 view with a strided last dimension")
     return main_err
 
 
@@ -277,29 +308,33 @@ def check_wkv6(wkv6, ref, gen) -> float:
     return main_err
 
 
-def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
-    """-> ({kernel: (ms, plain ms, library ms or None)}, {kernel: bound}) at
-    the main paths' shapes."""
+def time_flash(flash, ref, gen, peaks, shape) -> tuple[tuple, tuple]:
+    """-> ((ms, plain ms, SDPA ms), bound) of K3 in bf16, causal, at
+    ``shape`` (B, H, K, S, hd) on the model's strided views."""
     import torch.nn.functional as F
 
-    B, H, K, S, hd = K3_SHAPE
+    B, H, K, S, hd = shape
     q = _strided((B, S, H, hd), torch.bfloat16, gen)
     k = _strided((B, S, K, hd), torch.bfloat16, gen)
     v = _strided((B, S, K, hd), torch.bfloat16, gen)
     # the library call: SDPA at Sq = Sk (where its top-left causal alignment
-    # is the reference's), K and V expanded to the 32 query heads outside
-    # the timed call
+    # is the reference's), K and V expanded to the query heads outside the
+    # timed call
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     pairs = B * H * S * (S + 1) / 2  # (query, key) pairs the causal mask keeps
     bf16 = 2
-    bounds = {"flash_attention": bound(4.0 * pairs * hd,
-                                       (2 * B * H * S * hd + 2 * B * K * S * hd) * bf16,
-                                       peaks["bf16"], peaks["bytes"])}
-    times = {"flash_attention": (
-        time_ms(lambda: flash(q, k, v, causal=True)),
-        time_ms(lambda: ref.flash_attention(q, k, v, causal=True), batches=3, per_batch=5),
-        time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)))}
-    del q, k, v, ke, ve
+    bnd = bound(4.0 * pairs * hd, (2 * B * H * S * hd + 2 * B * K * S * hd) * bf16,
+                peaks["bf16"], peaks["bytes"])
+    return (time_ms(lambda: flash(q, k, v, causal=True)),
+            time_ms(lambda: ref.flash_attention(q, k, v, causal=True), batches=3, per_batch=5),
+            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))), bnd
+
+
+def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
+    """-> ({kernel: (ms, plain ms, library ms or None)}, {kernel: bound}) at
+    the main paths' shapes (K3 at granite-3-2b's)."""
+    t, bnd = time_flash(flash, ref, gen, peaks, K3_SHAPE)
+    times, bounds = {"flash_attention": t}, {"flash_attention": bnd}
 
     B, H, S, N = K4_SHAPE
     r, kk, vv, w, u = wkv6_inputs(B, H, S, N, gen)
@@ -435,6 +470,45 @@ def profile_serving(arch: str, dev, steps: int = 4) -> None:
               + "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top))
 
 
+def build_report(build) -> None:
+    """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
+    static shared memory, and for K3 the dynamic shared memory it sets.
+    Raises when a K3 specialisation spills or is missing."""
+    import re
+
+    lib = build.library()
+    kernels, src, cur = [], None, None
+    for line in build.last_log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+            k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)E", name)
+            cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2)))}
+            kernels.append(cur)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            cur["spill"] = (int(m.group(1)), int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
+            cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
+    k3 = {}
+    for kern in kernels:
+        label = kern["name"]
+        if kern["k3"]:
+            dtype, hd = kern["k3"]
+            k3[kern["k3"]] = kern
+            label = f"flash_fwd<{dtype}, hd {hd}>"
+            kern["smem"] = (f"{kern['smem']} bytes static + "
+                            f"{lib.repro_flash_attention_smem(int(dtype == 'bf16'), hd)} dynamic")
+        print(f"[build] {kern['src']} {label}: {kern['regs']} registers, spill stores/loads "
+              f"{kern['spill'][0]}/{kern['spill'][1]} bytes, smem {kern['smem']}")
+    want = {(dt, hd) for dt in ("f32", "bf16") for hd in (32, 64, 128)}
+    if set(k3) != want:
+        raise AssertionError(f"K3 specialisations built {sorted(k3)}, want {sorted(want)}")
+    spilled = [key for key, kern in k3.items() if any(kern["spill"])]
+    if spilled:
+        raise AssertionError(f"K3 specialisations spill: {spilled}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -474,9 +548,7 @@ def main() -> int:
     _build.library()
     t_build = time.perf_counter() - t_build
     print(f"[build] {os.path.relpath(lib, ROOT)} in {t_build:.1f} s")
-    for line in _build.last_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    build_report(_build)
 
     # 2-5. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -512,12 +584,17 @@ def main() -> int:
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE)}
-    for k, (ms, plain, lib_ms) in times.items():
+    rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
+    # K3 at minitron-4b's prefill shape (head_dim 128), beside granite's
+    t, bnd = time_flash(flash_attention, ref, gen, peaks, K3_MINITRON)
+    minitron_k3_ms = t[0]
+    rows.insert(3, ("flash_attention", "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_MINITRON),
+                    t, bnd))
+    for k, shape, (ms, plain, lib_ms), (b_ms, b_by) in rows:
         lib_txt = "none (no single PyTorch call)" if lib_ms is None else f"{lib_ms:.4f} ms"
         extra = f"; host-paced kernel {paced[k]:.4f} ms/call" if k in paced else ""
-        print(f"[time] {k} {shapes[k]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib_txt}, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}){extra}; "
-              f"{smi}")
+        print(f"[time] {k} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}; {smi}")
 
     # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,
@@ -579,24 +656,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. the model's own context: 2 full-width layers, card against CPU
-    for arch, _ in SERVED:
+    for arch in CARD_VS_CPU:
         card_vs_cpu(arch, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. full-width serving, one model after the other
+    # 10. full-width serving, one model after the other; a kernel's launches
+    # in the JSON line are summed over the models it serves
     kernels_by_name = {"flash_attention": flash_attention, "wkv6": wkv6}
+    serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
+                 "minitron_4b": minitron_k3_ms}
     for arch, kname in SERVED:
         run = serve_full_width(arch, kernels_by_name[kname], dev, smi)
-        launches[kname] = run["launches"]
-        share = run["launches"] * times[kname][0] / run["prefill_ms"]
-        print(f"[serve] {arch}: {kname} launches x kernel time = "
-              f"{run['launches'] * times[kname][0]:.1f} ms, {share:.1%} of the prefill")
+        launches[kname] = launches.get(kname, 0) + run["launches"]
+        busy = run["launches"] * serve_kernel_ms[arch]
+        print(f"[serve] {arch}: {kname} launches x kernel time = {busy:.1f} ms, "
+              f"{busy / run['prefill_ms']:.1%} of the prefill")
         gc.collect()
         torch.cuda.empty_cache()
-        profile_serving(arch, dev)
-        gc.collect()
-        torch.cuda.empty_cache()
+        if arch in CARD_VS_CPU:
+            profile_serving(arch, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -8,85 +8,112 @@
 // from 0, also when Sq != Sk), masked logits set to -1e30, the probabilities
 // rounded to V's dtype before the P.V product, and out = acc / max(l, 1e-30).
 // A row whose keys are all masked (kv_len == 0) therefore averages V, as the
-// reference does.  Takes f32 or bf16; q, k, v and o are read and written
-// through their strides, so the model's (B, S, H, hd) activations need no
-// transposed copies.  GQA is native: query head h reads KV head h / G.
+// reference does.  GQA is native: query head h reads KV head h / G.  Head
+// dims 32, 64 and 128, in f32 or bf16.
 //
 // What bounds it on an H100: at the granite-3-2b prefill shape (B 8, H 32,
-// S 2048, hd 64, bf16, causal) the two products are 137 GFLOP against 168 MB
-// of q, k, v and o, so it is bound by operations: 0.14 ms at the dense bf16
-// tensor-core peak.  This kernel does its products as f32 FMAs on the CUDA
-// cores (exact products of bf16 inputs, f32 sums), so it cannot approach that
-// bound; tensor cores (mma.sync / wgmma) and TMA are later work.
+// S 2048, hd 64, bf16, causal) the two products are 137.5 GFLOP against
+// 168 MB of q, k, v and o, so it is bound by operations: 0.139 ms at the
+// dense bf16 tensor-core peak of 989 TFLOP/s.
 //
-// Design: one 128-thread block per (query block of 128 rows, head, batch),
-// one query row per thread with its q row and its accumulator in registers.
-// The block walks the key blocks in order, staging BK keys and values in
-// shared memory as f32; every thread reads them as broadcast float4s.  Keys
-// are scored 16 at a time, each group one online-softmax update.  The TPU
-// kernel's sequential kv grid axis with VMEM scratch becomes this in-block
-// loop.  Key blocks that the causal mask hides from every row of the block
-// are never loaded (the Pallas kernel's `pl.when` skip), nor are blocks past
-// kv_len; both contribute exactly 0 to a row that has a valid key.  When
-// kv_len == 0 no row has one, and every key is visited, as in the reference.
+// bf16 (the served path) runs on the tensor cores, as FlashAttention-3 does
+// without its extras.  One block of 384 threads covers 128 query rows of one
+// (batch, head): two consumer warpgroups of 64 rows each and one producer
+// warpgroup, which hands most of its registers to the consumers
+// (setmaxnreg: 24 and 240 a thread).  The producer's first thread loads Q
+// once and then the K and V tiles of 128 keys by TMA into a ring of three
+// stages, each guarded by a "full" and an "empty" mbarrier, so later tiles
+// arrive while one is computed.  The tensor maps are built on the host for
+// each call over the strided (B, S, heads, hd) storage, with a 128-byte
+// swizzle (two 64-wide boxes at hd 128; a 64-byte swizzle at hd 32); TMA's
+// zero fill gives the ragged tails past Sq and Sk.  Each consumer warpgroup
+// computes S = Q K^T with wgmma (both operands K-major in shared memory),
+// masks only the tiles that cross the causal diagonal, kv_len or Sk,
+// updates m and l in registers (row max and sum by shuffles within each quad
+// of the accumulator layout; l sums the unrounded p), rounds P to bf16 in
+// registers and adds P V with a second wgmma whose A operand is those
+// registers (the m64nBK accumulator fragment is the m64nHDk16 A fragment,
+// converted pairwise) and whose B is the V tile in shared memory, MN-major,
+// read transposed.  Each warpgroup issues tile i's S before tile i - 1's
+// P V, so its softmax of tile i runs while the tensor cores do that P V; the
+// two warpgroups also overlap each other's softmax and products.  The scale
+// times log2(e) is folded into exp2.  Query blocks are launched with the
+// most keys first, so the causal diagonal's heavy blocks do not finish last.
+//
+// f32 stays on the CUDA cores: the tensor cores take f32 only as TF32, which
+// keeps about three decimal digits and cannot hold f32's 2e-5.  Each query
+// row's q and accumulator live in the registers of one thread (hd 32, 64) or
+// two (hd 128, each holding half and adding the partial dots by one
+// shuffle), and the products are exact f32 FMAs over K and V tiles staged in
+// shared memory.  No served path runs it.
+//
+// Blocks are skipped (causal, or past kv_len) only when kv_len > 0: then
+// every row has a valid key and a skipped key would add exactly 0.  With
+// kv_len == 0 every key is visited, as in the reference.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 128;  // query rows per block, one per thread
-constexpr int SUB = 16;  // keys per online-softmax update
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the reference's `p.astype(v.dtype)`
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
+constexpr float NEG_INF = -1e30f;  // the reference's mask value
 
 struct Strides {
   long long b, h, s, d;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(BQ)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int G, int Sq, int Sk,
-              int kv_len, int causal, float scale, Strides sq, Strides sk,
-              Strides sv, Strides so) {
-  constexpr int BK = 64;  // keys staged per tile: both tiles fit in 32 KB at HD 64
+// ---------------------------------------------------------------------------
+// f32: exact FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BQ = 128;  // query rows per block
+constexpr int SUB = 16;  // keys per online-softmax update
+
+template <int HD>
+struct Cfg {
+  static constexpr int SPLIT = HD > 64 ? 2 : 1;  // threads per query row
+  static constexpr int HP = HD / SPLIT;          // hd values each of them holds
+  static constexpr int BK = HD > 64 ? 32 : 64;   // keys staged per tile: 32 KB
+  static constexpr int THREADS = BQ * SPLIT;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS)
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int G, int Sq, int Sk,
+              int kv_len, int causal, float scale, Strides sq, Strides sk, Strides sv,
+              Strides so) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK;
+  constexpr int HP = C::HP;
   __shared__ __align__(16) float Ks[BK][HD];
   __shared__ __align__(16) float Vs[BK][HD];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int row = q0 + threadIdx.x;
+  const int row = q0 + threadIdx.x / C::SPLIT;
+  const int d0 = (threadIdx.x % C::SPLIT) * HP;
+  const int warp_last_row = q0 + (threadIdx.x | 31) / C::SPLIT;
   const bool live_row = row < Sq;
 
-  float qr[HD];
+  float qr[HP];
   {
-    const T* qp = q + b * sq.b + h * sq.h + (long long)row * sq.s;
+    const float* qp = q + b * sq.b + h * sq.h + (long long)row * sq.s;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = live_row ? to_f32(qp[d * sq.d]) : 0.0f;
+    for (int d = 0; d < HP; ++d) qr[d] = live_row ? qp[(d0 + d) * sq.d] : 0.0f;
   }
-  float acc[HD];
+  float acc[HP];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
+  for (int d = 0; d < HP; ++d) acc[d] = 0.0f;
   float m = NEG_INF;
   float l = 0.0f;
 
@@ -96,25 +123,26 @@ __global__ void __launch_bounds__(BQ)
   int k_end = any_valid ? kv_len : Sk;
   if (causal && any_valid) k_end = min(k_end, q0 + BQ);
   const int hk = h / G;
-  const T* kp = k + b * sk.b + hk * sk.h;
-  const T* vp = v + b * sv.b + hk * sv.h;
+  const float* kp = k + b * sk.b + hk * sk.h;
+  const float* vp = v + b * sv.b + hk * sv.h;
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     const int nj = min(BK, k_end - k0);
     __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * HD; e += BQ) {
+    for (int e = threadIdx.x; e < BK * HD; e += C::THREADS) {
       const int j = e / HD;
       const int d = e % HD;
       const long long key = k0 + j;
       const bool ok = j < nj;
-      Ks[j][d] = ok ? to_f32(kp[key * sk.s + d * sk.d]) : 0.0f;
-      Vs[j][d] = ok ? to_f32(vp[key * sv.s + d * sv.d]) : 0.0f;
+      Ks[j][d] = ok ? kp[key * sk.s + d * sk.d] : 0.0f;
+      Vs[j][d] = ok ? vp[key * sv.s + d * sv.d] : 0.0f;
     }
     __syncthreads();
 
     for (int j0 = 0; j0 < nj; j0 += SUB) {
-      // a group wholly past this row's diagonal adds exactly 0 to it
-      if (causal && any_valid && k0 + j0 > row) break;
+      // a group wholly past the diagonal of every row of the warp adds
+      // exactly 0 to them (the break is warp-uniform for the shuffle below)
+      if (causal && any_valid && k0 + j0 > warp_last_row) break;
       float s[SUB];
       float mx = NEG_INF;
 #pragma unroll
@@ -123,13 +151,14 @@ __global__ void __launch_bounds__(BQ)
         const int key = k0 + j;
         float dot = 0.0f;
 #pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][d]);
+        for (int d = 0; d < HP; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][d0 + d]);
           dot = fmaf(qr[d], kk.x, dot);
           dot = fmaf(qr[d + 1], kk.y, dot);
           dot = fmaf(qr[d + 2], kk.z, dot);
           dot = fmaf(qr[d + 3], kk.w, dot);
         }
+        if (C::SPLIT == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         const bool valid = key < kv_len && (!causal || key <= row);
         // a slot past the staged keys does not exist: -inf gives it p = 0
         s[jj] = j < nj ? (valid ? dot * scale : NEG_INF) : -INFINITY;
@@ -139,20 +168,19 @@ __global__ void __launch_bounds__(BQ)
       const float corr = expf(m - m_new);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= corr;
+      for (int d = 0; d < HP; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         const float p = expf(s[jj] - m_new);
         l += p;
-        const float pr = round_to<T>(p);
-        const float* vrow = Vs[j0 + jj];
+        const float* vrow = &Vs[j0 + jj][d0];
 #pragma unroll
-        for (int d = 0; d < HD; d += 4) {
+        for (int d = 0; d < HP; d += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(&vrow[d]);
-          acc[d] = fmaf(pr, vv.x, acc[d]);
-          acc[d + 1] = fmaf(pr, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(pr, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(pr, vv.w, acc[d + 3]);
+          acc[d] = fmaf(p, vv.x, acc[d]);
+          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
+          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
+          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
         }
       }
       m = m_new;
@@ -161,39 +189,409 @@ __global__ void __launch_bounds__(BQ)
 
   if (live_row) {
     const float inv = 1.0f / fmaxf(l, 1e-30f);
-    T* op = o + b * so.b + h * so.h + (long long)row * so.s;
+    float* op = o + b * so.b + h * so.h + (long long)row * so.s;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) op[d * so.d] = from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < HP; ++d) op[(d0 + d) * so.d] = acc[d] * inv;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int G, int Sq, int Sk, int kv_len, int causal, const long long* st,
-           cudaStream_t stream) {
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
+           int Sq, int Sk, int kv_len, int causal, const long long* st, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  flash_fwd<T, HD><<<grid, BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), G, Sq, Sk, kv_len, causal, scale, sq, sk, sv, so);
+  flash_fwd<HD><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, kv_len, causal,
+      scale, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_head_dim(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                int H, int G, int Sq, int Sk, int kv_len, int causal,
-                const long long* st, cudaStream_t s) {
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace bf16 {
+
+using namespace hopper;
+
+constexpr int BQ = 128;          // query rows per block
+constexpr int STAGES = 3;        // K/V tiles in flight
+constexpr int CONSUMERS = 2;     // warpgroups of 64 query rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // and one producer warpgroup
+// registers a thread of each role keeps (setmaxnreg): the producer gives
+// its share to the consumers, 128 * 24 + 256 * 240 <= 65536
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int BK = 128;                  // keys per tile
+  static constexpr int RB = HD >= 64 ? 128 : 64;  // bytes per swizzled row of a box
+  static constexpr int BOX = RB / 2;              // hd values per box
+  static constexpr int NBOX = HD / BOX;           // boxes per row: 1, 1, 2
+  static constexpr uint32_t SWIZZLE = RB == 128 ? SWIZZLE_128B : SWIZZLE_64B;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
+  // Q, the ring of K and V tiles, 3 + 2 * STAGES mbarriers' worth of room,
+  // and slack to align the base to the 1024 bytes a 128-byte swizzle repeats
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The m64nN accumulator fragment: thread t of the warpgroup holds, for each
+// 8-column block n, d[4n + 2i + j] = (row 16 (t / 32) + (t % 32) / 4 + 8 i,
+// column 8 n + 2 (t % 4) + j).
+
+// One online-softmax step on the S tile in `s` (raw dots): afterwards s
+// holds p, m and l (this thread's partial sums) are updated, and corr[i] is
+// the factor by which the O rows (i = 0: row0, 1: row0 + 8) must be scaled.
+// MASK: logits of masked keys become -1e30, of slots past Sk -inf; the
+// others are scaled.
+template <bool MASK, int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float scale_log2, int row0,
+                                             int key0, int Sk, int kv_len, int causal) {
+  float sl = scale_log2;
+  if (MASK) {
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      const int row = row0 + 8 * ((e >> 1) & 1);
+      const int key = key0 + 8 * (e >> 2) + (e & 1);
+      const bool valid = key < kv_len && (!causal || key <= row);
+      s[e] = valid ? s[e] * scale_log2 : (key < Sk ? NEG_INF : -INFINITY);
+    }
+    sl = 1.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+      mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx * sl);
+    corr[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = ex2(fmaf(s[4 * n + 2 * i + j], sl, -m_new));
+        s[4 * n + 2 * i + j] = p;
+        sum += p;
+      }
+    }
+    l[i] = l[i] * corr[i] + sum;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
+              int G, int Sq, int Sk, int kv_len, int causal, float scale_log2, Strides so) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t bars = sKV + 2 * STAGES * C::KV_BYTES;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the most keys first
+  const bool any_valid = kv_len > 0;
+  int k_end = any_valid ? kv_len : Sk;
+  if (causal && any_valid) k_end = min(k_end, q0 + BQ);
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {  // the producer warpgroup: one thread works
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      prefetch_tensormap(&qmap);
+      prefetch_tensormap(&kmap);
+      prefetch_tensormap(&vmap);
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int r = 0; r < C::NBOX; ++r)
+        tma_load_4d(sQ + r * BQ * C::RB, &qmap, q_full, r * C::BOX, q0, h, b);
+      const int hk = h / G;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * C::KV_BYTES);
+        const uint32_t sK = sKV + 2 * s * C::KV_BYTES;
+        for (int r = 0; r < C::NBOX; ++r) {
+          tma_load_4d(sK + r * BK * C::RB, &kmap, full(s), r * C::BOX, i * BK, hk, b);
+          tma_load_4d(sK + C::KV_BYTES + r * BK * C::RB, &vmap, full(s), r * C::BOX, i * BK,
+                      hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  const int wg_first = q0 + 64 * wg;
+  const int row0 = wg_first + 16 * (t / 32) + (t % 32) / 4;  // and row0 + 8
+  const int col0 = 2 * (t % 4);                              // and + 1, in each 8 block
+  float acc[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) acc[e] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+
+  // with BK == BQ every tile holds a key at or before some row of each
+  // warpgroup, so both warpgroups compute every tile
+  static_assert(BK == BQ, "a tile wholly past a warpgroup's diagonal would need a skip");
+  float sacc[BK / 2];
+  uint32_t pa[BK / 16][4];  // P of the previous tile, bf16 pairs
+
+  // O += P V for the tile in stage `s`: BK / 16 steps of k16 over the keys,
+  // P from registers, V's 16 key rows of each step read transposed
+  // (MN-major); at hd 128 the two boxes of a row are one leading offset apart
+  auto issue_pv = [&](int s) {
+    const uint32_t sV = sKV + (2 * s + 1) * C::KV_BYTES;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+      wgmma_rs(acc, pa[c], make_desc(sV + 16 * c * C::RB, BK * C::RB, 8 * C::RB, C::SWIZZLE));
+    wgmma_commit();
+  };
+
+  // S = Q K^T for tile i: HD / 16 steps of k16; a step's 32 bytes sit
+  // within one swizzled row of a box, so its descriptor is the box's plus
+  // the offset
+  auto issue_s = [&](int i) {
+    const uint32_t sK = sKV + 2 * (i % STAGES) * C::KV_BYTES;
+    mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int box = kk * 32 / C::RB;
+      const int off = (kk * 32) % C::RB;
+      const uint64_t da =
+          make_desc(sQ + box * BQ * C::RB + 64 * wg * C::RB + off, 16, 8 * C::RB, C::SWIZZLE);
+      const uint64_t db = make_desc(sK + box * BK * C::RB + off, 16, 8 * C::RB, C::SWIZZLE);
+      wgmma_ss(sacc, da, db, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O *= corr, then P (in sacc) rounded to the bf16 pairs of the A fragment
+  auto rescale_and_pack = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * n + e] *= corr[e >> 1];
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[c][r] = pack_bf16(sacc[8 * c + 2 * r], sacc[8 * c + 2 * r + 1]);
+    }
+  };
+  // Tile i > 0, software-pipelined: S of tile i is issued ahead of P V of
+  // tile i - 1, and tile i's softmax runs while the tensor cores do that
+  // P V.  Nothing branches while that P V is in flight (ptxas would
+  // serialise the wgmmas), so the masked and unmasked tiles run in two
+  // loops, each with its own softmax.
+  auto pipelined = [&](int i, auto mask) {
+    issue_s(i);
+    issue_pv((i - 1) % STAGES);
+    wgmma_wait<1>();  // S done; P V of tile i - 1 may still run
+    reg_fence(sacc);
+    float corr[2];
+    softmax_step<decltype(mask)::value>(sacc, m, l, corr, scale_log2, row0, i * BK + col0, Sk,
+                                        kv_len, causal);
+    wgmma_wait<0>();  // P V of tile i - 1 is done: its stage and pa are free
+    reg_fence(acc);
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) reg_fence(pa[c]);
+    if (lane == 0) mbar_arrive(empty((i - 1) % STAGES));
+    rescale_and_pack(corr);
+  };
+
+  // tiles [0, n_plain) need no mask: all their keys are below kv_len and
+  // at or before every row of this warpgroup
+  int n_plain = 0;
+  if (any_valid) n_plain = min(n_tiles, causal ? min(kv_len, wg_first + 1) / BK : kv_len / BK);
+
+  mbar_wait(q_full, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  reg_fence(sacc);
+  {
+    float corr[2];
+    if (n_plain > 0)
+      softmax_step<false>(sacc, m, l, corr, scale_log2, row0, col0, Sk, kv_len, causal);
+    else
+      softmax_step<true>(sacc, m, l, corr, scale_log2, row0, col0, Sk, kv_len, causal);
+    rescale_and_pack(corr);
+  }
+  for (int i = 1; i < n_plain; ++i) pipelined(i, std::false_type());
+  for (int i = max(1, n_plain); i < n_tiles; ++i) pipelined(i, std::true_type());
+  wgmma_fence();
+  issue_pv((n_tiles - 1) % STAGES);
+  wgmma_wait<0>();
+  reg_fence(acc);
+
+  // out = O / max(l, 1e-30), l summed over the quad that shares each row
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float inv = 1.0f / fmaxf(li, 1e-30f);
+    const int row = row0 + 8 * i;
+    if (row < Sq) {
+      __nv_bfloat16* op = o + b * so.b + h * so.h + (long long)row * so.s + col0;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library needs no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a rank-4 map over the (B, heads, S, hd) view with element strides `st`
+// (b, h, s, d; d == 1), boxes of `rows` rows by BOX hd values
+template <int HD>
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S, int heads, int B,
+              const long long* st, int rows) {
+  using C = Cfg<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::BOX, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         C::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G, int Sq,
+           int Sk, int kv_len, int causal, const long long* st, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  if (!make_map<HD>(enc, &qm, q, Sq, H, B, st, BQ) ||
+      !make_map<HD>(enc, &km, k, Sk, H / G, B, st + 4, C::BK) ||
+      !make_map<HD>(enc, &vm, v, Sk, H / G, B, st + 8, C::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the dynamic shared memory above 48 KB, set once on each device
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set >> dev & 1ull)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set |= 1ull << dev;
+  }
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  const Strides so{st[12], st[13], st[14], st[15]};
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
+  flash_fwd<HD><<<grid, THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), H,
+                                                   G, Sq, Sk, kv_len, causal, scale_log2, so);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bf16
+
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                         int, int, const long long*, cudaStream_t);
+
+int dynamic_smem(int dtype, int hd) {
+  if (dtype != 1) return 0;
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, st, s);
+      return bf16::Cfg<32>::SMEM;
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, st, s);
+      return bf16::Cfg<64>::SMEM;
+    case 128:
+      return bf16::Cfg<128>::SMEM;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return -1;
+  }
+}
+
+LaunchFn pick(int dtype, int hd) {
+  const bool f = dtype == 0;
+  switch (hd) {
+    case 32:
+      return f ? f32::launch<32> : bf16::launch<32>;
+    case 64:
+      return f ? f32::launch<64> : bf16::launch<64>;
+    case 128:
+      return f ? f32::launch<128> : bf16::launch<128>;
+    default:
+      return nullptr;
   }
 }
 
@@ -201,22 +599,22 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v, void* o, in
 
 // o (B, H, Sq, hd) = attention of q (B, H, Sq, hd) over k, v (B, H / G, Sk, hd).
 // `strides` holds 16 element strides: (b, h, s, d) of q, k, v and o in turn.
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64}; 0 <= kv_len <= Sk
-// (Sk when every key is valid).  Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
-extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* o, int B, int H, int G,
-                                     int Sq, int Sk, int hd, int kv_len, int causal,
-                                     const long long* strides, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return by_head_dim<float>(hd, q, k, v, o, B, H, G, Sq, Sk, kv_len, causal,
-                                strides, s);
-    case 1:
-      return by_head_dim<__nv_bfloat16>(hd, q, k, v, o, B, H, G, Sq, Sk, kv_len,
-                                        causal, strides, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// dtype: 0 = float32 (any strides), 1 = bfloat16 (d strides 1, the others and
+// the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 128};
+// 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536.
+// Launches on `stream` and returns a cudaError_t (0 when the launch was
+// accepted).
+extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
+                                     void* o, int B, int H, int G, int Sq, int Sk, int hd,
+                                     int kv_len, int causal, const long long* strides,
+                                     void* stream) {
+  const LaunchFn fn = (dtype == 0 || dtype == 1) ? pick(dtype, hd) : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, strides,
+            static_cast<cudaStream_t>(stream));
 }
+
+// bytes of dynamic shared memory a block of the (dtype, hd) kernel takes
+// (0 for float32, which has only static shared memory; -1 for a pair that
+// is not built)
+extern "C" int repro_flash_attention_smem(int dtype, int hd) { return dynamic_smem(dtype, hd); }

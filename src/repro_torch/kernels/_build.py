@@ -3,8 +3,9 @@
 Every ``*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 an object of its own, all at once in parallel, and the objects are linked
 into one shared library with a plain C interface that :mod:`ctypes` loads.
-The library's name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the cached library.  The build
+The library's name carries a hash of the sources, the headers they include
+(``*.cuh``, not compiled on their own) and the flags, so an edited source or
+header rebuilds and an unchanged tree loads the cached library.  The build
 runs at the first kernel launch, never at import, into ``csrc/build/``
 (listed in ``.gitignore``).
 
@@ -47,6 +48,8 @@ SIGNATURES = {
     "repro_matadd": (_I, _P, _P, _P, _L, _P),
     # dtype, q, k, v, o, B, H, G, Sq, Sk, hd, kv_len, causal, strides[16], stream
     "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LP, _P),
+    # dtype, hd -> bytes of dynamic shared memory of that kernel
+    "repro_flash_attention_smem": (_I, _I),
     # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _P),
 }
@@ -70,9 +73,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in [*srcs, *headers()]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

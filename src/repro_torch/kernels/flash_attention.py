@@ -8,6 +8,11 @@ float32 or bfloat16 CUDA tensors; the semantics are
 read and written through their strides: the output is allocated in the
 model's ``(B, Sq, H, hd)`` layout and returned as its ``(B, H, Sq, hd)``
 view, so ``o.transpose(1, 2)`` is contiguous.
+
+bf16 runs on the tensor cores and reads q, k and v by TMA, which takes a
+layout only when the last dimension is contiguous and every other stride
+and each base address is a multiple of 16 bytes: the model's views are.
+Any other bf16 layout raises ``ValueError``; f32 takes any strides.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)  # for both dtypes
 _INT_MAX = 2**31 - 1
+_BQ = 128  # query rows per block; blocks per (batch, head) stay below 2**16
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -43,9 +49,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"q {tuple(q.shape)} (KV heads must divide query heads)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    if Sk == 0 or max(B, H, Sq, Sk) > _INT_MAX:
-        raise ValueError(f"flash_attention kernel needs 0 < Sk and int32 sizes: "
-                         f"{(B, H, Sq, Sk)}")
+    if Sk == 0 or max(B * H, Sq, Sk) > _INT_MAX or -(-Sq // _BQ) >= 2**16:
+        raise ValueError(f"flash_attention kernel needs 0 < Sk, int32 sizes and "
+                         f"Sq < {_BQ * (2**16 - 1)}: {(B, H, Sq, Sk)}")
+    if q.dtype == torch.bfloat16:
+        _check_tma_layout(q, k, v)
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B == 0 or H == 0 or Sq == 0:
@@ -63,3 +71,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0  # kernel launches since the last reset to 0
+
+
+def _check_tma_layout(*ts: torch.Tensor) -> None:
+    for name, t in zip("qkv", ts):
+        nbytes = t.element_size()
+        if (t.stride(-1) != 1 or any(st * nbytes % 16 for st in t.stride()[:-1])
+                or t.data_ptr() % 16):
+            raise ValueError(f"flash_attention kernel (bf16) needs {name} with a contiguous "
+                             f"last dimension, other strides and the base address 16-byte "
+                             f"aligned, got strides {t.stride()}")

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from .flash_attention import HEAD_DIMS
 from .flash_attention import flash_attention as _flash_kernel
 from .matadd import matadd as _matadd_kernel
 from .matmul import matmul as _matmul_kernel
@@ -42,16 +43,21 @@ def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
 
 def warm_up(device) -> None:
     """Build and load the CUDA kernels and launch each once at a tiny shape,
-    so that the one-time costs (the ``nvcc`` build, loading the library and
-    its modules) stay out of a timed run.  A no-op for a CPU device."""
+    K3 once in each dtype and head dim it is built for, so that the one-time
+    costs (the ``nvcc`` build, loading the library and each kernel's module,
+    K3's shared-memory setting) stay out of a timed run.  A no-op for a CPU
+    device."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     x = torch.zeros(8, 8, device=device)
     _matmul_kernel(x, x.T)
     _matadd_kernel(x, x)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in HEAD_DIMS:
+            a = torch.zeros(1, 1, 8, hd, device=device, dtype=dtype)
+            _flash_kernel(a, a, a)
     a = torch.zeros(1, 1, 8, 32, device=device)
-    _flash_kernel(a, a, a)
     _wkv6_kernel(a, a, a, a, a[0, 0, :1])
     torch.cuda.synchronize(device)
 

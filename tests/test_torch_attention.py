@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro.models import layers as jL
 from repro.parallel.sharding import TRAIN_RULES
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import HEAD_DIMS, _check_tma_layout
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.models import layers as tL
 from repro_torch.models.params import params_from_numpy
@@ -52,11 +53,12 @@ def _qkv(B, H, K, Sq, Sk, hd, dtype, seed):
             _np((B, K, Sk, hd), dtype, seed + 2))
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("seq", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_matches_ref_and_pallas(causal, seq, dtype):
-    q, k, v = _qkv(2, 3, 3, seq, seq, 32, dtype, 0)
+def test_flash_attention_matches_ref_and_pallas(causal, seq, dtype, hd):
+    q, k, v = _qkv(2, 3, 3, seq, seq, hd, dtype, 0)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     expect_ref = jref.flash_attention(jq, jk, jv, causal=causal)
     expect_pl = pl_flash(jq, jk, jv, causal=causal, bq=32, bk=32, interpret=True)
@@ -149,3 +151,23 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
     x = torch.ones(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_flash(x, x, x)
+
+
+def test_flash_kernel_takes_head_dims_32_64_and_128():
+    """The served head dims: granite-3-2b's 64 and minitron-4b's 128."""
+    assert HEAD_DIMS == (32, 64, 128)
+
+
+def test_bf16_layout_check_takes_the_models_views_and_refuses_strided_rows():
+    """What TMA takes: a contiguous last dimension, 16-byte-aligned other
+    strides and base.  The model's (B, S, H, hd) activations seen as
+    (B, H, S, hd) pass; a strided last dimension or a misaligned row does not."""
+    for hd in HEAD_DIMS:
+        x = torch.zeros(2, 9, 4, hd, dtype=torch.bfloat16)
+        _check_tma_layout(x.transpose(1, 2), x[:, :, :2].transpose(1, 2))
+    x = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        _check_tma_layout(x[..., ::2].transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_tma_layout(x.view(1, 8, -1)[..., 4:4 + 2 * 120].view(1, 8, 2, 120)
+                          .transpose(1, 2))

@@ -166,3 +166,20 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert {s.name for s in _build.sources()} == {
         "matmul.cu", "matadd.cu", "flash_attention.cu", "wkv6.cu"}
     assert {n: len(a) for n, a in _build.SIGNATURES.items()} == found
+
+
+def test_build_digest_covers_the_included_headers(tmp_path, monkeypatch):
+    """An edited ``*.cuh`` must rebuild the library: the headers are not
+    compiled on their own, so only the digest sees them."""
+    from repro_torch.kernels import _build
+
+    assert [p.name for p in _build.headers()] == ["hopper.cuh"]
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "k.cuh"\n')
+    head = tmp_path / "k.cuh"
+    head.write_text("// v1\n")
+    before = _build._digest(_build.sources())
+    assert _build._digest(_build.sources()) == before
+    head.write_text("// v2\n")
+    assert _build._digest(_build.sources()) != before

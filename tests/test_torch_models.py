@@ -1,8 +1,10 @@
 """The port's model serving path (configs, params, transformer, serve_smoke)
-against the JAX reference, for the two architectures this slice ports.
+against the JAX reference, for the architectures the port serves.
 
-``granite_3_2b`` (dense GQA attention, K3) and ``rwkv6_3b`` (RWKV-6, K4)
-run in their reduced configs with f32 activations, on the reference's own
+``granite_3_2b`` (dense GQA attention, K3), ``rwkv6_3b`` (RWKV-6, K4) and
+``minitron_4b`` (dense GQA attention at its head_dim of 128, set on both
+packages' reduced configs) run in their reduced configs with f32
+activations, on the reference's own
 ``init_params`` arrays carried across by ``params_from_numpy``.  Prefill
 logits and caches and four decode steps agree at 1e-4 (f32, summed in
 another order); greedy tokens are equal.
@@ -31,14 +33,17 @@ from repro_torch.models.params import (cast_params, init_params, params_from_num
                                        tree_leaves)
 
 CPU = torch.device("cpu")
-ARCHS = ["granite_3_2b", "rwkv6_3b"]
+ARCHS = ["granite_3_2b", "rwkv6_3b", "minitron_4b"]
+# fields the reduced config resets that a served head dim depends on
+KEEP = {"minitron_4b": dict(head_dim=128)}
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 12, 4
 
 
 def _cfgs(arch):
-    jcfg = dataclasses.replace(jreg.get_config(arch).smoke(), activation_dtype="float32")
-    tcfg = dataclasses.replace(treg.get_config(arch).smoke(), activation_dtype="float32")
+    extra = dict(activation_dtype="float32", **KEEP.get(arch, {}))
+    jcfg = dataclasses.replace(jreg.get_config(arch).smoke(), **extra)
+    tcfg = dataclasses.replace(treg.get_config(arch).smoke(), **extra)
     return jcfg, tcfg
 
 
