@@ -8,11 +8,15 @@ prints no result):
 
 1. print the card's name and power limit (``nvidia-smi``), build the CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
-   together) and print ``ptxas``'s registers, spills and shared memory of
-   each kernel; a K3 specialisation that spills fails the run;
-2. K1 (matmul) against its plain PyTorch version on the card: 2048^3 f32,
-   the serving ``prefill`` operand ``x.T``, a ragged 2047x1999x1000 f32, and
-   1024^3 bf16;
+   together) and print ``ptxas``'s registers, spills and shared memory
+   (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
+   ``wgmma``s; a K1 ``wgmma`` or K3 specialisation that spills fails the run;
+2. K1 (matmul) against its plain PyTorch version on the card, each case
+   with the path the wrapper chose (``wgmma`` or ``fma``): 2048^3 f32 with a
+   row-major B (the MM DAG's layout) and with the serving ``prefill``
+   operand ``x.T``, 2048x1000x2048 f32 (K not a multiple of the 32-deep
+   k-block), a ragged 2047x1999x1000 f32 (the ``fma`` path), 1024^3 bf16
+   with a row-major B and with ``x.T``, and 512^3 with a transposed A;
 3. K2 (matadd) bit-exact against its plain version: f32, bf16 and int32 at
    2048^2, (512, 384), (64, 128) and a ragged (33, 77);
 4. K3 (flash attention) against its plain version: f32 and bf16 at head
@@ -31,7 +35,7 @@ prints no result):
    chunks, 5 steps, a worker drop at step 2, seed 0) at 2048 x 2048 f32
    blocks on ``cuda:0`` under all five policies.  Launch counters are set
    to 0 just before and read just after: every ``prefill`` must have been a
-   matmul launch and every ``decode`` a matadd launch;
+   matmul launch on its ``wgmma`` path and every ``decode`` a matadd launch;
 9. a 2-layer, full-width cut of granite-3-2b and of rwkv6-3b in f32 (batch
    2, prompt 128, 4 decode steps), run on the card and on the CPU from the
    same parameters: prefill and decode logits compared;
@@ -71,12 +75,13 @@ SIDE = 2048
 
 # published peaks of each H100 part (NVIDIA's H100 data sheet, dense rates
 # without sparsity, full power limit): f32 FLOP/s outside the tensor cores,
-# bf16 FLOP/s on the tensor cores, device memory bytes/s; the first key
-# found in torch's device name wins (SXM5 reports "NVIDIA H100 80GB HBM3")
+# bf16 and tf32 FLOP/s on the tensor cores (tf32 half the bf16 rate), device
+# memory bytes/s; the first key found in torch's device name wins (SXM5
+# reports "NVIDIA H100 80GB HBM3")
 PEAKS = (
-    ("H100 PCIe", {"f32": 51e12, "bf16": 756e12, "bytes": 2.0e12}),
-    ("H100 NVL", {"f32": 60e12, "bf16": 835e12, "bytes": 3.9e12}),
-    ("H100", {"f32": 67e12, "bf16": 989e12, "bytes": 3.35e12}),
+    ("H100 PCIe", {"f32": 51e12, "bf16": 756e12, "tf32": 378e12, "bytes": 2.0e12}),
+    ("H100 NVL", {"f32": 60e12, "bf16": 835e12, "tf32": 417.5e12, "bytes": 3.9e12}),
+    ("H100", {"f32": 67e12, "bf16": 989e12, "tf32": 494.5e12, "bytes": 3.35e12}),
 )
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:44",
@@ -140,21 +145,37 @@ def time_ms(fn, batches: int = 7, per_batch: int = 20, queued: bool = True) -> f
     return statistics.median(out)
 
 
+def _operand(rows, cols, dtype, transposed, gen):
+    """A (rows, cols) operand on the card, row-major or the transposed view
+    of a row-major (cols, rows) tensor."""
+    if transposed:
+        return torch.randn(cols, rows, device="cuda", generator=gen).to(dtype).T
+    return torch.randn(rows, cols, device="cuda", generator=gen).to(dtype)
+
+
 def check_matmul(matmul, ref, gen) -> float:
-    """-> max |error| at the main path's shape (2048^3 f32, B = x.T)."""
+    """-> max |error| at the main path's shape (2048^3 f32, B = x.T).  Each
+    case must take the path it names; f32 is also held to a float64 product
+    of the same inputs, for the record."""
+    from repro_torch.kernels.matmul import choose_path
+
     main_err = None
-    cases = [
-        (2048, 2048, 2048, torch.float32, False),
-        (2048, 2048, 2048, torch.float32, True),
-        (2047, 1999, 1000, torch.float32, False),
-        (1024, 1024, 1024, torch.bfloat16, False),
+    cases = [  # M, K, N, dtype, A transposed, B transposed, path
+        (2048, 2048, 2048, torch.float32, False, False, "wgmma"),
+        (2048, 2048, 2048, torch.float32, False, True, "wgmma"),
+        (2048, 1000, 2048, torch.float32, False, False, "wgmma"),
+        (2047, 1999, 1000, torch.float32, False, False, "fma"),
+        (1024, 1024, 1024, torch.bfloat16, False, False, "wgmma"),
+        (1024, 1024, 1024, torch.bfloat16, False, True, "wgmma"),
+        (512, 512, 512, torch.float32, True, False, "wgmma"),
+        (512, 512, 512, torch.bfloat16, True, True, "wgmma"),
     ]
-    for m, k, n, dt, transposed in cases:
-        a = torch.randn(m, k, device="cuda", generator=gen).to(dt)
-        if transposed:
-            b = torch.randn(n, k, device="cuda", generator=gen).to(dt).T
-        else:
-            b = torch.randn(k, n, device="cuda", generator=gen).to(dt)
+    for m, k, n, dt, a_t, b_t, want_path in cases:
+        a = _operand(m, k, dt, a_t, gen)
+        b = _operand(k, n, dt, b_t, gen)
+        path, _ = choose_path(dt, m, k, n, a.stride(), b.stride(), a.data_ptr(), b.data_ptr())
+        if path != want_path:
+            raise AssertionError(f"matmul {m}x{k}x{n} {dt}: path {path}, want {want_path}")
         got = matmul(a, b)
         want = ref.matmul(a, b)
         torch.cuda.synchronize()
@@ -163,10 +184,15 @@ def check_matmul(matmul, ref, gen) -> float:
         err = (got.float() - want.float()).abs().max().item()
         tol = mm_tol(k, dt)
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        print(f"[K1] matmul {m}x{k}x{n} {str(dt)[6:]} "
-              f"{'B=x.T ' if transposed else ''}max_abs_err={err} "
-              f"(rtol=atol={tol['rtol']:.2e}) ok")
-        if transposed and m == 2048:
+        f64 = ""
+        if dt == torch.float32:
+            exact = a.double() @ b.double()
+            f64 = (f"; against float64 kernel {(got.double() - exact).abs().max().item():.3e}, "
+                   f"plain {(want.double() - exact).abs().max().item():.3e}")
+        layout = f"A{'=x.T' if a_t else ' row-major'}, B{'=x.T' if b_t else ' row-major'}"
+        print(f"[K1] matmul {m}x{k}x{n} {str(dt)[6:]} {layout} path={path} max_abs_err={err} "
+              f"(rtol=atol={tol['rtol']:.2e}) ok{f64}")
+        if b_t and not a_t and m == 2048:
             main_err = err
     return main_err
 
@@ -472,41 +498,64 @@ def profile_serving(arch: str, dev, steps: int = 4) -> None:
 
 def build_report(build) -> None:
     """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
-    static shared memory, and for K3 the dynamic shared memory it sets.
-    Raises when a K3 specialisation spills or is missing."""
+    static shared memory, the dynamic shared memory K1's ``wgmma`` path and
+    K3 set, and whether ``ptxas`` serialised the kernel's ``wgmma``s (its
+    C7510-C7520 notes, which name the function).  Raises when a K1
+    ``wgmma`` or K3 specialisation spills or is missing."""
     import re
 
     lib = build.library()
-    kernels, src, cur = [], None, None
+    kernels, src, cur, serialised = [], None, None, set()
     for line in build.last_log.splitlines():
         if line.startswith("== "):
             src = line[3:].strip()
+        elif m := re.search(r"wgmma.mma_async instructions are serialized.*function '(\w+)'",
+                            line):
+            serialised.add(m.group(1))
         elif m := re.search(r"Compiling entry function '(\w+)'", line):
             name = m.group(1)
             k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)E", name)
-            cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2)))}
+            k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
+            cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2))),
+                   "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
+                                 "KM"[int(k1.group(2))], "KN"[int(k1.group(3))])}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
         elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
             cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
-    k3 = {}
+    k1, k3 = {}, {}
     for kern in kernels:
         label = kern["name"]
         if kern["k3"]:
             dtype, hd = kern["k3"]
             k3[kern["k3"]] = kern
             label = f"flash_fwd<{dtype}, hd {hd}>"
-            kern["smem"] = (f"{kern['smem']} bytes static + "
-                            f"{lib.repro_flash_attention_smem(int(dtype == 'bf16'), hd)} dynamic")
+            dynamic = lib.repro_flash_attention_smem(int(dtype == "bf16"), hd)
+            kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
+        elif kern["k1"]:
+            dtype, a_major, b_major = kern["k1"]
+            k1[kern["k1"]] = kern
+            label = f"mm_wgmma<{dtype}, A {a_major}-major, B {b_major}-major>"
+            dynamic = lib.repro_matmul_smem(int(dtype == "bf16"))
+            kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
+        elif "mm_fma" in kern["name"]:
+            label = f"mm_fma<{'bf16' if 'bfloat16' in kern['name'] else 'f32'}>"
+        elif m := re.search(r"(add_stream|add_scalar)I(f|i|13__nv_bfloat16)E", kern["name"]):
+            dtype = {"f": "f32", "i": "int32"}.get(m.group(2), "bf16")
+            label = f"{m.group(1)}<{dtype}>"
+        wgmma = ", wgmma serialised by ptxas" if kern["name"] in serialised else ""
         print(f"[build] {kern['src']} {label}: {kern['regs']} registers, spill stores/loads "
-              f"{kern['spill'][0]}/{kern['spill'][1]} bytes, smem {kern['smem']}")
+              f"{kern['spill'][0]}/{kern['spill'][1]} bytes, smem {kern['smem']}{wgmma}")
     want = {(dt, hd) for dt in ("f32", "bf16") for hd in (32, 64, 128)}
     if set(k3) != want:
         raise AssertionError(f"K3 specialisations built {sorted(k3)}, want {sorted(want)}")
-    spilled = [key for key, kern in k3.items() if any(kern["spill"])]
+    want = {(dt, a, b) for dt in ("f32", "bf16") for a in "KM" for b in "KN"}
+    if set(k1) != want:
+        raise AssertionError(f"K1 wgmma specialisations built {sorted(k1)}, want {sorted(want)}")
+    spilled = [key for key, kern in {**k1, **k3}.items() if any(kern["spill"])]
     if spilled:
-        raise AssertionError(f"K3 specialisations spill: {spilled}")
+        raise AssertionError(f"K1 wgmma or K3 specialisations spill: {spilled}")
 
 
 def main() -> int:
@@ -525,7 +574,8 @@ def main() -> int:
         raise ValueError(f"no published peaks on record for {name!r}; add them to PEAKS")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"f32 peak {peaks['f32'] / 1e12:g} TFLOP/s, bf16 tensor peak "
-          f"{peaks['bf16'] / 1e12:g} TFLOP/s, memory {peaks['bytes'] / 1e12:g} TB/s")
+          f"{peaks['bf16'] / 1e12:g} TFLOP/s, tf32 tensor peak {peaks['tf32'] / 1e12:g} "
+          f"TFLOP/s, memory {peaks['bytes'] / 1e12:g} TB/s")
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.arena import make_request_stream
@@ -533,7 +583,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matadd import matadd
-    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.matmul import matmul, reset_launches
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import request_dag, run_arena_executed
 
@@ -564,10 +614,13 @@ def main() -> int:
     bt = b.T
     f32 = a.element_size()
     block = SIDE * SIDE * f32  # each input read once, the output written once
+    # K1 in f32 is three TF32 passes on the tensor cores (3xTF32); the bound of
+    # the same product in IEEE f32 FMAs on the CUDA cores is printed beside it
     bounds = {
-        "matmul": bound(2.0 * SIDE**3, 3 * block, peaks["f32"], peaks["bytes"]),
+        "matmul": bound(3 * 2.0 * SIDE**3, 3 * block, peaks["tf32"], peaks["bytes"]),
         "matadd": bound(float(SIDE * SIDE), 3 * block, peaks["f32"], peaks["bytes"]),
     }
+    fma_bound = bound(2.0 * SIDE**3, 3 * block, peaks["f32"], peaks["bytes"])
     # the timing phase's launches are not the main path's: the counters are
     # reset to 0 right before each path below
     times = {
@@ -593,6 +646,9 @@ def main() -> int:
     for k, shape, (ms, plain, lib_ms), (b_ms, b_by) in rows:
         lib_txt = "none (no single PyTorch call)" if lib_ms is None else f"{lib_ms:.4f} ms"
         extra = f"; host-paced kernel {paced[k]:.4f} ms/call" if k in paced else ""
+        if k == "matmul":
+            b_by += (f", 3xTF32 at the tf32 tensor peak; IEEE f32 FMA bound "
+                     f"{fma_bound[0]:.4f} ms ({fma_bound[1]})")
         print(f"[time] {k} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}; {smi}")
 
@@ -616,7 +672,7 @@ def main() -> int:
     del a, b, bt, g, inputs, got, want
 
     # 8. the executed serving arena, counted
-    matmul.launches = 0
+    reset_launches()
     matadd.launches = 0
     wall0 = time.perf_counter()
     _, arena = run_arena_executed(
@@ -625,6 +681,7 @@ def main() -> int:
     torch.cuda.synchronize()
     arena_wall_ms = (time.perf_counter() - wall0) * 1e3
     launches = {"matmul": matmul.launches, "matadd": matadd.launches}
+    matmul_by_path = dict(matmul.launches_by_path)
     by_op = {"prefill": 0, "decode": 0}
     # the same stream's graphs (run_arena_executed's default churn)
     stream_nodes = sum(s.graph.num_nodes() for s in make_request_stream(
@@ -647,7 +704,11 @@ def main() -> int:
     if min(launches.values()) == 0 or (
             launches["matmul"] != by_op["prefill"] or launches["matadd"] != by_op["decode"]):
         raise AssertionError(f"launches {launches} != executed {by_op}")
-    print(f"[arena] launches {launches} == executed prefill/decode {by_op}; {smi}")
+    if matmul_by_path["wgmma"] != launches["matmul"]:
+        raise AssertionError(f"matmul launches by path {matmul_by_path}: every prefill must "
+                             f"run the wgmma path")
+    print(f"[arena] launches {launches} == executed prefill/decode {by_op}; matmul by path "
+          f"{matmul_by_path}; {smi}")
     kernel_ms = sum(launches[k] * times[k][0] for k in launches)
     print(f"[arena] wall {arena_wall_ms:.1f} ms for all policies; launches x kernel "
           f"time {kernel_ms:.1f} ms (device busy share ~{kernel_ms / arena_wall_ms:.1%})")
@@ -695,6 +756,8 @@ def main() -> int:
             "bound_by": bounds[k][1],
             "library_ms": lib_ms,
         })
+        if k == "matmul":
+            kernels[-1]["launches_by_path"] = matmul_by_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

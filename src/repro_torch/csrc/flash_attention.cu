@@ -490,31 +490,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query, so the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a rank-4 map over the (B, heads, S, hd) view with element strides `st`
 // (b, h, s, d; d == 1), boxes of `rows` rows by BOX hd values
 template <int HD>
@@ -537,7 +512,7 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G, int Sq,
            int Sk, int kv_len, int causal, const long long* st, cudaStream_t stream) {
   using C = Cfg<HD>;
-  const EncodeTiled enc = encoder();
+  const EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap qm, km, vm;
   if (!make_map<HD>(enc, &qm, q, Sq, H, B, st, BQ) ||

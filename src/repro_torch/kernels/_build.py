@@ -7,7 +7,8 @@ The library's name carries a hash of the sources, the headers they include
 (``*.cuh``, not compiled on their own) and the flags, so an edited source or
 header rebuilds and an unchanged tree loads the cached library.  The build
 runs at the first kernel launch, never at import, into ``csrc/build/``
-(listed in ``.gitignore``).
+(listed in ``.gitignore``); ``nvcc``'s output is kept beside the library
+(``.log``), so a run that loads the cached library still has it.
 
 Nothing here imports PyTorch's C++ headers: that keeps one build to a few
 seconds of ``nvcc`` instead of minutes.
@@ -42,8 +43,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
-    # dtype, a, b, c, M, N, K, sam, sak, sbk, sbn, stream
-    "repro_matmul": (_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P),
+    # dtype, path, a, b, c, M, N, K, sam, sak, sbk, sbn, stream
+    "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P),
+    # dtype -> bytes of dynamic shared memory of the wgmma kernel
+    "repro_matmul_smem": (_I,),
     # dtype, a, b, c, n, stream
     "repro_matadd": (_I, _P, _P, _P, _L, _P),
     # dtype, q, k, v, o, B, H, G, Sq, Sk, hd, kv_len, causal, strides[16], stream
@@ -88,11 +91,14 @@ def _digest(srcs: list[Path]) -> str:
 def build() -> Path:
     """Compile every source (one ``nvcc`` each, started together), link one
     ``.so``, and return its path; a cached library with the same hash is
-    reused.  Raises with ``nvcc``'s output when a step fails."""
+    reused, and :data:`last_log` read back from beside it.  Raises with
+    ``nvcc``'s output when a step fails."""
     global last_log
     srcs = sources()
     lib = BUILD_DIR / f"libreprokernels-{_digest(srcs)}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        last_log = log.read_text() if log.exists() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -126,6 +132,9 @@ def build() -> Path:
         )
         if link.returncode != 0:
             raise RuntimeError(f"linking {lib.name} failed:\n{link.stdout}")
+        tmp_log = Path(tmp) / log.name
+        tmp_log.write_text(last_log)
+        os.replace(tmp_log, log)  # before the library: a cached library has its log
         os.replace(tmp_lib, lib)  # atomic: concurrent builders never see half a file
     return lib
 

@@ -42,16 +42,23 @@ def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def warm_up(device) -> None:
-    """Build and load the CUDA kernels and launch each once at a tiny shape,
-    K3 once in each dtype and head dim it is built for, so that the one-time
-    costs (the ``nvcc`` build, loading the library and each kernel's module,
-    K3's shared-memory setting) stay out of a timed run.  A no-op for a CPU
-    device."""
+    """Build and load the CUDA kernels and launch each once at a tiny shape:
+    K1's ``wgmma`` path in each dtype and each operand layout (K-major or
+    MN-major A and B) and its ``fma`` path, K2, K3 in each dtype and head dim
+    it is built for, and K4, so that the one-time costs (the ``nvcc`` build,
+    loading the library and each kernel's module, the shared-memory
+    settings) stay out of a timed run.  A no-op for a CPU device."""
     device = torch.device(device)
     if device.type != "cuda":
         return
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(16, 16, device=device, dtype=dtype)
+        for a in (x, x.T):
+            for b in (x, x.T):
+                _matmul_kernel(a, b)
+        y = torch.zeros(16, 15, device=device, dtype=dtype)
+        _matmul_kernel(y, y.T)  # rows of 15 elements, not 16-byte multiples: fma
     x = torch.zeros(8, 8, device=device)
-    _matmul_kernel(x, x.T)
     _matadd_kernel(x, x)
     for dtype in (torch.float32, torch.bfloat16):
         for hd in HEAD_DIMS:

@@ -22,6 +22,7 @@ from repro.kernels.matmul import matmul as pl_matmul
 from repro_torch.core.executor import inputs_from_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.matadd import matadd as cuda_matadd
+from repro_torch.kernels.matmul import choose_path, reset_launches, tma_strides
 from repro_torch.kernels.matmul import matmul as cuda_matmul
 
 CPU = torch.device("cpu")
@@ -168,6 +169,24 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert {n: len(a) for n, a in _build.SIGNATURES.items()} == found
 
 
+def test_cached_library_keeps_its_build_log(tmp_path, monkeypatch):
+    """A second run loads the cached library without ``nvcc``; the
+    ``ptxas`` report that ``chip_smoke.py`` checks is read back from the log
+    the build left beside it."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "last_log", "")
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    lib = tmp_path / "build" / f"libreprokernels-{_build._digest(_build.sources())}.so"
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("== k.cu\nptxas info    : Used 32 registers\n")
+    assert _build.build() == lib
+    assert "Used 32 registers" in _build.last_log
+
+
 def test_build_digest_covers_the_included_headers(tmp_path, monkeypatch):
     """An edited ``*.cuh`` must rebuild the library: the headers are not
     compiled on their own, so only the digest sees them."""
@@ -183,3 +202,89 @@ def test_build_digest_covers_the_included_headers(tmp_path, monkeypatch):
     assert _build._digest(_build.sources()) == before
     head.write_text("// v2\n")
     assert _build._digest(_build.sources()) != before
+
+
+# The matmul kernel's path is a pure function of the dtype, the strides and
+# the pointers' alignment: `wgmma` where TMA can address both operands.
+_S = 2048
+_ALIGNED = 1 << 20  # a 16-byte-aligned address
+_PATH_CASES = {  # dtype, M, K, N, A strides, B strides, A pointer, B pointer -> path
+    "prefill x @ x.T": ((torch.float32, _S, _S, _S, (_S, 1), (1, _S), _ALIGNED, _ALIGNED),
+                        "wgmma"),
+    "MM DAG, row-major B": ((torch.float32, _S, _S, _S, (_S, 1), (_S, 1), _ALIGNED, _ALIGNED),
+                            "wgmma"),
+    "K = 1000, 16-byte rows": ((torch.float32, _S, 1000, _S, (1000, 1), (_S, 1), _ALIGNED,
+                                _ALIGNED), "wgmma"),
+    "K = 1999 f32": ((torch.float32, 2047, 1999, 1000, (1999, 1), (1000, 1), _ALIGNED,
+                      _ALIGNED), "fma"),
+    "bf16 row-major": ((torch.bfloat16, 1024, 1024, 1024, (1024, 1), (1024, 1), _ALIGNED,
+                        _ALIGNED), "wgmma"),
+    "bf16 transposed A": ((torch.bfloat16, 512, 512, 512, (1, 512), (1, 512), _ALIGNED,
+                           _ALIGNED), "wgmma"),
+    "bf16 row of 1004 (not 8-aligned)": ((torch.bfloat16, 64, 1004, 64, (1004, 1), (64, 1),
+                                          _ALIGNED, _ALIGNED), "fma"),
+    "base 4 bytes off": ((torch.float32, _S, _S, _S, (_S, 1), (1, _S), _ALIGNED + 4, _ALIGNED),
+                         "fma"),
+    "no unit stride": ((torch.float32, 64, 64, 64, (128, 2), (64, 1), _ALIGNED, _ALIGNED),
+                       "fma"),
+    "K = 0": ((torch.float32, 64, 0, 64, (0, 1), (64, 1), _ALIGNED, _ALIGNED), "fma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PATH_CASES))
+def test_matmul_path_is_chosen_by_layout(case):
+    args, want = _PATH_CASES[case]
+    path, strides = choose_path(*args)
+    assert path == want
+    if path == "wgmma":  # each operand handed over with exactly one unit stride
+        sam, sak, sbk, sbn = strides
+        assert (sam == 1) != (sak == 1) and (sbk == 1) != (sbn == 1)
+    else:
+        assert strides == (*args[4], *args[5])
+
+
+@pytest.mark.parametrize("rows, k, s_rows, s_k, want", [
+    (2048, 2048, 2048, 1, (2048, 1)),  # K-major
+    (2048, 2048, 1, 2048, (1, 2048)),  # MN-major
+    (1, 7, 123, 1, (8, 1)),            # one row: its stride is never used
+    (5, 1, 1, 99, (1, 8)),             # one k: the same
+    (4, 4, 0, 1, None),                # a broadcast row
+    (4, 8, 4, 1, None),                # rows that overlap
+])
+def test_tma_strides(rows, k, s_rows, s_k, want):
+    assert tma_strides(rows, k, s_rows, s_k, 4) == want
+
+
+def test_reset_launches_clears_every_path():
+    cuda_matmul.launches, cuda_matmul.launches_by_path = 3, {"wgmma": 2, "fma": 1}
+    reset_launches()
+    assert cuda_matmul.launches == 0
+    assert cuda_matmul.launches_by_path == {"wgmma": 0, "fma": 0}
+
+
+def _tf32(x):
+    """The top 19 bits of each f32 (sign, exponent, 10 mantissa bits): what
+    the tensor cores read of an f32 operand."""
+    return (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_3xtf32_meets_the_f32_tolerance_and_1xtf32_does_not(passes):
+    """The precision scheme of the matmul kernel's f32 path, emulated in
+    plain float32 at 512^3: x = hi + lo with hi = tf32(x) and lo = tf32(x -
+    hi), and hi.hi + hi.lo + lo.hi summed in f32 (a product of two TF32
+    values is exact in f32).  Held to the reference at the f32 tolerance
+    the card check uses (chip_smoke.mm_tol: 2e-4 x K / 128); one pass,
+    hi.hi alone, is not within it."""
+    a, b = _np((512, 512), "float32", 11), _np((512, 512), "float32", 12)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    t = {n: torch.from_numpy(v) for n, v in
+         dict(a_hi=a_hi, a_lo=a_lo, b_hi=b_hi, b_lo=b_lo).items()}
+    got = t["a_hi"] @ t["b_hi"]
+    if passes == 3:
+        got = got + (t["a_hi"] @ t["b_lo"] + t["a_lo"] @ t["b_hi"])
+    expect = _f32(jref.matmul(jnp.asarray(a), jnp.asarray(b)))
+    tol = 2e-4 * 512 / 128
+    close = np.isclose(got.numpy(), expect, rtol=tol, atol=tol)
+    assert close.all() if passes == 3 else not close.all()
