@@ -10,7 +10,8 @@ prints no result):
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
-   ``wgmma``s; a K1 ``wgmma`` or K3 specialisation that spills fails the run;
+   ``wgmma``s; a K1 ``wgmma``, K3 or K4 specialisation that spills fails the
+   run;
 2. K1 (matmul) against its plain PyTorch version on the card, each case
    with the path the wrapper chose (``wgmma`` or ``fma``): 2048^3 f32 with a
    row-major B (the MM DAG's layout) and with the serving ``prefill``
@@ -24,8 +25,13 @@ prints no result):
    ways, GQA 32/8 and 24/8, ragged S = 33 and 77, and the granite-3-2b and
    minitron-4b prefill shapes, on the model's strided (B, S, H, hd) views;
    a bf16 view whose last dimension is strided must raise ``ValueError``;
-5. K4 (WKV6) against its plain version, output and final state, at
-   N = 32 and 64, S = 33 and 2048, and the rwkv6-3b prefill shape;
+5. K4 (WKV6) against its plain version, output and final state, each case
+   with the path the wrapper took (``ring``, or ``copy`` where TMA cannot
+   address the inputs and the wrapper copies them first): on the ``ring``
+   path at N = 32 and 64, S = 33 and 2048, and the rwkv6-3b prefill shape,
+   on the model's (B, S, H, N) views, and at S = 257 on contiguous
+   (B, H, S, N) tensors; on the ``copy`` path a view with n-stride 2 and a
+   base 4 bytes off the 16-byte granule;
 6. each kernel's time at its main path's shape (median over batches
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
    where one computes the same function, and the card's bound;
@@ -43,7 +49,8 @@ prints no result):
    minitron-4b, 8 requests x 2048-token prompts, 32 greedy decode tokens,
    bf16 activations.  Counters set to 0 just before each model: K3 must have
    run once per layer of the prefill (40 for granite-3-2b at head_dim 64, 32
-   for minitron-4b at head_dim 128) and K4 32 times.  Then one prefill and 4
+   for minitron-4b at head_dim 128) and K4 32 times, all on its ``ring``
+   path (a kernel's first path, ``PATHS[0]``, is its main path's).  Then one prefill and 4
    decode steps of granite-3-2b and rwkv6-3b under ``torch.profiler``:
    device kernel time against wall, and the kernels that take most of it.
 
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -99,6 +107,7 @@ K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
 SERVED = (("granite_3_2b", "flash_attention"), ("rwkv6_3b", "wkv6"),
           ("minitron_4b", "flash_attention"))
 CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b")  # also the profiled ones
+PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
 
 
 def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float
@@ -299,25 +308,50 @@ def check_flash(flash, ref, gen) -> float:
     return main_err
 
 
-def wkv6_inputs(B, H, S, N, gen):
+def wkv6_inputs(B, H, S, N, gen, layout: str = "bshn"):
     """r, k, v unit normal, w = sigmoid(normal) in (0, 1), u = 0.1 normal:
-    the reference suite's distributions, as (B, H, S, N) views of
-    (B, S, H, N) tensors."""
-    r, k, v = (_strided((B, S, H, N), torch.float32, gen) for _ in range(3))
-    w = torch.sigmoid(torch.randn((B, S, H, N), device="cuda", generator=gen))
+    the reference suite's distributions, as (B, H, S, N) views of (B, S, H,
+    N) tensors (``bshn``, the model's layout), as contiguous (B, H, S, N)
+    tensors (``bhsn``), as views with n-stride 2 (``n-stride 2``), or as
+    contiguous tensors whose base is 4 bytes past the 16-byte granule
+    (``offset``)."""
+    def make(f):
+        if layout == "bhsn":
+            return f(torch.randn((B, H, S, N), device="cuda", generator=gen))
+        if layout == "offset":
+            x = torch.randn((B * H * S * N + 1,), device="cuda", generator=gen)
+            return f(x)[1:].view(B, H, S, N)
+        if layout == "n-stride 2":
+            x = torch.randn((B, S, H, 2 * N), device="cuda", generator=gen)
+            return f(x)[..., ::2].transpose(1, 2)
+        return f(torch.randn((B, S, H, N), device="cuda", generator=gen)).transpose(1, 2)
+
+    r, k, v = (make(lambda x: x) for _ in range(3))
+    w = make(torch.sigmoid)
     u = 0.1 * torch.randn((H, N), device="cuda", generator=gen)
-    return r, k, v, w.transpose(1, 2), u
+    return r, k, v, w, u
 
 
 def check_wkv6(wkv6, ref, gen) -> float:
     """-> max |error| at the main path's shape.  Tolerance: the suite's 1e-5
     as rtol, and atol 1e-5 x the largest plain value (the sums over N are
-    taken in another order, so the absolute error grows with the values)."""
+    taken in another order, so the absolute error grows with the values).
+    Each case must take the path it names, read from the wrapper's counts."""
     main_err = None
-    for B, H, S, N in [K4_SHAPE, (2, 4, 33, 32), (2, 4, 33, 64), (2, 4, 2048, 32),
-                       (2, 4, 2048, 64)]:
-        r, k, v, w, u = wkv6_inputs(B, H, S, N, gen)
+    cases = [(*K4_SHAPE, "bshn", "ring"), (2, 4, 33, 32, "bshn", "ring"),
+             (2, 4, 33, 64, "bshn", "ring"), (2, 4, 2048, 32, "bshn", "ring"),
+             (2, 4, 2048, 64, "bshn", "ring"), (2, 4, 257, 32, "bhsn", "ring"),
+             (2, 4, 257, 64, "bhsn", "ring"), (2, 4, 257, 64, "n-stride 2", "copy"),
+             (2, 4, 257, 32, "offset", "copy")]
+    for B, H, S, N, layout, want_path in cases:
+        r, k, v, w, u = wkv6_inputs(B, H, S, N, gen, layout)
+        before = dict(wkv6.launches_by_path)
         o, state = wkv6(r, k, v, w, u)
+        taken = [p for p, n in wkv6.launches_by_path.items() if n != before.get(p, 0)]
+        if taken != [want_path]:
+            raise AssertionError(f"wkv6 B{B} H{H} S{S} N{N} {layout}: paths {taken}, "
+                                 f"want {want_path}")
+        path = taken[0]
         want_o, want_state = ref.wkv6(r, k, v, w, u)
         torch.cuda.synchronize()
         err = 0.0
@@ -327,8 +361,8 @@ def check_wkv6(wkv6, ref, gen) -> float:
             scale = max(1.0, want.abs().max().item())
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
             err = max(err, (got - want).abs().max().item())
-        print(f"[K4] wkv6 B{B} H{H} S{S} N{N} max_abs_err={err} (o and state; "
-              f"rtol=1e-5, atol=1e-5 x max|plain|) ok")
+        print(f"[K4] wkv6 B{B} H{H} S{S} N{N} {layout} path={path} max_abs_err={err} "
+              f"(o and state; rtol=1e-5, atol=1e-5 x max|plain|) ok")
         if main_err is None:
             main_err = err
     return main_err
@@ -417,17 +451,21 @@ def card_vs_cpu(arch: str, dev) -> None:
           f"max|logit|) ok")
 
 
-def serve_full_width(arch: str, kernel, dev, smi: str) -> dict:
+def serve_full_width(arch: str, kname: str, dev, smi: str) -> dict:
     """``serve_smoke`` on the unreduced ``arch`` (bf16 activations), the
-    kernel's counter set to 0 just before; -> what the run printed."""
+    counters of the kernel ``kname`` set to 0 just before; -> what the run
+    printed.  A kernel with paths must have taken its first one every time."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve_smoke
 
     cfg = get_config(arch)
+    module = importlib.import_module(f"repro_torch.kernels.{kname}")
+    kernel = getattr(module, kname)
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    module.reset_launches()
     tokens, stats = serve_smoke(cfg, **SERVE, seed=0, device=dev)
     launches = kernel.launches
+    by_path = dict(getattr(kernel, "launches_by_path", {})) or None
     want = cfg.n_layers  # one launch per layer of the one prefill
     if not stats.logits_finite:
         raise AssertionError(f"{arch}: non-finite logits")
@@ -436,22 +474,27 @@ def serve_full_width(arch: str, kernel, dev, smi: str) -> dict:
     if launches != want:
         raise AssertionError(f"{arch}: {kernel.__name__} launched {launches} times, "
                              f"not {want} (layers x prefills)")
+    if by_path is not None and by_path[module.PATHS[0]] != launches:
+        raise AssertionError(f"{arch}: {kname} launches by path {by_path}: every prefill "
+                             f"launch must take the {module.PATHS[0]} path")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[serve] {cfg.name} full width, {SERVE['n_requests']} requests x "
           f"{SERVE['prompt_len']}-token prompts, {SERVE['decode_len']} decode tokens, bf16: "
           f"prefill {stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} "
           f"ms/token, {stats.tokens_per_s:.1f} tokens/s; {kernel.__name__} launches "
-          f"{launches} == {cfg.n_layers} layers x 1 prefill; peak memory {peak_gb:.1f} GB; "
-          f"{smi}")
-    return {"launches": launches, "prefill_ms": stats.prefill_ms}
+          f"{launches} == {cfg.n_layers} layers x 1 prefill"
+          + (f" (by path {by_path})" if by_path is not None else "")
+          + f"; peak memory {peak_gb:.1f} GB; {smi}")
+    return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path}
 
 
-def profile_serving(arch: str, dev, steps: int = 4) -> None:
+def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
     """One prefill and ``steps`` decode steps of the full-width ``arch`` (the
     serving shapes, fresh weights from seed 0) under ``torch.profiler``:
-    the device kernel time against the wall of the same span, and the
-    kernels that take most of it.  Profiling inflates the wall; the
-    unprofiled times are the ``[serve]`` line's."""
+    the device kernel time against the wall of the same span, the kernels
+    that take most of it, and the share of the port's kernels whose names
+    hold ``kernel_key``.  Profiling inflates the wall; the unprofiled times
+    are the ``[serve]`` line's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config, make_batch
@@ -490,9 +533,11 @@ def profile_serving(arch: str, dev, steps: int = 4) -> None:
         busy = sum(by_name.values())
         launched = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        mine = sum(t for name, t in by_name.items() if kernel_key in name)
         print(f"[profile] {cfg.name} {span}: {launched} kernels, {busy:.1f} ms on the device in "
               f"{wall_ms:.1f} ms of wall under the profiler (device busy "
-              f"{busy / wall_ms:.1%}); top: "
+              f"{busy / wall_ms:.1%}); {kernel_key} kernels {mine:.1f} ms "
+              f"({mine / busy:.1%} of the device time); top: "
               + "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top))
 
 
@@ -501,7 +546,7 @@ def build_report(build) -> None:
     static shared memory, the dynamic shared memory K1's ``wgmma`` path and
     K3 set, and whether ``ptxas`` serialised the kernel's ``wgmma``s (its
     C7510-C7520 notes, which name the function).  Raises when a K1
-    ``wgmma`` or K3 specialisation spills or is missing."""
+    ``wgmma``, K3 or K4 specialisation spills or is missing."""
     import re
 
     lib = build.library()
@@ -524,10 +569,13 @@ def build_report(build) -> None:
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
         elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
             cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
-    k1, k3 = {}, {}
+    k1, k3, k4 = {}, {}, {}
     for kern in kernels:
         label = kern["name"]
-        if kern["k3"]:
+        if m := re.search(r"wkv6_ringILi(\d+)E", kern["name"]):
+            k4[int(m.group(1))] = kern
+            label = f"wkv6_ring<N {m.group(1)}>"
+        elif kern["k3"]:
             dtype, hd = kern["k3"]
             k3[kern["k3"]] = kern
             label = f"flash_fwd<{dtype}, hd {hd}>"
@@ -553,9 +601,12 @@ def build_report(build) -> None:
     want = {(dt, a, b) for dt in ("f32", "bf16") for a in "KM" for b in "KN"}
     if set(k1) != want:
         raise AssertionError(f"K1 wgmma specialisations built {sorted(k1)}, want {sorted(want)}")
-    spilled = [key for key, kern in {**k1, **k3}.items() if any(kern["spill"])]
+    want = {32, 64}
+    if set(k4) != want:
+        raise AssertionError(f"K4 specialisations built {sorted(k4)}, want {sorted(want)}")
+    spilled = [key for key, kern in {**k1, **k3, **k4}.items() if any(kern["spill"])]
     if spilled:
-        raise AssertionError(f"K1 wgmma or K3 specialisations spill: {spilled}")
+        raise AssertionError(f"K1 wgmma, K3 or K4 specialisations spill: {spilled}")
 
 
 def main() -> int:
@@ -581,9 +632,11 @@ def main() -> int:
     from repro_torch.core.arena import make_request_stream
     from repro_torch.core.executor import TorchExecutor, attach_request_kernels
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import matadd as matadd_module
+    from repro_torch.kernels import matmul as matmul_module
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matadd import matadd
-    from repro_torch.kernels.matmul import matmul, reset_launches
+    from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import request_dag, run_arena_executed
 
@@ -621,6 +674,12 @@ def main() -> int:
         "matadd": bound(float(SIDE * SIDE), 3 * block, peaks["f32"], peaks["bytes"]),
     }
     fma_bound = bound(2.0 * SIDE**3, 3 * block, peaks["f32"], peaks["bytes"])
+    # K4 on the CUDA cores: the one-step recurrence needs at least 3 FP32
+    # instructions per state element and step (k v, the decayed update, the
+    # r-weighted sum), the kernel's two-step form 2.5; an FMA is one
+    # instruction, so the f32 FLOP/s peak counts 2 per instruction
+    Bw, Hw, Sw, Nw = K4_SHAPE
+    k4_issue_ms = {n: n * Bw * Hw * Sw * Nw * Nw / (peaks["f32"] / 2) * 1e3 for n in (3.0, 2.5)}
     # the timing phase's launches are not the main path's: the counters are
     # reset to 0 right before each path below
     times = {
@@ -649,6 +708,10 @@ def main() -> int:
         if k == "matmul":
             b_by += (f", 3xTF32 at the tf32 tensor peak; IEEE f32 FMA bound "
                      f"{fma_bound[0]:.4f} ms ({fma_bound[1]})")
+        if k == "wkv6":
+            b_by += (f"; CUDA-core issue floor {k4_issue_ms[3.0]:.4f} ms (3 FP32 "
+                     f"instructions per state element and step at {peaks['f32'] / 2e12:g}e12/s; "
+                     f"{k4_issue_ms[2.5]:.4f} ms at the two-step form's 2.5)")
         print(f"[time] {k} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}; {smi}")
 
@@ -672,8 +735,8 @@ def main() -> int:
     del a, b, bt, g, inputs, got, want
 
     # 8. the executed serving arena, counted
-    reset_launches()
-    matadd.launches = 0
+    matmul_module.reset_launches()
+    matadd_module.reset_launches()
     wall0 = time.perf_counter()
     _, arena = run_arena_executed(
         STREAM["n_requests"], STREAM["decode_chunks"], steps=STREAM["steps"],
@@ -724,19 +787,21 @@ def main() -> int:
 
     # 10. full-width serving, one model after the other; a kernel's launches
     # in the JSON line are summed over the models it serves
-    kernels_by_name = {"flash_attention": flash_attention, "wkv6": wkv6}
+    by_path = {"matmul": matmul_by_path}
     serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
                  "minitron_4b": minitron_k3_ms}
     for arch, kname in SERVED:
-        run = serve_full_width(arch, kernels_by_name[kname], dev, smi)
+        run = serve_full_width(arch, kname, dev, smi)
         launches[kname] = launches.get(kname, 0) + run["launches"]
+        if run["by_path"] is not None:
+            by_path[kname] = run["by_path"]
         busy = run["launches"] * serve_kernel_ms[arch]
         print(f"[serve] {arch}: {kname} launches x kernel time = {busy:.1f} ms, "
               f"{busy / run['prefill_ms']:.1%} of the prefill")
         gc.collect()
         torch.cuda.empty_cache()
         if arch in CARD_VS_CPU:
-            profile_serving(arch, dev)
+            profile_serving(arch, dev, PROFILE_KEY[kname])
             gc.collect()
             torch.cuda.empty_cache()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
@@ -756,8 +821,8 @@ def main() -> int:
             "bound_by": bounds[k][1],
             "library_ms": lib_ms,
         })
-        if k == "matmul":
-            kernels[-1]["launches_by_path"] = matmul_by_path
+        if k in by_path:
+            kernels[-1]["launches_by_path"] = by_path[k]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

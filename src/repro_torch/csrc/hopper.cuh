@@ -1,4 +1,4 @@
-// PTX wrappers for Hopper (sm_90a): mbarriers, TMA tile loads and warpgroup
+// PTX wrappers for Hopper (sm_90a): mbarriers, TMA tile loads and stores, and warpgroup
 // matrix multiplies (wgmma).  Included by the kernels that use them; not
 // compiled on its own.  Shared-memory operands are 32-bit shared-window
 // addresses (smem_u32).
@@ -99,6 +99,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// one box from shared memory at `src` to a rank-4 tensor map at coordinates
+// (c0 innermost .. c3); parts of the box outside the tensor are not written.
+// The store joins this thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed bulk groups are still
+// reading their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

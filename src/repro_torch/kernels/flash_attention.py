@@ -70,6 +70,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    flash_attention.launches = 0
+
+
 flash_attention.launches = 0  # kernel launches since the last reset to 0
 
 

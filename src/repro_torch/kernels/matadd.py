@@ -41,4 +41,10 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    matadd.launches = 0
+
+
 matadd.launches = 0  # kernel launches since the last reset to 0

@@ -11,6 +11,7 @@ from .flash_attention import HEAD_DIMS
 from .flash_attention import flash_attention as _flash_kernel
 from .matadd import matadd as _matadd_kernel
 from .matmul import matmul as _matmul_kernel
+from .wkv6 import HEAD_SIZES as WKV6_HEAD_SIZES
 from .wkv6 import wkv6 as _wkv6_kernel
 
 
@@ -45,9 +46,9 @@ def warm_up(device) -> None:
     """Build and load the CUDA kernels and launch each once at a tiny shape:
     K1's ``wgmma`` path in each dtype and each operand layout (K-major or
     MN-major A and B) and its ``fma`` path, K2, K3 in each dtype and head dim
-    it is built for, and K4, so that the one-time costs (the ``nvcc`` build,
-    loading the library and each kernel's module, the shared-memory
-    settings) stay out of a timed run.  A no-op for a CPU device."""
+    it is built for, and K4 at each head size, so that the one-time costs
+    (the ``nvcc`` build, loading the library and each kernel's module, the
+    shared-memory settings) stay out of a timed run.  A no-op for a CPU device."""
     device = torch.device(device)
     if device.type != "cuda":
         return
@@ -64,8 +65,9 @@ def warm_up(device) -> None:
         for hd in HEAD_DIMS:
             a = torch.zeros(1, 1, 8, hd, device=device, dtype=dtype)
             _flash_kernel(a, a, a)
-    a = torch.zeros(1, 1, 8, 32, device=device)
-    _wkv6_kernel(a, a, a, a, a[0, 0, :1])
+    for n in WKV6_HEAD_SIZES:
+        u = torch.zeros(1, n, device=device)
+        _wkv6_kernel(*[torch.zeros(1, 1, 8, n, device=device)] * 4, u)
     torch.cuda.synchronize(device)
 
 

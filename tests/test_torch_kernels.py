@@ -262,6 +262,23 @@ def test_reset_launches_clears_every_path():
     assert cuda_matmul.launches_by_path == {"wgmma": 0, "fma": 0}
 
 
+@pytest.mark.parametrize("name", ["matmul", "matadd", "flash_attention", "wkv6"])
+def test_every_kernel_module_resets_its_counts(name):
+    """Each kernel module's reset_launches sets its wrapper's launch count,
+    and each path's where it has paths (one per name in PATHS), to 0."""
+    import importlib
+
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    kernel = getattr(module, name)
+    kernel.launches = 3
+    if hasattr(kernel, "launches_by_path"):
+        kernel.launches_by_path = dict.fromkeys(module.PATHS, 1)
+    module.reset_launches()
+    assert kernel.launches == 0
+    if hasattr(kernel, "launches_by_path"):
+        assert kernel.launches_by_path == dict.fromkeys(module.PATHS, 0)
+
+
 def _tf32(x):
     """The top 19 bits of each f32 (sign, exponent, 10 mantissa bits): what
     the tensor cores read of an f32 operand."""

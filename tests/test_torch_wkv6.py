@@ -5,8 +5,10 @@ The same seeded numpy inputs go through the reference's definition
 (``repro.kernels.ref.wkv6``, which also returns the final state), its Pallas
 kernel in interpret mode (as ``tests/test_kernels.py`` runs it) and the
 port, at the reference suite's 1e-5.  The CUDA kernel itself runs only on
-the card (``chip_smoke.py``); here its wrapper is held to refusing CPU
-tensors.
+the card (``chip_smoke.py``); here its ``ring`` path's order of arithmetic
+is transcribed in plain PyTorch and held to the same references, its path
+choice is checked from layouts alone, and its wrapper is held to its
+refusals.
 """
 
 import pytest
@@ -109,3 +111,201 @@ def test_wkv6_kernel_wrapper_refuses_cpu_tensors():
     x = torch.ones(1, 1, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_wkv6(x, x, x, x, x[0, 0, :1])
+
+
+# ---------------------------------------------------------------------------
+# K4's ring path: its order of arithmetic, and the path choice
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """f32 fused multiply-add: the f32 product is exact in float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _halve(x, dim):
+    """Sum over ``dim`` as the kernel's shuffle rounds do: the lane with bit
+    M adds its partner's value, M from half the lanes down to 1."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _float4_dot(x, y):
+    """Per float4 of rows, the kernel's sum x.x y.x, then FMAs in order."""
+    x4 = x.reshape(*x.shape[:-1], -1, 4)
+    y4 = y.reshape(*y.shape[:-1], -1, 4)
+    out = x4[..., 0] * y4[..., 0]
+    for e in range(1, 4):
+        out = _fma(x4[..., e], y4[..., e], out)
+    return out
+
+
+def _ring_emulation(r, k, v, w, u, TC=16, NC=32, C=4):
+    """A plain-PyTorch transcription of ``csrc/wkv6.cu``'s ring path, in its
+    order of f32 arithmetic (float32 CPU tensors in, o and the state out).
+
+    Per staged chunk of TC steps, the chunk pass sums the bonus b_t = sum_i
+    r_i u_i k_i per float4 of rows (one lane each, u k first) and then over
+    the lanes, and likewise c = sum_i r_t+1,i k_t,i for each pair of steps
+    (t, t + 1); it also forms the pair's row products r_t+1 w_t, w_t w_t+1
+    and k_t w_t+1.  A full chunk then advances two steps at once: each of the
+    G = 32 C / NC lanes of a column sums r_t,i S_ij and (r_t+1 w_t)_i S_ij
+    over its rows (float4 chunks, in order), the G partial sums are reduced,
+    o_t = fma(v_t, b_t, sum) and o_t+1 = fma(v_t+1, b_t+1, fma(v_t, c, sum)),
+    and S_ij = fma(w_t w_t+1, S_ij, fma(k_t w_t+1, v_t, k_t+1 v_t+1)).  The
+    ragged last chunk goes one step at a time: o_t = fma(v_t, b_t, sum) and
+    S_ij = fma(w_i, S_ij, k_i v_j).  Steps past S are never computed."""
+    B, H, S, N = r.shape
+    G = 32 * C // NC
+    # rows[g]: lane group g's rows, in its order
+    rows = torch.tensor([[4 * (q * G + g) + e for q in range(N // (4 * G)) for e in range(4)]
+                         for g in range(G)])
+    state = torch.zeros((B, H, N, N))
+    o = torch.zeros((B, H, S, N))
+
+    def row_sums(x):  # sum_i x_i S_ij per lane group, then over the groups
+        acc = None
+        for i in range(rows.shape[1]):
+            xi = x[..., rows[:, i]][..., None]
+            si = state[:, :, rows[:, i], :]
+            acc = xi * si if acc is None else _fma(xi, si, acc)
+        return _halve(acc, dim=2)
+
+    for t0 in range(0, S, TC):
+        nt = min(TC, S - t0)
+        ch = slice(t0, t0 + nt)
+        bonus = _halve(_float4_dot(r[:, :, ch], u[None, :, None] * k[:, :, ch]), dim=-1)
+        if nt < TC:
+            for dt in range(nt):
+                t = t0 + dt
+                total = row_sums(r[:, :, t])
+                kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+                state = _fma(w[:, :, t, :, None], state, kv)
+                o[:, :, t] = _fma(v[:, :, t], bonus[:, :, dt, None], total)
+            continue
+        for dt in range(0, TC, 2):
+            t = t0 + dt
+            c = _halve(_float4_dot(r[:, :, t + 1], k[:, :, t]), dim=-1)[..., None]
+            rw = r[:, :, t + 1] * w[:, :, t]
+            ww = (w[:, :, t] * w[:, :, t + 1])[..., None]
+            kw = (k[:, :, t] * w[:, :, t + 1])[..., None]
+            v0, v1 = v[:, :, t, None, :], v[:, :, t + 1, None, :]
+            total0, total1 = row_sums(r[:, :, t]), row_sums(rw)
+            state = _fma(ww, state, _fma(kw, v0, k[:, :, t + 1, :, None] * v1))
+            o[:, :, t] = _fma(v[:, :, t], bonus[:, :, dt, None], total0)
+            o[:, :, t + 1] = _fma(v[:, :, t + 1], bonus[:, :, dt + 1, None],
+                                  _fma(v[:, :, t], c, total1))
+    return o, state
+
+
+def _decays(kind, shape, rng):
+    """w in (0, 1): the suite's sigmoid, or the model's exp(-exp(x)) pushed
+    near 0 (down to ~1e-30) or near 1 (within ~1e-3 of it)."""
+    x = rng.standard_normal(shape)
+    if kind == "sigmoid":
+        return (1.0 / (1.0 + np.exp(-x))).astype(np.float32)
+    return np.exp(-np.exp(x + (2.0 if kind == "near0" else -8.0))).astype(np.float32)
+
+
+@pytest.mark.parametrize("decay", ["sigmoid", "near0", "near1"])
+@pytest.mark.parametrize("S", [33, 257])
+@pytest.mark.parametrize("N", [32, 64])
+def test_ring_path_arithmetic_matches_ref_and_pallas(N, S, decay):
+    """The ring kernel's factored bonus, chunked staging and per-lane row
+    tiles hold the reference and the Pallas kernel at the suite's 1e-5
+    (rtol, and atol 1e-5 x the largest reference value: the sums over N are
+    taken in another order, so the absolute error grows with the values, as
+    ``chip_smoke.py`` holds the kernel on the card)."""
+    rng = np.random.default_rng(N * 1000 + S)
+    B, H = 1, 2
+    r, k, v = (rng.standard_normal((B, H, S, N)).astype(np.float32) for _ in range(3))
+    w = _decays(decay, (B, H, S, N), rng)
+    u = (0.5 * rng.standard_normal((H, N))).astype(np.float32)
+    got_o, got_state = (x.numpy() for x in _ring_emulation(*map(_t, (r, k, v, w, u))))
+    jargs = tuple(map(jnp.asarray, (r, k, v, w, u)))
+    want_o, want_state = map(np.asarray, jref.wkv6(*jargs))
+    for got, want in ((got_o, want_o), (got_o, np.asarray(pl_wkv6(*jargs, interpret=True))),
+                      (got_state, want_state)):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("N", [32, 64])
+def test_choose_path_picks_ring_for_the_models_views(N):
+    """rwkv6_block's (B, S, H, N) tensors as (B, H, S, N) views, and
+    contiguous (B, H, S, N) tensors, take the ring path with their strides."""
+    from repro_torch.kernels.wkv6 import choose_path
+
+    B, H, S = 2, 3, 9
+    for x in (torch.zeros(B, S, H, N).transpose(1, 2), torch.zeros(B, H, S, N)):
+        ptrs = (x.data_ptr(),) * 4
+        assert choose_path(tuple(x.shape), x.stride(), ptrs) == ("ring", x.stride())
+
+
+@pytest.mark.parametrize("N", [32, 64])
+def test_choose_path_copies_where_tma_cannot(N):
+    """An n-stride of 2 or a base off the 16-byte granule takes the copy
+    path; the copy is the model's layout, which the ring path takes, with the
+    values unchanged."""
+    from repro_torch.kernels.wkv6 import choose_path, copy_bshn
+
+    B, H, S = 2, 3, 9
+    strided = torch.zeros(B, S, H, 2 * N).transpose(1, 2)[..., ::2]  # n-stride 2
+    assert strided.stride()[-1] == 2
+    base = torch.zeros(B * H * S * N + 1)
+    offset = base[1:].view(B, H, S, N)  # base 4 bytes past a 16-byte boundary
+    assert offset.data_ptr() % 16 == 4
+    for x in (strided, offset):
+        got = choose_path(tuple(x.shape), x.stride(), (x.data_ptr(),) * 4)
+        assert got == ("copy", x.stride())
+        x.copy_(torch.randn(x.shape, generator=torch.Generator().manual_seed(N)))
+        y = copy_bshn(x)
+        assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+        bshn = torch.zeros(B, S, H, N).transpose(1, 2)
+        assert y.stride() == bshn.stride()
+        assert choose_path(tuple(y.shape), y.stride(), (y.data_ptr(),) * 4) == ("ring", y.stride())
+    # one misaligned base among the four is enough
+    good = torch.zeros(B, H, S, N)
+    assert choose_path(tuple(good.shape), good.stride(),
+                       (good.data_ptr(),) * 3 + (offset.data_ptr(),))[0] == "copy"
+
+
+def test_choose_path_replaces_unused_strides_of_size_one_dims():
+    """A size-1 dimension's stride is never used; TMA still needs it to be
+    a 16-byte multiple, so the ring path gets one past the tensor's span."""
+    from repro_torch.kernels.wkv6 import choose_path
+
+    path, st = choose_path((1, 1, 9, 64), (7, 3, 64, 1), (0,) * 4)
+    assert path == "ring" and st == (9 * 64, 9 * 64, 64, 1)
+
+
+def test_wkv6_wrapper_refusals_and_head_sizes_unchanged():
+    from repro_torch.kernels import wkv6 as wkv6_module
+
+    assert wkv6_module.HEAD_SIZES == (32, 64)
+    assert wkv6_module.PATHS == ("ring", "copy")
+    x = torch.ones(1, 2, 4, 32)
+    u = torch.ones(2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wkv6(x, x, x, x, u)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_wkv6(x.double(), x, x, x, u)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_wkv6(x, x, x, x, u.double())
+    for bad_u in (torch.ones(2, 16), torch.ones(1, 32), torch.ones(64)):
+        with pytest.raises(ValueError, match="u of shape"):
+            cuda_wkv6(x, x, x, x, bad_u)
+    with pytest.raises(ValueError, match="one \\(B, H, S, N\\) shape"):
+        cuda_wkv6(x, x, x, x[:, :, :3], u)
+
+
+def test_reset_launches_sets_every_count_to_zero():
+    from repro_torch.kernels import wkv6 as wkv6_module
+
+    cuda_wkv6.launches = 3
+    cuda_wkv6.launches_by_path["ring"] = 2
+    wkv6_module.reset_launches()
+    assert cuda_wkv6.launches == 0
+    assert cuda_wkv6.launches_by_path == {"ring": 0, "copy": 0}
