@@ -538,13 +538,15 @@ def make_specdec_stream(
 def _train_step_costs(arch: str, batch: int, seq: int,
                       class_gflops: Mapping[str, float]) -> dict[str, float]:
     """Per-class ms for one fine-tune step of ``arch``, from the model
-    configs: 6ND flops (fwd + bwd) over an analytic dense param count,
-    divided by per-class GFLOP/s throughput.  The model configs are not
-    ported yet (ROADMAP queue 1, "colocate scenario with the configs")."""
-    raise NotImplementedError(
-        f"the colocate scenario needs the {arch!r} model config, which "
-        "repro_torch does not have yet (ROADMAP queue 1: colocate scenario "
-        "with the configs)")
+    configs (``repro_torch.configs``): 6ND flops (fwd + bwd) over an
+    analytic dense param count, divided by per-class GFLOP/s throughput."""
+    import importlib
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+    per_layer = 4 * cfg.d_model * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    n_params = cfg.n_layers * per_layer + cfg.vocab * cfg.d_model
+    flops = 6.0 * n_params * batch * seq
+    return {cls: flops / (gf * 1e6) for cls, gf in class_gflops.items()}
 
 
 def make_colocate_stream(

@@ -37,10 +37,19 @@ real pull books every tier its path crosses — cross-pod pulls
 contend on the shared uplinks — and prefetches are contention-throttled
 (``StepReport.n_throttled``, per-tier wire time in ``tier_busy_ms``).
 
+``fused=True`` swaps the per-kernel dispatch loop for per-group
+**super-steps** (one captured CUDA graph per partition group-step with a
+single ready-barrier each; see :mod:`repro_torch.core.executor`).  The
+stream clock then follows the *apportioned* per-kernel times on the same
+virtual timeline, the measured-cost loop keeps closing per kernel, and the
+persistent :class:`~repro_torch.core.executor.SuperStepCache` hit/miss
+counters surface in every :class:`StepReport` — the policy's ``revision``
+tag keys the cache, so only a full-repartition escalation re-captures
+everything.  :meth:`ServingExecutor.close` releases the captured graphs.
+
 Every processor class of a platform maps to a torch device group; by
 default all of them alias ``cuda:0`` (one card), and a caller that wants
-the CPU passes ``devices=[torch.device("cpu")]`` explicitly.  Fused
-super-steps (``fused=True``) are not ported yet and raise.
+the CPU passes ``devices=[torch.device("cpu")]`` explicitly.
 """
 
 from __future__ import annotations
@@ -102,13 +111,17 @@ class StepReport:
     #                               # one per wave, else one per group-step)
     overlap_ms: float = 0.0         # compute co-scheduled inside waves
     kernels_by_op: dict = dataclasses.field(default_factory=dict)
-    #                               # op -> kernel executions (incl. re-runs)
+    #                               # op -> kernel executions (incl. re-runs,
+    #                               # and fused members whose step record a
+    #                               # group eviction dropped before it was read)
+    static_copies: int = 0          # inputs copied into CUDA graphs' buffers
+    static_copy_bytes: int = 0      # their bytes
 
 
-def _sum_by_op(steps) -> dict[str, int]:
+def _sum_field(steps, field: str) -> dict[str, int]:
     out: dict[str, int] = {}
     for s in steps:
-        for op, n in s.kernels_by_op.items():
+        for op, n in getattr(s, field).items():
             out[op] = out.get(op, 0) + n
     return out
 
@@ -179,7 +192,9 @@ class ServeReport:
             "stream_busy_ms": self.total("stream_busy_ms"),
             "waves": int(self.total("n_waves")),
             "overlap_ms": self.total("overlap_ms"),
-            "kernels_by_op": _sum_by_op(self.steps),
+            "kernels_by_op": _sum_field(self.steps, "kernels_by_op"),
+            "static_copies": int(self.total("static_copies")),
+            "static_copy_bytes": int(self.total("static_copy_bytes")),
         }
 
 
@@ -268,8 +283,10 @@ class ServingExecutor:
             list(platform.classes), straggle_factor=1.5)
         self.cost_model = cost_model or MeasuredCostModel(impls={},
                                                           link=self.link)
-        # fused super-steps and async waves are not ported yet: the session
-        # raises NotImplementedError when either is asked for
+        # fused super-step mode: each group's runnable chain dispatches as
+        # one captured graph; the cache persists across intervals AND streams
+        # (captured group-steps are pure — a warm entry is reusable by any
+        # policy whose revision tag and chain signature match)
         self.fused = fused
         self.superstep_cache = (superstep_cache if superstep_cache is not None
                                 else (SuperStepCache() if fused else None))
@@ -281,7 +298,15 @@ class ServingExecutor:
         # fixed DEFAULT_CHUNK_BYTES, so the resolved value is bit-identical)
         self.chunk_bytes = chunk_bytes
         self.stream_depth = stream_depth
+        # async multi-group waves: fused group-steps whose cross-group inputs
+        # are satisfied dispatch in the same wave, one barrier per wave
         self.async_groups = async_groups and fused
+
+    def close(self) -> None:
+        """Release the captured CUDA graphs and their memory pools (the
+        super-step cache is emptied; a later stream re-captures)."""
+        if self.superstep_cache is not None:
+            self.superstep_cache.clear()
 
     def reset_measurements(self) -> None:
         """Fresh measurement state (monitor EWMAs + cost history).  Called at
@@ -433,7 +458,6 @@ class ServingExecutor:
         dropped: list[str] = []
         added: list[str] = []
         cls_ms: dict[str, list[float]] = {}
-        ops_run: dict[str, int] = {}
         peak_mem: dict[str, float] = {}
         # request-granular KV lifetime: a chain's footprint frees when its
         # whole request has executed (meta["req"], as in the simulator)
@@ -523,9 +547,7 @@ class ServingExecutor:
                         grp = state.task_group.pop(n, None)
                         if grp is not None:
                             state.resident[grp] -= g.nodes[n].mem_bytes
-            op = kern.op
-            ops_run[op] = ops_run.get(op, 0) + 1
-            self.cost_model.observe(op, self.side, run.group, run.ms)
+            self.cost_model.observe(kern.op, self.side, run.group, run.ms)
             cls_ms.setdefault(run.group, []).append(run.ms)
             fire_due()
 
@@ -571,7 +593,9 @@ class ServingExecutor:
             stream_busy_ms=comm.stream_busy_ms,
             n_waves=session.n_waves,
             overlap_ms=session.overlap_ms,
-            kernels_by_op=ops_run,
+            kernels_by_op=dict(session.kernels_by_op),
+            static_copies=session.static_copies,
+            static_copy_bytes=session.static_copy_bytes,
         )
 
     # -- whole stream ----------------------------------------------------------
@@ -686,6 +710,8 @@ def merge_serve_reports(reports: Sequence[ServeReport],
             stream_busy_ms=tot("stream_busy_ms"),
             n_waves=int(tot("n_waves")),
             overlap_ms=tot("overlap_ms"),
-            kernels_by_op=_sum_by_op(group),
+            kernels_by_op=_sum_field(group, "kernels_by_op"),
+            static_copies=int(tot("static_copies")),
+            static_copy_bytes=int(tot("static_copy_bytes")),
         ))
     return merged

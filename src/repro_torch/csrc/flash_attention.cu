@@ -3,13 +3,17 @@
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention.py (body `_flash_kernel`): softmax
 // attention with an online softmax (running max m, running sum l and the
-// output accumulator kept in f32), logits scaled by 1/sqrt(hd), keys at or
+// output accumulator kept in f32), logits scaled by `scale`, keys at or
 // past `kv_len` masked, a top-left aligned causal mask (qpos >= kpos, both
 // from 0, also when Sq != Sk), masked logits set to -1e30, the probabilities
 // rounded to V's dtype before the P.V product, and out = acc / max(l, 1e-30).
 // A row whose keys are all masked (kv_len == 0) therefore averages V, as the
-// reference does.  GQA is native: query head h reads KV head h / G.  Head
-// dims 32, 64 and 128, in f32 or bf16.
+// reference does.  GQA is native: query head h reads KV head h / G.  Built
+// for head dims 32, 64 and 128, in f32 or bf16.  The caller passes the
+// scale, 1/sqrt of its own head dim: the wrapper zero-pads q, k and v of any
+// other head dim up to the next built one (zero columns add nothing to
+// Q K^T, and the output's extra columns are cropped), so the scale cannot
+// be the template's.
 //
 // What bounds it on an H100: at the granite-3-2b prefill shape (B 8, H 32,
 // S 2048, hd 64, bf16, causal) the two products are 137.5 GFLOP against
@@ -197,13 +201,13 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS)
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-           int Sq, int Sk, int kv_len, int causal, const long long* st, cudaStream_t stream) {
+           int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
+           cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_fwd<HD><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, kv_len, causal,
@@ -510,7 +514,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S, int hea
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G, int Sq,
-           int Sk, int kv_len, int causal, const long long* st, cudaStream_t stream) {
+           int Sk, int kv_len, int causal, float scale, const long long* st,
+           cudaStream_t stream) {
   using C = Cfg<HD>;
   const EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -531,7 +536,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const Strides so{st[12], st[13], st[14], st[15]};
-  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = LOG2E * scale;
   flash_fwd<HD><<<grid, THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), H,
                                                    G, Sq, Sk, kv_len, causal, scale_log2, so);
   return static_cast<int>(cudaGetLastError());
@@ -540,7 +545,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 }  // namespace bf16
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                         int, int, const long long*, cudaStream_t);
+                         int, int, float, const long long*, cudaStream_t);
 
 int dynamic_smem(int dtype, int hd) {
   if (dtype != 1) return 0;
@@ -577,15 +582,17 @@ LaunchFn pick(int dtype, int hd) {
 // dtype: 0 = float32 (any strides), 1 = bfloat16 (d strides 1, the others and
 // the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 128};
 // 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536.
+// Logits are scaled by `scale`: 1/sqrt(hd) of the caller's head dim, which is
+// smaller than hd when the caller zero-padded q, k and v up to a built size.
 // Launches on `stream` and returns a cudaError_t (0 when the launch was
 // accepted).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* o, int B, int H, int G, int Sq, int Sk, int hd,
-                                     int kv_len, int causal, const long long* strides,
-                                     void* stream) {
+                                     int kv_len, int causal, float scale,
+                                     const long long* strides, void* stream) {
   const LaunchFn fn = (dtype == 0 || dtype == 1) ? pick(dtype, hd) : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, strides,
+  return fn(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, scale, strides,
             static_cast<cudaStream_t>(stream));
 }
 

@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # dtype, path, a, b, c, M, N, K, sam, sak, sbk, sbn, stream
@@ -49,8 +50,9 @@ SIGNATURES = {
     "repro_matmul_smem": (_I,),
     # dtype, a, b, c, n, stream
     "repro_matadd": (_I, _P, _P, _P, _L, _P),
-    # dtype, q, k, v, o, B, H, G, Sq, Sk, hd, kv_len, causal, strides[16], stream
-    "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LP, _P),
+    # dtype, q, k, v, o, B, H, G, Sq, Sk, hd, kv_len, causal, scale, strides[16], stream
+    "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _LP,
+                              _P),
     # dtype, hd -> bytes of dynamic shared memory of that kernel
     "repro_flash_attention_smem": (_I, _I),
     # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream

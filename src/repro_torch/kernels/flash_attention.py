@@ -4,29 +4,76 @@ the port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``.
 ``q (B, H, Sq, hd)`` attends over ``k, v (B, K, Sk, hd)`` with ``K``
 dividing ``H`` (GQA: query head ``h`` reads KV head ``h // (H // K)``), for
 float32 or bfloat16 CUDA tensors; the semantics are
-:func:`repro_torch.kernels.ref.flash_attention`'s.  All four tensors are
-read and written through their strides: the output is allocated in the
-model's ``(B, Sq, H, hd)`` layout and returned as its ``(B, H, Sq, hd)``
-view, so ``o.transpose(1, 2)`` is contiguous.
+:func:`repro_torch.kernels.ref.flash_attention`'s.  The output is allocated
+in the model's ``(B, Sq, H, hd)`` layout and returned as its ``(B, H, Sq,
+hd)`` view, so ``o.transpose(1, 2)`` is contiguous.
 
-bf16 runs on the tensor cores and reads q, k and v by TMA, which takes a
-layout only when the last dimension is contiguous and every other stride
-and each base address is a multiple of 16 bytes: the model's views are.
-Any other bf16 layout raises ``ValueError``; f32 takes any strides.
+The kernel is built for head dims 32, 64 and 128 (:data:`HEAD_DIMS`) and
+takes the scale as an argument.  What the wrapper hands it is decided from
+the dtype, the head dim and the layout alone (:func:`prepare`) and counted
+by path:
+
+* ``tma``: bf16 read in place by TMA, which takes a layout only when the
+  last dimension is contiguous and every other stride and each base address
+  is a multiple of 16 bytes (the model's views are);
+* ``fp32``: f32 read in place through any strides;
+* ``copy``: a bf16 tensor TMA cannot address, copied first into the model's
+  ``(B, S, heads, hd)`` layout;
+* ``pad``: a head dim that is not built, zero-padded up to the next built
+  one (in that same layout) and the output's extra columns cropped.  Padding
+  is exact: zero columns add nothing to ``Q K^T``, and the scale passed is
+  ``1/sqrt`` of the caller's head dim.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
+from .layout import copy_bshd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # for both dtypes
+HEAD_DIMS = (32, 64, 128)  # built, for both dtypes; smaller head dims are padded
+PATHS = ("tma", "fp32", "copy", "pad")
 _INT_MAX = 2**31 - 1
 _BQ = 128  # query rows per block; blocks per (batch, head) stay below 2**16
+_TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
+
+
+def built_head_dim(hd: int) -> int:
+    """The smallest built head dim that holds ``hd``; raises above 128."""
+    for built in HEAD_DIMS:
+        if hd <= built:
+            return built
+    raise ValueError(f"flash_attention kernel takes head_dim up to {HEAD_DIMS[-1]}, got {hd}")
+
+
+def tma_addressable(t: torch.Tensor) -> bool:
+    """Can TMA read ``t``: a contiguous last dimension, the other strides and
+    the base address multiples of 16 bytes."""
+    nbytes = t.element_size()
+    return (t.stride(-1) == 1 and all(st * nbytes % _TMA_ALIGN == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % _TMA_ALIGN == 0)
+
+
+def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> tuple[str, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (path, q, k, v) as the kernel reads them, from the dtype, the head
+    dim and the layout alone (see the module's docstring).  Device-agnostic:
+    the tests run it on the CPU."""
+    hd = q.shape[-1]
+    built = built_head_dim(hd)
+    if built != hd:
+        return ("pad", *(copy_bshd(t, built) for t in (q, k, v)))
+    if q.dtype == torch.float32:
+        return "fp32", q, k, v
+    ok = [tma_addressable(t) for t in (q, k, v)]
+    if all(ok):
+        return "tma", q, k, v
+    return ("copy", *(t if good else copy_bshd(t) for t, good in zip((q, k, v), ok)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,43 +94,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != hd or Kh == 0 or H % Kh:
         raise ValueError(f"flash_attention kernel: k, v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)} (KV heads must divide query heads)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    built = built_head_dim(hd)
     if Sk == 0 or max(B * H, Sq, Sk) > _INT_MAX or -(-Sq // _BQ) >= 2**16:
         raise ValueError(f"flash_attention kernel needs 0 < Sk, int32 sizes and "
                          f"Sq < {_BQ * (2**16 - 1)}: {(B, H, Sq, Sk)}")
-    if q.dtype == torch.bfloat16:
-        _check_tma_layout(q, k, v)
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    if B == 0 or H == 0 or Sq == 0:
-        return out
-    strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *out.stride())
+    out = torch.empty((B, Sq, H, built), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if B == 0 or H == 0 or Sq == 0 or hd == 0:
+        return out[..., :hd]
     lib = _build.library()
     with torch.cuda.device(q.device):
+        path, q, k, v = prepare(q, k, v)
+        strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(),
+                                           *out.stride())
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, H // Kh, Sq, Sk, hd, kv, int(causal), strides, stream)
-    _build.check(err, "flash_attention")
+            B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd), strides,
+            stream)
+    _build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
-    return out
-
+    flash_attention.launches_by_path[path] += 1
+    return out if built == hd else out[..., :hd]
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
+    """Set the launch counts (the total and each path's) to 0."""
     flash_attention.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 flash_attention.launches = 0  # kernel launches since the last reset to 0
-
-
-def _check_tma_layout(*ts: torch.Tensor) -> None:
-    for name, t in zip("qkv", ts):
-        nbytes = t.element_size()
-        if (t.stride(-1) != 1 or any(st * nbytes % 16 for st in t.stride()[:-1])
-                or t.data_ptr() % 16):
-            raise ValueError(f"flash_attention kernel (bf16) needs {name} with a contiguous "
-                             f"last dimension, other strides and the base address 16-byte "
-                             f"aligned, got strides {t.stride()}")
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)  # the same, by path

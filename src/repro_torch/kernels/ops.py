@@ -42,16 +42,43 @@ def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
     return _ref.wkv6(r, k, v, w, u)
 
 
+KERNELS = {"matmul": _matmul_kernel, "matadd": _matadd_kernel,
+           "flash_attention": _flash_kernel, "wkv6": _wkv6_kernel}
+_warm: set[torch.device] = set()  # devices warm_up has run on
+
+
+def launch_counts() -> dict[str, dict[str, int]]:
+    """Every kernel wrapper's launch count by path: {kernel: {path: n}}."""
+    return {name: dict(k.launches_by_path) for name, k in KERNELS.items()}
+
+
+def add_launches(counts: dict[str, dict[str, int]], sign: int = 1) -> None:
+    """Add ``sign`` x ``counts`` (as :func:`launch_counts` gives them) to the
+    wrappers' counts, the total and each path's: a CUDA graph replay runs
+    the kernels its capture recorded without calling their wrappers."""
+    for name, by_path in counts.items():
+        kernel = KERNELS[name]
+        for path, n in by_path.items():
+            kernel.launches_by_path[path] += sign * n
+            kernel.launches += sign * n
+
+
 def warm_up(device) -> None:
-    """Build and load the CUDA kernels and launch each once at a tiny shape:
-    K1's ``wgmma`` path in each dtype and each operand layout (K-major or
-    MN-major A and B) and its ``fma`` path, K2, K3 in each dtype and head dim
-    it is built for, and K4 at each head size, so that the one-time costs
-    (the ``nvcc`` build, loading the library and each kernel's module, the
-    shared-memory settings) stay out of a timed run.  A no-op for a CPU device."""
+    """Build and load the CUDA kernels and launch each once at a tiny shape,
+    on every path: K1's ``wgmma`` path in each dtype and each operand layout
+    (K-major or MN-major A and B) and its ``fma`` path; K2 ``direct`` and
+    ``copy``; K3 in each dtype at each built head dim (``tma``, ``fp32``),
+    on a bf16 view TMA cannot address (``copy``) and at a head dim that is
+    padded (``pad``); K4 at each built head size (``ring``), with unequal
+    strides (``copy``) and at a padded head size (``pad``).  So the one-time
+    costs (the ``nvcc`` build, loading the library and each kernel's module,
+    the shared-memory settings of ``cudaFuncSetAttribute``) stay out of a
+    timed run and out of a CUDA graph capture.  A no-op for a CPU device."""
     device = torch.device(device)
     if device.type != "cuda":
         return
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.zeros(16, 16, device=device, dtype=dtype)
         for a in (x, x.T):
@@ -61,14 +88,30 @@ def warm_up(device) -> None:
         _matmul_kernel(y, y.T)  # rows of 15 elements, not 16-byte multiples: fma
     x = torch.zeros(8, 8, device=device)
     _matadd_kernel(x, x)
+    _matadd_kernel(x.T, x)  # not contiguous: copy
     for dtype in (torch.float32, torch.bfloat16):
-        for hd in HEAD_DIMS:
+        for hd in (*HEAD_DIMS, 4):  # 4 is padded up to 32
             a = torch.zeros(1, 1, 8, hd, device=device, dtype=dtype)
             _flash_kernel(a, a, a)
-    for n in WKV6_HEAD_SIZES:
+    a = torch.zeros(1, 1, 8, 64, device=device, dtype=torch.bfloat16)[..., ::2]
+    _flash_kernel(a, a, a)  # a strided last dimension: copy
+    for n in (*WKV6_HEAD_SIZES, 4):  # 4 is padded up to 32
         u = torch.zeros(1, n, device=device)
         _wkv6_kernel(*[torch.zeros(1, 1, 8, n, device=device)] * 4, u)
+    r = torch.zeros(1, 1, 8, 32, device=device)
+    k = torch.zeros(1, 8, 1, 32, device=device).transpose(1, 2)  # other strides: copy
+    _wkv6_kernel(r, k, r, r, torch.zeros(1, 32, device=device))
     torch.cuda.synchronize(device)
+    _warm.add(device)
+
+
+def ensure_warm(device) -> None:
+    """:func:`warm_up` once per device (a CUDA graph capture calls it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda" and device not in _warm:
+        warm_up(device)
 
 
 # ---------------------------------------------------------------------------
@@ -92,20 +135,33 @@ def build_chain(steps, keep=None):
     through them instead of materializing one buffer per kernel, which is
     most of the super-step's dispatch-overhead win.
 
-    The returned ``chain(*ext) -> tuple(kept outputs)`` is pure and
-    jit-friendly: the executor jits it once per (revision, group signature,
-    shapes/dtypes) with dead external buffers donated, so a whole partition
-    group runs as a single XLA computation — one async dispatch and one
-    ready-barrier per group-step instead of one per kernel.
+    The returned ``chain(*ext) -> tuple(kept outputs)`` is pure: the
+    executor captures it into one CUDA graph per (revision, group signature,
+    shapes/dtypes) on a CUDA group (:class:`repro_torch.kernels.graphs.
+    CapturedChain`), so a whole partition group replays as one graph launch
+    with one ready-barrier per group-step instead of one per kernel; on a
+    CPU group it calls it as it is.  Each step output that is not kept is
+    dropped after its last reader runs, so a capture's private memory pool
+    holds the chain's live set, not every intermediate at once.
     """
     plan = [(fn, tuple(srcs)) for fn, srcs in steps]
     keep = tuple(range(len(plan))) if keep is None else tuple(keep)
+    last_read = {j: j for j in range(len(plan))}
+    for i, (_, srcs) in enumerate(plan):
+        for kind, j in srcs:
+            if kind == "mem":
+                last_read[j] = i
+    drop_after: list[list[int]] = [[] for _ in plan]
+    for j, i in last_read.items():
+        if j not in keep:
+            drop_after[i].append(j)
 
     def chain(*ext):
-        outs = []
-        for fn, srcs in plan:
-            args = [ext[i] if kind == "ext" else outs[i] for kind, i in srcs]
-            outs.append(fn(*args))
+        outs: list = [None] * len(plan)
+        for i, (fn, srcs) in enumerate(plan):
+            outs[i] = fn(*[ext[j] if kind == "ext" else outs[j] for kind, j in srcs])
+            for j in drop_after[i]:
+                outs[j] = None
         return tuple(outs[i] for i in keep)
 
     return chain

@@ -27,12 +27,15 @@ NEG_INF = -1e30  # the reference's mask value: a fully masked row stays finite
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
+                    causal: bool = True, kv_len: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Softmax attention, ``(B, H, Sq, hd)`` queries over ``(B, K, Sk, hd)``
     keys/values with ``K`` dividing ``H`` (query head ``h`` reads KV head
     ``h // (H // K)``; the reference's MHA layout is ``K == H``).
 
-    Logits in f32, scaled by ``1/sqrt(hd)``; the causal mask is top-left
+    Logits in f32, divided by ``sqrt(hd)``, or multiplied by ``scale`` where
+    one is given (the CUDA kernel's argument: ``1/sqrt`` of the head dim
+    before zero-padding); the causal mask is top-left
     aligned (``qpos >= kpos``, both from 0); keys at or past ``kv_len`` are
     masked.  Masked logits are -1e30, so a fully masked row averages V.
     The probabilities are rounded to ``v.dtype`` before the product with V;
@@ -43,7 +46,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if G > 1:
         k = k.repeat_interleave(G, dim=1)
         v = v.repeat_interleave(G, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(hd) if scale is None else s * scale
     kpos = torch.arange(Sk, device=q.device)
     if causal:
         qpos = torch.arange(Sq, device=q.device)

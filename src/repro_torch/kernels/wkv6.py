@@ -4,15 +4,23 @@ of the Pallas TPU kernel ``repro/kernels/wkv6.py``.
 ``r, k, v, w (B, H, S, N)`` and ``u (H, N)``, all float32 CUDA tensors, give
 the outputs ``o (B, H, S, N)`` and the final state ``(B, H, N, N)``; the
 semantics are :func:`repro_torch.kernels.ref.wkv6`'s.  r, k, v and w are
-read through their strides and must share them (the model passes four
-``(B, S, H, N)`` tensors as ``(B, H, S, N)`` views); ``o`` is allocated in
-that ``(B, S, H, N)`` layout and returned as its ``(B, H, S, N)`` view.
+read through their strides (the model passes four ``(B, S, H, N)`` tensors
+as ``(B, H, S, N)`` views); ``o`` is allocated in that ``(B, S, H, N)``
+layout and returned as its ``(B, H, S, N)`` view.
 
-The kernel reads r, k, v and w by TMA.  Where TMA cannot address them (an
-n-stride other than 1, a stride or a base off the 16-byte granule), the
-wrapper first copies them into fresh ``(B, S, H, N)`` buffers; which of the
-two it does is decided from the layout alone (:func:`choose_path`) and
-counted by path: ``ring`` (the caller's tensors read in place) or ``copy``.
+The kernel is built for head sizes 32 and 64 (:data:`HEAD_SIZES`) and reads
+r, k, v and w by TMA through one set of strides.  What the wrapper hands it
+is decided from the head size and the layout alone (:func:`prepare`) and
+counted by path:
+
+* ``ring``: the caller's tensors read in place;
+* ``copy``: tensors TMA cannot address (an n-stride other than 1, a stride
+  or a base off the 16-byte granule) or whose strides differ, first copied
+  into fresh ``(B, S, H, N)`` buffers;
+* ``pad``: a head size that is not built, zero-padded up to the next built
+  one in that layout, with o and the final state cropped.  Padding is
+  exact: the padded k and v entries are 0, so the state's extra rows and
+  columns stay 0 and add nothing to o's first N columns.
 """
 
 from __future__ import annotations
@@ -22,10 +30,11 @@ import ctypes
 import torch
 
 from . import _build
+from .layout import copy_bshd
 
-HEAD_SIZES = (32, 64)
+HEAD_SIZES = (32, 64)  # built; smaller head sizes are padded
 _INT_MAX = 2**31 - 1
-PATHS = ("ring", "copy")
+PATHS = ("ring", "copy", "pad")
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
 
 
@@ -51,13 +60,31 @@ def choose_path(shape: tuple[int, int, int, int], strides: tuple[int, int, int, 
     return "copy", (sb, sh, ss, sn)
 
 
-def copy_bshn(t: torch.Tensor) -> torch.Tensor:
-    """A fresh ``(B, S, H, N)`` copy of the ``(B, H, S, N)`` tensor ``t``,
-    returned as its ``(B, H, S, N)`` view: the model's layout, which TMA
-    addresses (the allocator aligns the base)."""
-    B, H, S, N = t.shape
-    out = torch.empty((B, S, H, N), dtype=t.dtype, device=t.device)
-    return out.copy_(t.transpose(1, 2)).transpose(1, 2)
+def built_head_size(n: int) -> int:
+    """The smallest built head size that holds ``n``; raises above 64."""
+    for built in HEAD_SIZES:
+        if n <= built:
+            return built
+    raise ValueError(f"wkv6 kernel takes head size N up to {HEAD_SIZES[-1]}, got {n}")
+
+
+def prepare(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+            u: torch.Tensor) -> tuple[str, tuple[torch.Tensor, ...]]:
+    """-> (path, (r, k, v, w, u)) as the kernel reads them, from the head
+    size and the layout alone (see the module's docstring).  Device-agnostic:
+    the tests run it on the CPU."""
+    B, H, S, N = r.shape
+    built = built_head_size(N)
+    if built != N:
+        up = torch.zeros((H, built), dtype=u.dtype, device=u.device)
+        up[:, :N] = u
+        return "pad", (*(copy_bshd(t, built) for t in (r, k, v, w)), up)
+    rkvw = (r, k, v, w)
+    if (any(t.stride() != r.stride() for t in rkvw)
+            or choose_path((B, H, S, N), r.stride(),
+                           tuple(t.data_ptr() for t in rkvw))[0] == "copy"):
+        return "copy", (*(copy_bshd(t) for t in rkvw), u.contiguous())
+    return "ring", (*rkvw, u.contiguous())
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -75,34 +102,31 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if not all(t.is_cuda and t.device == r.device for t in ts):
         raise ValueError(f"wkv6 kernel needs r, k, v, w, u on one CUDA device, "
                          f"got {[str(t.device) for t in ts]}")
-    if N not in HEAD_SIZES:
-        raise ValueError(f"wkv6 kernel takes head size N in {HEAD_SIZES}, got {N}")
-    if any(t.stride() != r.stride() for t in (k, v, w)):
-        raise ValueError("wkv6 kernel needs r, k, v, w to share their strides")
+    built = built_head_size(N)
     if max(B, H, S) > _INT_MAX:
         raise ValueError(f"wkv6 kernel sizes must fit int32: {(B, H, S)}")
-    o = torch.empty((B, S, H, N), dtype=r.dtype, device=r.device).transpose(1, 2)
-    state = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    o = torch.empty((B, S, H, built), dtype=r.dtype, device=r.device).transpose(1, 2)
+    state = torch.empty((B, H, built, built), dtype=torch.float32, device=r.device)
     if r.numel() == 0:
-        return o, state.zero_()
-    u = u.contiguous()
-    path, st = choose_path((B, H, S, N), r.stride(),
-                           tuple(t.data_ptr() for t in (r, k, v, w)))
+        return o[..., :N], state.zero_()[:, :, :N, :N]
     lib = _build.library()
     with torch.cuda.device(r.device):
-        if path == "copy":
-            r, k, v, w = (copy_bshn(t) for t in (r, k, v, w))
-            _, st = choose_path((B, H, S, N), r.stride(),
-                                tuple(t.data_ptr() for t in (r, k, v, w)))
+        path, (r, k, v, w, u) = prepare(r, k, v, w, u)
+        ring, st = choose_path((B, H, S, built), r.stride(),
+                               tuple(t.data_ptr() for t in (r, k, v, w)))
+        if ring != "ring":  # prepare's copies are always in the model's layout
+            raise RuntimeError(f"wkv6: prepared strides {r.stride()} are not TMA's")
         strides = (ctypes.c_longlong * 8)(*st, *o.stride())
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                             u.data_ptr(), o.data_ptr(), state.data_ptr(), B, H, S, N,
+                             u.data_ptr(), o.data_ptr(), state.data_ptr(), B, H, S, built,
                              strides, stream)
     _build.check(err, f"wkv6 ({path})")
     wkv6.launches += 1
     wkv6.launches_by_path[path] += 1
-    return o, state
+    if built == N:
+        return o, state
+    return o[..., :N], state[:, :, :N, :N]
 
 
 def reset_launches() -> None:

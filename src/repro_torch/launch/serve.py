@@ -375,6 +375,8 @@ def run_arena_executed(
     drop_t_ms: float = 1.0,
     hier: bool = False,
     device: torch.device | None = None,
+    fused: bool = False,
+    async_groups: bool = False,
 ) -> tuple[list, SchedulerArena]:
     """The arena stream EXECUTED on real device groups.
 
@@ -386,8 +388,14 @@ def run_arena_executed(
     lands mid-interval regardless of host speed).  ``hier=True`` executes on
     the rack/pod platform: every pull books the tiered lanes (shared-uplink
     contention + prefetch throttling), matching the simulated
-    ``run_arena(hier=True)`` stream.  Every class runs on ``device``
-    (default ``cuda:0``; raises when CUDA is missing)."""
+    ``run_arena(hier=True)`` stream.  ``fused=True`` dispatches each
+    group's runnable kernel chain as one captured super-step (a CUDA graph
+    replay on the card, with a persistent cache of captured graphs) instead
+    of kernel-at-a-time; ``async_groups=True`` additionally dispatches every
+    group whose cross-group inputs are satisfied in the same dependency
+    wave — one barrier per wave instead of per group (requires ``fused``).
+    Every class runs on ``device`` (default ``cuda:0``; raises when CUDA is
+    missing).  The captured graphs are released before this returns."""
     plat, drop_proc, costs_prefill, costs_decode = _arena_setup(hier, drop_proc)
     events_at = {}
     if drop_step is not None:
@@ -407,13 +415,17 @@ def run_arena_executed(
         events_at=events_at,
     )
     devices = None if device is None else [device]
-    executor = ServingExecutor(groups_for_platform(plat, devices), plat, side=side)
+    executor = ServingExecutor(groups_for_platform(plat, devices), plat, side=side,
+                               fused=fused, async_groups=async_groups)
     factories = {
         p: (lambda n=p: as_executed(make_policy(n, **_policy_kwargs(n))))
         for p in policies
     }
     arena = SchedulerArena(plat, factories)
-    rows = arena.run_executed(stream, executor)
+    try:
+        rows = arena.run_executed(stream, executor)
+    finally:
+        executor.close()
     return rows, arena
 
 
@@ -494,6 +506,24 @@ def main(argv=None):
         "executor and dump metrics to --bench-out",
     )
     ap.add_argument(
+        "--fused",
+        action=argparse.BooleanOptionalAction,
+        default=False,
+        help="with --execute: dispatch each partition group's kernel "
+        "chain as ONE captured CUDA graph (one barrier per group-step + "
+        "persistent cache of captured graphs; the chain is called as it is "
+        "on the CPU) instead of the kernel-at-a-time loop",
+    )
+    ap.add_argument(
+        "--async-groups",
+        action=argparse.BooleanOptionalAction,
+        default=False,
+        help="with --execute --fused: dispatch every group whose "
+        "cross-group inputs are satisfied in the same dependency wave "
+        "(one CUDA stream per group, one barrier per wave, non-blocking "
+        "comm pulls) instead of serializing group-steps",
+    )
+    ap.add_argument(
         "--bench-out",
         type=str,
         default="BENCH_serve.json",
@@ -563,10 +593,14 @@ def _main_arena(args) -> None:
         side=args.kernel_side,
         hier=args.hier,
         device=device,
+        fused=args.fused,
+        async_groups=args.async_groups,
     )
     print(
         f"\n[serve] executed on {device_name(device)} "
-        f"({', '.join(r.policy for r in xrows)}):"
+        f"({', '.join(r.policy for r in xrows)}"
+        f"{', fused super-steps' if args.fused else ''}"
+        f"{', async waves' if args.async_groups else ''}):"
     )
     print(format_table(xrows))
     meta = {
@@ -577,8 +611,8 @@ def _main_arena(args) -> None:
         "seed": args.seed,
         "kernel_side": args.kernel_side,
         "hier": args.hier,
-        "fused": False,
-        "async_groups": False,
+        "fused": args.fused,
+        "async_groups": args.async_groups,
     }
     write_bench(
         args.bench_out, meta=meta, sim_rows=rows, arena=xarena, device=device

@@ -7,7 +7,10 @@ interpret mode (as ``tests/test_kernels.py`` runs it) and the port.
 Tolerances are the reference suite's: 2e-5 in f32 (2e-4 on the small-head
 sweeps), 2e-2 in bf16.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against the plain version there); here its
-wrapper is held to refusing CPU tensors.
+wrapper is held to refusing CPU tensors, and what the wrapper hands the
+kernel (``prepare``: the path, the copies and the zero-padding of head dims
+that are not built) is run on the CPU and fed to the plain version with the
+kernel's scale argument.
 """
 
 import pytest
@@ -22,7 +25,8 @@ from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro.models import layers as jL
 from repro.parallel.sharding import TRAIN_RULES
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _check_tma_layout
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, PATHS, built_head_dim, prepare,
+                                                 tma_addressable)
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.models import layers as tL
 from repro_torch.models.params import params_from_numpy
@@ -159,15 +163,61 @@ def test_flash_kernel_takes_head_dims_32_64_and_128():
 
 
 def test_bf16_layout_check_takes_the_models_views_and_refuses_strided_rows():
-    """What TMA takes: a contiguous last dimension, 16-byte-aligned other
-    strides and base.  The model's (B, S, H, hd) activations seen as
-    (B, H, S, hd) pass; a strided last dimension or a misaligned row does not."""
+    """The layout check, ``tma_addressable``, takes what TMA can address: a
+    contiguous last dimension, 16-byte-aligned other strides and base.  It
+    takes the model's (B, S, H, hd) activations seen as (B, H, S, hd), which
+    are read in place (``tma``), and refuses a strided last dimension or a
+    misaligned row.  The wrapper does not raise on what it refuses: it
+    copies it into the model's layout first (``copy``), with the same
+    values."""
     for hd in HEAD_DIMS:
         x = torch.zeros(2, 9, 4, hd, dtype=torch.bfloat16)
-        _check_tma_layout(x.transpose(1, 2), x[:, :, :2].transpose(1, 2))
-    x = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="contiguous last dimension"):
-        _check_tma_layout(x[..., ::2].transpose(1, 2))
-    with pytest.raises(ValueError, match="16-byte"):
-        _check_tma_layout(x.view(1, 8, -1)[..., 4:4 + 2 * 120].view(1, 8, 2, 120)
-                          .transpose(1, 2))
+        q, kv = x.transpose(1, 2), x[:, :, :2].transpose(1, 2)
+        assert tma_addressable(q) and tma_addressable(kv)
+        path, *got = prepare(q, kv, kv)
+        assert path == "tma" and all(a is b for a, b in zip(got, (q, kv, kv)))
+    x = torch.randn(1, 8, 2, 256).to(torch.bfloat16)
+    strided = x[..., ::2].transpose(1, 2)
+    misaligned = x.view(1, 8, -1)[..., 4:4 + 2 * 128].view(1, 8, 2, 128).transpose(1, 2)
+    for bad in (strided, misaligned):
+        assert not tma_addressable(bad)
+        path, *got = prepare(bad, bad, bad)
+        assert path == "copy"
+        for t in got:
+            assert tma_addressable(t) and t.transpose(1, 2).is_contiguous()
+            assert torch.equal(t, bad)
+
+
+def test_prepare_picks_each_path_from_dtype_head_dim_and_layout():
+    assert PATHS[0] == "tma"  # the served (bf16) path first
+    x = torch.zeros(1, 2, 8, 64)
+    assert prepare(x, x, x)[0] == "fp32"
+    assert prepare(x[..., ::2], x[..., ::2], x[..., ::2])[0] == "fp32"  # any strides
+    assert prepare(*[x.to(torch.bfloat16)] * 3)[0] == "tma"
+    for hd, built in ((4, 32), (16, 32), (33, 64), (96, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            y = torch.ones(1, 2, 8, hd, dtype=dt)
+            path, q, k, v = prepare(y, y, y)
+            assert path == "pad" and q.shape[-1] == built == built_head_dim(hd)
+            assert torch.equal(q[..., :hd], y) and not q[..., hd:].any()
+    with pytest.raises(ValueError, match="up to 128"):
+        built_head_dim(160)
+
+
+@pytest.mark.parametrize("hd", [4, 16, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_with_its_scale_equals_plain_and_reference(hd, causal):
+    """pad (the wrapper's ``prepare``) -> plain at scale 1/sqrt(hd) -> crop
+    equals the plain version on the original head dim, and the reference:
+    the zero columns add nothing to Q K^T, and the scale is the caller's."""
+    q, k, v = _qkv(2, 4, 2, 40, 40, hd, "float32", seed=hd)
+    tq, tk, tv = map(_t, (q, k, v))
+    path, pq, pk, pv = prepare(tq, tk, tv)
+    assert path == "pad" and pq.shape[-1] == built_head_dim(hd)
+    got = ref.flash_attention(pq, pk, pv, causal=causal, kv_len=33,
+                              scale=1.0 / np.sqrt(hd))[..., :hd]
+    plain = ref.flash_attention(tq, tk, tv, causal=causal, kv_len=33)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+    expect = jref.flash_attention(*map(jnp.asarray, (q, np.repeat(k, 2, 1), np.repeat(v, 2, 1))),
+                                  causal=causal, kv_len=33)
+    np.testing.assert_allclose(_f32(got), _f32(expect), **F32)

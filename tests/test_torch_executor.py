@@ -210,15 +210,6 @@ def test_stream_put_reassembles_bit_identically():
         assert torch.equal(s._stream_put(x, CPU, n_chunks), x)
 
 
-def test_fused_and_async_paths_are_not_ported_yet():
-    gt = _chain(tgraph)
-    inputs = tex.attach_request_kernels(gt, 8)
-    ex = tex.TorchExecutor({"g0": CPU})
-    for kw in ({"fused": True}, {"async_groups": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex.session(gt, {n: "g0" for n in gt.nodes}, inputs, **kw)
-
-
 def test_attach_draws_seeded_host_inputs():
     g1, g2 = _chain(tgraph), _chain(tgraph)
     a = tex.attach_request_kernels(g1, 8)

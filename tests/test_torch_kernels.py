@@ -145,6 +145,23 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
         kernel(x, x)
 
 
+def test_matadd_prepare_copies_non_contiguous_operands():
+    """K2 takes non-contiguous operands (a fused chain's reshapes and
+    transposes): ``prepare`` reads contiguous ones in place and copies the
+    others contiguous, and the plain sum of what it hands on is bit-equal."""
+    from repro_torch.kernels.matadd import PATHS, prepare
+
+    assert PATHS == ("direct", "copy")
+    x = _torch(_np((6, 10), "float32", 11))
+    y = _torch(_np((10, 6), "float32", 12))
+    path, a, b = prepare(x, y.T.contiguous())
+    assert path == "direct" and a is x
+    for a0, b0 in ((x, y.T), (x[:, ::2].T, y[::2]), (y.T, y.T)):
+        path, a, b = prepare(a0, b0)
+        assert path == "copy" and a.is_contiguous() and b.is_contiguous()
+        assert torch.equal(ref.matadd(a, b), a0 + b0)
+
+
 def test_warm_up_is_a_no_op_on_the_cpu():
     mm0, ma0 = cuda_matmul.launches, cuda_matadd.launches
     ops.warm_up("cpu")

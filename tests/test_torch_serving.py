@@ -75,9 +75,24 @@ def test_simulated_zoo_scenarios_equal_reference(scenario):
     assert [strip(r) for r in rows_t] == [strip(r) for r in rows_j]
 
 
-def test_colocate_scenario_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run_arena(4, 2, steps=2, scenario="colocate")
+def test_colocate_scenario_rows_equal_reference():
+    """The colocate scenario's fine-tune steps are costed from the port's
+    own model configs, with the reference's formula."""
+    kw = dict(steps=3, seed=0, scenario="colocate")
+    rows_t, _ = tserve.run_arena(6, 4, **kw)
+    rows_j, _ = jserve.run_arena(6, 4, **kw)
+    strip = lambda r: {k: v for k, v in dataclasses.asdict(r).items()
+                       if k not in WALL_FIELDS}
+    assert rows_t and [strip(r) for r in rows_t] == [strip(r) for r in rows_j]
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "rwkv6_3b", "minitron_4b"])
+def test_colocate_train_step_costs_equal_reference(arch):
+    from repro.core.arena import _train_step_costs as jcosts
+    from repro_torch.core.arena import _train_step_costs as tcosts
+
+    gflops = {"big": 900.0, "small": 150.0}
+    assert tcosts(arch, 8, 128, gflops) == jcosts(arch, 8, 128, gflops)
 
 
 # -- executed arena -----------------------------------------------------------

@@ -249,7 +249,8 @@ def test_choose_path_copies_where_tma_cannot(N):
     """An n-stride of 2 or a base off the 16-byte granule takes the copy
     path; the copy is the model's layout, which the ring path takes, with the
     values unchanged."""
-    from repro_torch.kernels.wkv6 import choose_path, copy_bshn
+    from repro_torch.kernels.layout import copy_bshd
+    from repro_torch.kernels.wkv6 import choose_path
 
     B, H, S = 2, 3, 9
     strided = torch.zeros(B, S, H, 2 * N).transpose(1, 2)[..., ::2]  # n-stride 2
@@ -261,7 +262,7 @@ def test_choose_path_copies_where_tma_cannot(N):
         got = choose_path(tuple(x.shape), x.stride(), (x.data_ptr(),) * 4)
         assert got == ("copy", x.stride())
         x.copy_(torch.randn(x.shape, generator=torch.Generator().manual_seed(N)))
-        y = copy_bshn(x)
+        y = copy_bshd(x)
         assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
         bshn = torch.zeros(B, S, H, N).transpose(1, 2)
         assert y.stride() == bshn.stride()
@@ -284,8 +285,10 @@ def test_choose_path_replaces_unused_strides_of_size_one_dims():
 def test_wkv6_wrapper_refusals_and_head_sizes_unchanged():
     from repro_torch.kernels import wkv6 as wkv6_module
 
-    assert wkv6_module.HEAD_SIZES == (32, 64)
-    assert wkv6_module.PATHS == ("ring", "copy")
+    assert wkv6_module.HEAD_SIZES == (32, 64)  # built; smaller N are padded
+    assert wkv6_module.PATHS == ("ring", "copy", "pad")
+    with pytest.raises(ValueError, match="up to 64"):
+        wkv6_module.built_head_size(80)
     x = torch.ones(1, 2, 4, 32)
     u = torch.ones(2, 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -308,4 +311,47 @@ def test_reset_launches_sets_every_count_to_zero():
     cuda_wkv6.launches_by_path["ring"] = 2
     wkv6_module.reset_launches()
     assert cuda_wkv6.launches == 0
-    assert cuda_wkv6.launches_by_path == {"ring": 0, "copy": 0}
+    assert cuda_wkv6.launches_by_path == {"ring": 0, "copy": 0, "pad": 0}
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_padded_head_size_equals_plain_and_reference(N):
+    """pad (the wrapper's ``prepare``) -> plain -> crop equals the plain
+    version on the original N, and the reference, at 1e-5: the padded k and
+    v entries are 0, so the state's extra rows and columns stay 0."""
+    from repro_torch.kernels.wkv6 import built_head_size, prepare
+
+    r, k, v, w, u = _inputs(2, 3, 19, N, seed=N)
+    ts = tuple(map(_t, (r, k, v, w, u)))
+    path, padded = prepare(*ts)
+    assert path == "pad" and padded[0].shape[-1] == built_head_size(N) == 32
+    assert padded[4].shape == (3, 32) and not padded[4][:, N:].any()
+    o, state = ref.wkv6(*padded)
+    o, state = o[..., :N], state[:, :, :N, :N]
+    plain_o, plain_state = ref.wkv6(*ts)
+    torch.testing.assert_close(o, plain_o, **TOL)
+    torch.testing.assert_close(state, plain_state, **TOL)
+    expect_o, expect_state = jref.wkv6(*map(jnp.asarray, (r, k, v, w, u)))
+    np.testing.assert_allclose(o.numpy(), np.asarray(expect_o), **TOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(expect_state), **TOL)
+
+
+def test_unequal_strides_take_the_copy_path():
+    """r, k, v and w whose strides differ are no longer refused: ``prepare``
+    copies all four into the model's layout, where one set of strides reads
+    them all, with the same values and the same plain result."""
+    from repro_torch.kernels.wkv6 import choose_path, prepare
+
+    B, H, S, N = 2, 3, 9, 32
+    r, k, v, w, u = map(_t, _inputs(B, H, S, N, seed=5))
+    k_bshn = k.transpose(1, 2).contiguous().transpose(1, 2)  # same values, other strides
+    assert k_bshn.stride() != r.stride()
+    path, got = prepare(r, k_bshn, v, w, u)
+    assert path == "copy"
+    assert len({t.stride() for t in got[:4]}) == 1
+    assert choose_path((B, H, S, N), got[0].stride(),
+                       tuple(t.data_ptr() for t in got[:4]))[0] == "ring"
+    for a, b in zip(got, (r, k, v, w, u)):
+        assert torch.equal(a, b)
+    for a, b in zip(ref.wkv6(*got), ref.wkv6(r, k, v, w, u)):
+        torch.testing.assert_close(a, b, **TOL)
