@@ -67,9 +67,25 @@ prints no result):
    bf16 activations.  Counters set to 0 just before each model: K3 must have
    run once per layer of the prefill (40 for granite-3-2b at head_dim 64, 32
    for minitron-4b at head_dim 128) and K4 32 times, all on its ``ring``
-   path (a kernel's first path, ``PATHS[0]``, is its main path's).  Then one prefill and 4
-   decode steps of granite-3-2b and rwkv6-3b under ``torch.profiler``:
-   device kernel time against wall, and the kernels that take most of it.
+   path (a kernel's first path, ``PATHS[0]``, is its main path's), and every
+   decode step one replay of the captured CUDA graph.  Then one prefill and 4
+   eager decode steps of granite-3-2b and rwkv6-3b under ``torch.profiler``:
+   device kernel time against wall, and the kernels that take most of it;
+12. ``[decode-graph]``: each of the three models prefilled, then 32 decode
+   steps from the same cache eagerly and through ``DecodeGraph`` (one CUDA
+   graph per step), timed back to back: greedy tokens equal, the logits'
+   largest difference, the capture's ms, ms per token of both, and the
+   graph replays' device busy share under ``torch.profiler``;
+13. ``[router]``: ``run_router`` under every routing mode with a drain
+   (simulated); 3 ``ExecutorReplica``s on ``cuda:0`` at side 2048 behind
+   the affinity router for 3 steps, K1/K2 launches (set to 0 just before)
+   equal to the fleet's executed ``prefill``/``decode`` counts; the same
+   fleet under a step clock on the card and on the CPU, both at side 2048:
+   routing, warm hits and transfers equal;
+14. ``[cli]``: ``--scheduler``, ``--arena --scenario moe``, ``--arena
+   --replicas 3 --router all --drain-step 2`` and ``--smoke`` of
+   ``python -m repro_torch.launch.serve``, each a process of its own, all
+   started together; each must exit 0.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound; the last line is
@@ -800,11 +816,31 @@ def serve_full_width(arch: str, kname: str, dev, smi: str) -> dict:
     print(f"[serve] {cfg.name} full width, {SERVE['n_requests']} requests x "
           f"{SERVE['prompt_len']}-token prompts, {SERVE['decode_len']} decode tokens, bf16: "
           f"prefill {stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} "
-          f"ms/token, {stats.tokens_per_s:.1f} tokens/s; {kernel.__name__} launches "
+          f"ms/token through one CUDA graph per step (captured in {stats.capture_ms:.1f} ms), "
+          f"{stats.tokens_per_s:.1f} tokens/s; {kernel.__name__} launches "
           f"{launches} == {cfg.n_layers} layers x 1 prefill"
           + (f" (by path {by_path})" if by_path is not None else "")
           + f"; peak memory {peak_gb:.1f} GB; {smi}")
+    if not stats.capture_ms > 0:
+        raise AssertionError(f"{arch}: serve_smoke on the card captured no decode graph")
     return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path}
+
+
+def _kernel_ms(prof) -> tuple[dict[str, float], int]:
+    """-> ({kernel name: ms on the device}, kernels launched) of a
+    ``torch.profiler`` run."""
+    by_name: dict[str, float] = {}
+    launched = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            launched += 1
+    return by_name, launched
+
+
+def _top(by_name: dict[str, float], n: int = 5) -> str:
+    return "; ".join(f"{name[:60]} {t:.1f} ms"
+                     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
 def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
@@ -845,19 +881,259 @@ def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
             torch.cuda.synchronize()
             spans[f"{steps} decode steps"] = (prof, (time.perf_counter() - t0) * 1e3)
     for span, (prof, wall_ms) in spans.items():
-        by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        by_name, launched = _kernel_ms(prof)
         busy = sum(by_name.values())
-        launched = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         mine = sum(t for name, t in by_name.items() if kernel_key in name)
         print(f"[profile] {cfg.name} {span}: {launched} kernels, {busy:.1f} ms on the device in "
               f"{wall_ms:.1f} ms of wall under the profiler (device busy "
               f"{busy / wall_ms:.1%}); {kernel_key} kernels {mine:.1f} ms "
-              f"({mine / busy:.1%} of the device time); top: "
-              + "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top))
+              f"({mine / busy:.1%} of the device time); top: {_top(by_name)}")
+
+
+def decode_graph(arch: str, dev, smi: str) -> None:
+    """``[decode-graph]``: the full-width ``arch`` (8 x 2048-token prompts, bf16,
+    weights from seed 0) prefilled once, then 32 greedy decode steps from the
+    same cache twice, timed back to back: the eager loop (``T.decode_step``
+    called once per token, as ``profile_serving`` calls it) and
+    ``DecodeGraph``'s replays (one captured CUDA graph per step, as
+    ``serve_smoke`` runs it).  Greedy tokens must be equal; the logits
+    bit-equal, or else within ``[card-vs-cpu]``'s tolerance (rtol 1e-4, atol
+    1e-4 x the largest eager logit).  Each loop also keeps a clone of every
+    step's logits, the same copy in both.  Then a second capture, replayed
+    over the same 32 steps under ``torch.profiler``: device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch.serve import DecodeGraph
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import cast_params, init_params, tree_leaves, tree_map
+
+    cfg = get_config(arch)
+    ctx = Ctx(dtype=torch.bfloat16)
+    B, S, n = SERVE["n_requests"], SERVE["prompt_len"], SERVE["decode_len"]
+    with torch.inference_mode():
+        gen = torch.Generator(dev).manual_seed(0)
+        params = cast_params(init_params(T.model_param_specs(cfg), gen), ctx.dtype)
+        batch = make_batch(cfg, S, B, train=False, generator=gen)
+        cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=S + n)
+        tok0 = logits.argmax(-1)
+        saved = tree_map(torch.clone, cache)
+
+        def restore():
+            for dst, src in zip(tree_leaves(cache), tree_leaves(saved)):
+                dst.copy_(src)
+
+        def loop(step):
+            tok, toks, logs = tok0, [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                logits = step(tok, i)
+                logs.append(logits.clone())
+                tok = logits.argmax(-1)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n, torch.stack(toks, 1), logs
+
+        eager_ms, eager_toks, eager_logits = loop(
+            lambda tok, i: T.decode_step(params, cache, tok, S + i, cfg, ctx)[0])
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = DecodeGraph(params, cache, tok0, S, cfg, ctx)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            graph_ms, graph_toks, graph_logits = loop(lambda tok, i: graph(tok))
+        finally:
+            graph.release()
+        if not torch.equal(graph_toks, eager_toks):
+            raise AssertionError(f"[decode-graph] {arch}: greedy tokens through the graph "
+                                 f"differ from eager at {(graph_toks != eager_toks).sum()} places")
+        err = max((g - e).abs().max().item() for g, e in zip(graph_logits, eager_logits))
+        bit_equal = all(torch.equal(g, e) for g, e in zip(graph_logits, eager_logits))
+        if not bit_equal:
+            for g, e in zip(graph_logits, eager_logits):
+                torch.testing.assert_close(g, e, rtol=1e-4, atol=1e-4 * e.abs().max().item())
+        if not all(torch.isfinite(x).all() for x in graph_logits):
+            raise AssertionError(f"[decode-graph] {arch}: non-finite logits")
+        del graph_logits, eager_logits
+        # the graph's busy share: a fresh capture, its replays profiled
+        restore()
+        graph = DecodeGraph(params, cache, tok0, S, cfg, ctx)
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tok = tok0
+                for _ in range(n):
+                    tok = graph(tok).argmax(-1)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            graph.release()
+    by_name, launched = _kernel_ms(prof)
+    busy = sum(by_name.values())
+    share = f"{busy / wall:.1%}" if launched else "not measured (the profiler saw no kernel)"
+    print(f"[decode-graph] {cfg.name} full width, {B} requests x {S}-token prompts, {n} decode "
+          f"tokens, bf16: greedy tokens equal to eager; logits "
+          f"{'bit-equal' if bit_equal else 'within rtol 1e-4, atol 1e-4 x max|logit|'} "
+          f"(max_abs_err={err}); capture {capture_ms:.1f} ms (one warm-up step included); "
+          f"decode graph {graph_ms:.2f} ms/token, eager {eager_ms:.2f} ms/token "
+          f"({eager_ms / graph_ms:.2f}x); graph replays under the profiler: {launched} "
+          f"kernels, {busy:.1f} ms on the device in {wall:.1f} ms of wall (device busy "
+          f"{share}); top: {_top(by_name)}; {smi}")
+
+
+class _CountedReplica:
+    """An ``ExecutorReplica`` that keeps each step's report and the requests
+    the router sent it (the router keeps neither)."""
+
+    def __init__(self, replica):
+        self.inner, self.name = replica, replica.name
+        self.reports, self.routed = [], []
+
+    def run_step(self, step):
+        from repro_torch.core.arena import requests_of
+
+        self.routed.append((step.tag, sorted(requests_of(step.graph))))
+        rep = self.inner.run_step(step)
+        self.reports.append(rep)
+        return rep
+
+    def residency(self):
+        return self.inner.residency()
+
+    def drain_kv(self):
+        return self.inner.drain_kv()
+
+
+def executed_fleet(device):
+    """3 ``ExecutorReplica``s (each a ``ServingExecutor`` of the flat
+    big/small platform, every class on ``device``, blocks of side ``SIDE``,
+    a persistent incremental-gp policy) behind the affinity router, on a
+    stream of 3 steps.  -> (router report, counted replicas)."""
+    from repro_torch.core.arena import make_request_stream
+    from repro_torch.core.router import ReplicaRouter
+    from repro_torch.core.schedulers import make_policy
+    from repro_torch.core.serving import ExecutorReplica, ServingExecutor, groups_for_platform
+    from repro_torch.launch.serve import heterogeneous_platform
+
+    reps = []
+    for i in range(3):
+        plat = heterogeneous_platform()
+        sx = ServingExecutor(groups_for_platform(plat, [device]), plat, side=SIDE)
+        reps.append(_CountedReplica(ExecutorReplica(
+            f"r{i}", sx, make_policy("incremental-gp", scale_by_workers=True))))
+    stream = make_request_stream(3, base_requests=6, decode_chunks=2, churn=0.3,
+                                 kv_bytes=SIDE * SIDE * 4, seed=0)
+    try:
+        return ReplicaRouter(reps, mode="affinity").run(stream), reps
+    finally:
+        for r in reps:
+            r.inner.executor.close()
+
+
+def router_phase(dev, modules: dict, smi: str) -> dict:
+    """``[router]``: ``run_router`` (simulated) for every mode with a drain;
+    then the executed fleet on the card, launches counted (set to 0 just
+    before): every executed ``prefill`` a K1 launch, every ``decode`` a K2
+    launch; then the fleet under a step clock on the card and on the CPU,
+    both at side ``SIDE``: routing, warm hits and transfers equal.
+    -> ({kernel: launches}, {kernel: launches by path}) of the counted run."""
+    from repro_torch.core import executor as tex
+    from repro_torch.core.router import MODES
+    from repro_torch.launch.serve import run_router
+
+    for mode in MODES:
+        d = run_router(24, 8, replicas=3, mode=mode, steps=4, seed=0, drain_step=2).to_dict()
+        if d["steps"] != 4 or d["kv_migrated_bytes"] <= 0:
+            raise AssertionError(f"[router] mode={mode}: {d}")
+        print(f"[router] mode={mode} replicas=3 steps={d['steps']} (simulated, drain before "
+              f"step 2): mean_lat={d['mean_latency_ms']:.1f}ms p95={d['p95_latency_ms']:.1f}ms "
+              f"fleet_mk={d['total_makespan_ms']:.1f}ms warm_hit={d['warm_hit_rate']:.0%} "
+              f"migrated={d['kv_migrated_bytes'] / 2**20:.0f}MiB")
+
+    for m in modules.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    report, reps = executed_fleet(dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: getattr(modules[k], k).launches for k in ("matmul", "matadd")}
+    by_path = {k: dict(getattr(modules[k], k).launches_by_path) for k in launches}
+    ran = {op: sum(s.kernels_by_op.get(op, 0) for r in reps for s in r.reports)
+           for op in ("prefill", "decode")}
+    if launches != {"matmul": ran["prefill"], "matadd": ran["decode"]} or not all(ran.values()):
+        raise AssertionError(f"[router] executed fleet: launches {launches} != executed {ran}")
+    if by_path["matmul"]["wgmma"] != launches["matmul"]:
+        raise AssertionError(f"[router] executed fleet: matmul by path {by_path['matmul']}")
+    d = report.to_dict()
+    if d["steps"] != 3 or d["warm_hits"] == 0 or not all(s.makespan_ms > 0 for s in report.steps):
+        raise AssertionError(f"[router] executed fleet: {d}")
+    print(f"[router] executed fleet of {len(reps)} ExecutorReplicas on {torch.cuda.get_device_name(0)}"
+          f", side {SIDE}, 3 steps (stream cut to 6 requests x 2 decode chunks): wall {wall:.1f} "
+          f"ms, fleet_mk={d['total_makespan_ms']:.3f}ms warm_hits={d['warm_hits']} "
+          f"cold={d['cold']} transfers={d['transfers']}; launches {launches} == executed "
+          f"prefill/decode {ran}, matmul by path {by_path['matmul']}; {smi}")
+
+    saved = tex.time
+    got = {}
+    try:
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            tex.time = StepClock()
+            report, reps = executed_fleet(device)
+            got[side] = {
+                "routed": {r.name: r.routed for r in reps},
+                "warm": [(s.warm_hits, s.warm_misses, s.cold) for s in report.steps],
+                "transfers": [(s.transfers, s.bytes_moved) for s in report.steps],
+            }
+    finally:
+        tex.time = saved
+    if got["card"] != got["cpu"]:
+        raise AssertionError(f"[router] executed fleet on a step clock: card {got['card']} != "
+                             f"CPU {got['cpu']}")
+    print(f"[router] executed fleet on a step clock, side {SIDE}: card == CPU on routing, warm "
+          f"hits/misses/cold {got['card']['warm']} and transfers {got['card']['transfers']} ok")
+    return launches, by_path
+
+
+CLI_MODES = (
+    ["--scheduler", "incremental-gp"],
+    ["--arena", "--scenario", "moe", "--requests", "6", "--decode-chunks", "4", "--steps", "3"],
+    ["--arena", "--requests", "24", "--steps", "4", "--replicas", "3", "--router", "all",
+     "--drain-step", "2"],
+    ["--arch", "granite_3_2b", "--smoke", "--requests", "8", "--decode-len", "16"],
+)
+
+
+def cli_phase() -> None:
+    """``[cli]``: each new mode of ``python -m repro_torch.launch.serve`` in a
+    subprocess of its own, all started together, each on the card's
+    default device; every one must exit 0 (``--smoke`` decodes through one
+    captured CUDA graph per step and says so)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [(args, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                                     cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+             for args in CLI_MODES]
+    failed = []
+    for args, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        ok = proc.returncode == 0 and lines and (
+            "--smoke" not in args or "one CUDA graph per step" in out)
+        print(f"[cli] {' '.join(args)}: rc {proc.returncode}; "
+              + (" | ".join(lines[-3:]) if lines else "no output"))
+        if not ok:
+            failed.append((args, proc.returncode, err[-2000:]))
+    if failed:
+        raise AssertionError(f"[cli] failed: {failed}")
 
 
 def build_report(build) -> None:
@@ -1131,7 +1407,7 @@ def main() -> int:
 
     # 11. full-width serving, one model after the other; a kernel's launches
     # in the JSON line are summed over the models it serves (K1's and K2's
-    # over the unfused and the two fused arenas)
+    # over the unfused and the two fused arenas and the router's fleet)
     by_path = dict(by_path_arena)
     serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
                  "minitron_4b": minitron_k3_ms}
@@ -1150,6 +1426,23 @@ def main() -> int:
             profile_serving(arch, dev, PROFILE_KEY[kname])
             gc.collect()
             torch.cuda.empty_cache()
+
+    # 12. decode as one CUDA graph per step against the eager loop, same call
+    for arch, _ in SERVED:
+        decode_graph(arch, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 13. the fleet router: simulated modes, then executed replicas on K1/K2
+    fleet, fleet_by_path = router_phase(dev, modules, smi)
+    for k, n in fleet.items():
+        launches[k] += n
+        by_path[k] = {p: m + fleet_by_path[k][p] for p, m in by_path[k].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. the CLI's new modes, each a process of its own
+    cli_phase()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

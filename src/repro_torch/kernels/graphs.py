@@ -26,6 +26,11 @@ buffers and replays it.  What that takes, beside the capture itself:
 * **Memory.**  Each graph keeps a private memory pool (the chain's live
   set); :meth:`CapturedChain.release` frees it, and the executor's
   ``SuperStepCache`` calls it when an entry is evicted or the cache cleared.
+* **Warm-up.**  A chain of library calls (cuBLAS products, as in a served
+  model's decode step) runs ``warmup`` times on the capture's stream first,
+  on the real inputs, so what those libraries set up lazily is not
+  captured.  A warm-up executes the chain: a caller whose chain writes
+  state in place restores that state afterwards.
 
 There is no uncaptured fallback: a capture or a replay that fails raises.
 """
@@ -46,9 +51,10 @@ def _counts_since(before: dict) -> dict:
 
 class CapturedChain:
     """``chain(*ext) -> tuple of tensors`` captured once on ``device`` over
-    static buffers shaped, typed and strided like ``ext_args``."""
+    static buffers shaped, typed and strided like ``ext_args`` (and holding
+    their values when ``warmup`` > 0)."""
 
-    def __init__(self, chain, ext_args, device: torch.device):
+    def __init__(self, chain, ext_args, device: torch.device, *, warmup: int = 0):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -56,10 +62,17 @@ class CapturedChain:
         self.device = device
         # same shape, dtype and (dense) strides as the first externals seen
         self.static_in = [torch.empty_like(a, device=device) for a in ext_args]
-        self.graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)  # capture needs a non-default stream
+        if warmup:
+            for dst, src in zip(self.static_in, ext_args):
+                dst.copy_(src)
+            side.wait_stream(cur)
+            with torch.cuda.device(device), torch.cuda.stream(side):
+                for _ in range(warmup):
+                    chain(*self.static_in)
+        self.graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
         torch.cuda.synchronize(device)  # nothing in flight while capturing
         try:
             with torch.cuda.device(device), torch.cuda.stream(side):
@@ -82,15 +95,19 @@ class CapturedChain:
             raise TypeError("a captured chain must return tensors")
         self.static_out = tuple(outs)
 
-    def replay(self, ext_args) -> tuple:
-        """Copy ``ext_args`` into the static inputs, replay the graph on the
-        current stream and return fresh clones of its outputs."""
+    def replay(self, ext_args=None, *, clone: bool = True) -> tuple:
+        """Copy ``ext_args`` into the static inputs (``None``: the caller has
+        written them in place), replay the graph on the current stream and
+        return fresh clones of its outputs, or with ``clone=False`` the
+        static outputs themselves, which the next replay overwrites."""
         if self.graph is None:
             raise RuntimeError("replay of a released CUDA graph")
-        for dst, src in zip(self.static_in, ext_args):
+        for dst, src in zip(self.static_in, ext_args or ()):
             dst.copy_(src)
         self.graph.replay()
         ops.add_launches(self.launches)
+        if not clone:
+            return self.static_out
         return tuple(o.clone() for o in self.static_out)
 
     def release(self) -> None:

@@ -20,18 +20,29 @@ writes the metrics to ``--bench-out`` (the schema
   # ... or on the CPU, where the kernels' plain PyTorch versions run
   PYTHONPATH=src python -m repro_torch.launch.serve --arena --execute --device cpu
 
+  # the zoo's other streams (MoE routing, speculative decoding, train/serve
+  # colocation), simulated, with affinity-steal beside the default policies
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena --scenario moe
+
+  # the fleet tier: 3 replicas behind the partition-affine router, every
+  # routing mode, the last replica drained before step 2 (simulated)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena --requests 24 --steps 4 \
+      --replicas 3 --router all --drain-step 2
+
 ``--smoke`` serves a model: a batch of prompts prefilled, then greedy
 decode, for the ``attn`` and ``rwkv6`` architectures (granite-3-2b,
 rwkv6-3b, ...).  Prefill attention is the CUDA flash-attention kernel (K3)
-and the RWKV-6 recurrence the CUDA WKV6 kernel (K4):
+and the RWKV-6 recurrence the CUDA WKV6 kernel (K4); on the card each
+decode step is one replay of a captured CUDA graph (:class:`DecodeGraph`).
+Without ``--arena`` the request DAG is then simulated under ``--scheduler``
+(``incremental-gp`` by default), or only that when ``--smoke`` is not given:
 
   # the reduced model, f32 activations, on the CPU (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b --smoke \
       --requests 2 --decode-len 4 --device cpu
 
-The fused path (``--fused``, ``--async-groups``), the fleet router
-(``--replicas``) and the scenario zoo (``--scenario``) are not ported yet
-(ROADMAP queue 1).
+  # one policy on the request DAG, simulated
+  PYTHONPATH=src python -m repro_torch.launch.serve --scheduler gp
 """
 
 from __future__ import annotations
@@ -55,13 +66,15 @@ from ..core.arena import (
 from ..core.comm import HierTopology, Topology
 from ..core.cost import LEAF_NIC, POD_UPLINK, RACK_UPLINK, Link
 from ..core.graph import TaskGraph
+from ..core.router import MODES, ReplicaRouter, RouterReport, SimReplica
 from ..core.schedulers import as_executed, make_policy
 from ..core.serving import ServingExecutor, groups_for_platform
-from ..core.simulate import Platform, Processor, WorkerDrop
+from ..core.simulate import Platform, Processor, WorkerDrop, simulate
 from ..kernels import ops
+from ..kernels.graphs import CapturedChain
 from ..models import transformer as T
 from ..models.layers import Ctx
-from ..models.params import cast_params, init_params
+from ..models.params import cast_params, init_params, tree_leaves, tree_map
 
 # every policy runs in executed mode: gp/incremental-gp produce class
 # assignments natively; eager/dmda/heft go through the worker-pull dispatch
@@ -90,12 +103,55 @@ def default_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class ServeStats:
     """Times of one :func:`serve_smoke` run (host clock, each span ended by
-    a device synchronise) and whether every logit it produced was finite."""
+    a device synchronise) and whether every logit it produced was finite.
+    ``decode_ms_per_token`` covers the decode steps only: on the card the
+    replays of the captured step, whose capture (warm-up included) is
+    ``capture_ms`` (0 on the CPU, where the step runs eagerly)."""
 
     prefill_ms: float
     decode_ms_per_token: float
     tokens_per_s: float  # decoded tokens (all requests) per decode second
     logits_finite: bool
+    capture_ms: float
+
+
+class DecodeGraph:
+    """``T.decode_step`` captured once into one CUDA graph and replayed once
+    per token: the port's counterpart of the reference's ``jax.jit`` of the
+    step.
+
+    The graph's static buffers are the token buffer ``(B,)``, a one-element
+    position buffer that the graph itself advances after each step, the
+    cache tensors (``decode_step`` writes them in place), and ``params``.
+    The warm-up before the capture executes the step, which would advance
+    every RWKV state by one token, so the cache is restored from a snapshot
+    after the capture.  A capture or a replay that fails raises: there is
+    no eager fallback."""
+
+    def __init__(self, params, cache, tokens, pos: int, cfg, ctx: Ctx):
+        device = tokens.device
+        pos_t = torch.full((1,), pos, dtype=torch.long, device=device)
+
+        def step(tok, p):
+            logits, _ = T.decode_step(params, cache, tok, p, cfg, ctx)
+            p.add_(1)
+            return (logits,)
+
+        saved = tree_map(torch.clone, cache)
+        self.chain = CapturedChain(step, (tokens, pos_t), device, warmup=1)
+        for dst, src in zip(tree_leaves(cache), tree_leaves(saved)):
+            dst.copy_(src)
+        for dst, src in zip(self.chain.static_in, (tokens, pos_t)):
+            dst.copy_(src)
+
+    def __call__(self, tokens) -> torch.Tensor:
+        """Decode one step from ``tokens``: the graph's logits buffer, which
+        the next call overwrites."""
+        self.chain.static_in[0].copy_(tokens)
+        return self.chain.replay(clone=False)[0]
+
+    def release(self) -> None:
+        self.chain.release()
 
 
 def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
@@ -105,12 +161,16 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
     ``params`` (the f32 tree of :func:`T.model_param_specs`) default to
     ``init_params`` from ``seed`` on ``device``, and ``batch`` to
     ``make_batch`` from ``seed``; the weights are cast to the activation
-    dtype once, here.  ``device`` defaults to ``cuda:0``.  Returns the greedy
-    tokens ``(n_requests, decode_len + 1)`` on the host (the prefill's, then
-    one per decode step) and a :class:`ServeStats`."""
+    dtype once, here.  ``device`` defaults to ``cuda:0``.  On a CUDA device
+    the decode step is captured once into one CUDA graph
+    (:class:`DecodeGraph`) and replayed per token; on the CPU it runs
+    eagerly.  Returns the greedy tokens ``(n_requests, decode_len + 1)`` on
+    the host (the prefill's, then one per decode step) and a
+    :class:`ServeStats`."""
     device = default_device(device)
     ctx = Ctx(dtype=DTYPES[cfg.activation_dtype])
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *a: None)
+    graph = None
     with torch.inference_mode():
         if params is None:
             gen = torch.Generator(device).manual_seed(seed)
@@ -128,20 +188,36 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
         finite = torch.isfinite(logits).all()
         sync(device)
         t1 = time.perf_counter()
-        out_tokens = [tok]
-        for i in range(decode_len):
-            logits, cache = T.decode_step(params, cache, tok, prompt_len + i, cfg, ctx)
-            finite &= torch.isfinite(logits).all()
-            tok = logits.argmax(-1)
-            out_tokens.append(tok)
-        sync(device)
-        t2 = time.perf_counter()
+        t2 = t1
+        try:
+            if device.type == "cuda" and decode_len:
+                graph = DecodeGraph(params, cache, tok, prompt_len, cfg, ctx)
+                sync(device)
+                t2 = time.perf_counter()
+
+                def step(tok, i):
+                    return graph(tok)
+            else:
+                def step(tok, i):
+                    return T.decode_step(params, cache, tok, prompt_len + i, cfg, ctx)[0]
+            out_tokens = [tok]
+            for i in range(decode_len):
+                logits = step(tok, i)
+                finite &= torch.isfinite(logits).all()
+                tok = logits.argmax(-1)
+                out_tokens.append(tok)
+            sync(device)
+            t3 = time.perf_counter()
+        finally:
+            if graph is not None:
+                graph.release()
     tokens = torch.stack(out_tokens, 1).cpu()
     stats = ServeStats(
         prefill_ms=(t1 - t0) * 1e3,
-        decode_ms_per_token=(t2 - t1) * 1e3 / max(decode_len, 1),
-        tokens_per_s=n_requests * decode_len / (t2 - t1) if decode_len else 0.0,
+        decode_ms_per_token=(t3 - t2) * 1e3 / max(decode_len, 1),
+        tokens_per_s=n_requests * decode_len / (t3 - t2) if decode_len else 0.0,
         logits_finite=bool(finite),
+        capture_ms=(t2 - t1) * 1e3,
     )
     return tokens, stats
 
@@ -305,6 +381,33 @@ def _policy_kwargs(scheduler: str) -> dict:
     return {}
 
 
+def schedule_requests(
+    n_requests: int, decode_chunks: int, scheduler: str, *, kv_mb: float = 64.0
+) -> dict:
+    """The ``n_requests`` x ``decode_chunks`` request DAG simulated under
+    ``scheduler`` on the flat big/small platform: makespan, transfers, MiB
+    moved and kernels per class (``--scheduler``)."""
+    g = request_dag(
+        n_requests,
+        decode_chunks,
+        prefill_ms_big=20.0,
+        prefill_ms_small=60.0,
+        decode_ms_big=8.0,
+        decode_ms_small=24.0,
+        kv_bytes=int(kv_mb * 2**20),
+    )
+    plat = heterogeneous_platform()
+    pol = make_policy(scheduler, **_policy_kwargs(scheduler))
+    res = simulate(g, pol, plat)
+    return {
+        "scheduler": scheduler,
+        "makespan_ms": res.makespan_ms,
+        "transfers": res.n_transfers,
+        "bytes_moved_mb": res.bytes_transferred / 2**20,
+        "per_class": res.kernels_per_class,
+    }
+
+
 def run_arena(
     n_requests: int,
     decode_chunks: int,
@@ -429,6 +532,61 @@ def run_arena_executed(
     return rows, arena
 
 
+def run_router(
+    n_requests: int,
+    decode_chunks: int,
+    *,
+    replicas: int = 3,
+    mode: str = "affinity",
+    steps: int = 6,
+    kv_mb: float = 16.0,
+    churn: float = 0.3,
+    seed: int = 0,
+    hier: bool = False,
+    arrival_spread_ms: float = 40.0,
+    burst_factor: float = 6.0,
+    drain_step: int | None = None,
+    drain_replica: str | None = None,
+) -> RouterReport:
+    """Fleet mode: ``replicas`` platform replicas behind a
+    :class:`~repro_torch.core.router.ReplicaRouter`, fed one shared bursty
+    (Markov ON/OFF) request stream.  Every replica runs a persistent
+    ``incremental-gp`` policy, so the router's affinity score reads real
+    partitioner residency.  ``drain_step`` gracefully drains a replica
+    (default: the last one) before that step — proactive KV migration."""
+    plat0 = hierarchical_platform() if hier else heterogeneous_platform()
+    costs_prefill, costs_decode = (
+        hier_request_costs(plat0) if hier else (None, None)
+    )
+    stream = make_request_stream(
+        steps,
+        base_requests=n_requests,
+        decode_chunks=decode_chunks,
+        churn=churn,
+        kv_bytes=int(kv_mb * 2**20),
+        seed=seed,
+        costs_prefill=costs_prefill,
+        costs_decode=costs_decode,
+        arrival_spread_ms=arrival_spread_ms,
+        arrival_mode="onoff",
+        burst_factor=burst_factor,
+    )
+    reps = [
+        SimReplica(
+            f"r{i}",
+            hierarchical_platform() if hier else heterogeneous_platform(),
+            "incremental-gp",
+            policy_kwargs=_policy_kwargs("incremental-gp"),
+        )
+        for i in range(replicas)
+    ]
+    router = ReplicaRouter(reps, mode=mode)
+    drain_at = None
+    if drain_step is not None:
+        drain_at = {drain_step: drain_replica or f"r{replicas - 1}"}
+    return router.run(stream, drain_at=drain_at)
+
+
 def device_name(device) -> str:
     """What a result was measured on: the card's name, or ``cpu``."""
     device = torch.device(device)
@@ -472,12 +630,38 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-len", type=int, default=16)
+    ap.add_argument(
+        "--scheduler",
+        type=str,
+        default="incremental-gp",
+        choices=[
+            "incremental-gp",
+            "gp",
+            "dmda",
+            "eager",
+            "heft",
+            "random",
+            "affinity-steal",
+        ],
+        help="without --arena: simulate the --requests x --decode-chunks "
+        "request DAG under this policy (after --smoke, when given)",
+    )
     ap.add_argument("--decode-chunks", type=int, default=8)
     ap.add_argument(
         "--arena",
         action="store_true",
         help="replay a churning request stream through every "
         "policy and print the comparison table",
+    )
+    ap.add_argument(
+        "--scenario",
+        type=str,
+        default="serve",
+        choices=list(SCENARIOS),
+        help="with --arena: zoo stream generator — the default "
+        "prefill/decode serving stream, MoE conditional routing, "
+        "speculative-decoding verify-or-discard, or train/serve "
+        "colocation (simulated comparison incl. affinity-steal)",
     )
     ap.add_argument(
         "--hier",
@@ -491,6 +675,29 @@ def main(argv=None):
         type=int,
         default=6,
         help="stream length (scheduling intervals) for --arena",
+    )
+    ap.add_argument(
+        "--replicas",
+        type=int,
+        default=1,
+        help="with --arena: >1 runs the fleet tier — N platform "
+        "replicas behind the partition-affine router on a "
+        "bursty ON/OFF stream",
+    )
+    ap.add_argument(
+        "--router",
+        type=str,
+        default="affinity",
+        choices=list(MODES) + ["all"],
+        help="fleet routing mode for --replicas > 1 "
+        "('all' compares every mode on the same stream)",
+    )
+    ap.add_argument(
+        "--drain-step",
+        type=int,
+        default=None,
+        help="with --replicas: gracefully drain the last replica "
+        "before this step (proactive KV migration)",
     )
     ap.add_argument(
         "--drop-step",
@@ -544,21 +751,54 @@ def main(argv=None):
     )
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not (args.arena or args.smoke):
-        ap.error("pass --arena [--execute] or --smoke; the other modes are not "
-                 "ported yet (ROADMAP queue 1)")
+    if args.arena and args.replicas > 1:
+        _main_router(args)
+        return
     if args.arena:
         _main_arena(args)
         return
-    cfg = dataclasses.replace(get_config(canon(args.arch)).smoke(),
-                              activation_dtype="float32")
-    device = _cli_device(args.device)
-    ops.warm_up(device)
-    _, stats = serve_smoke(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
-                           decode_len=args.decode_len, seed=args.seed, device=device)
-    print(f"[serve] {cfg.name}: {args.requests} requests x {args.decode_len} tokens "
-          f"-> {stats.tokens_per_s:.1f} tok/s ({device_name(device)}; prefill "
-          f"{stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} ms/token)")
+    if args.smoke:
+        cfg = dataclasses.replace(get_config(canon(args.arch)).smoke(),
+                                  activation_dtype="float32")
+        device = _cli_device(args.device)
+        ops.warm_up(device)
+        _, stats = serve_smoke(cfg, n_requests=args.requests, prompt_len=args.prompt_len,
+                               decode_len=args.decode_len, seed=args.seed, device=device)
+        print(f"[serve] {cfg.name}: {args.requests} requests x {args.decode_len} tokens "
+              f"-> {stats.tokens_per_s:.1f} tok/s ({device_name(device)}; prefill "
+              f"{stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} ms/token"
+              + (f", one CUDA graph per step, captured in {stats.capture_ms:.1f} ms"
+                 if device.type == "cuda" else "") + ")")
+    r = schedule_requests(args.requests, args.decode_chunks, args.scheduler)
+    print(
+        f"[serve] scheduler={args.scheduler}: makespan={r['makespan_ms']:.1f}ms "
+        f"transfers={r['transfers']} moved={r['bytes_moved_mb']:.0f}MiB "
+        f"placement={r['per_class']}"
+    )
+
+
+def _main_router(args) -> None:
+    modes = list(MODES) if args.router == "all" else [args.router]
+    for mode in modes:
+        rep = run_router(
+            args.requests,
+            args.decode_chunks,
+            replicas=args.replicas,
+            mode=mode,
+            steps=args.steps,
+            seed=args.seed,
+            hier=args.hier,
+            drain_step=args.drain_step,
+        )
+        d = rep.to_dict()
+        print(
+            f"[router] mode={mode} replicas={args.replicas} "
+            f"steps={d['steps']}: mean_lat={d['mean_latency_ms']:.1f}ms "
+            f"p95={d['p95_latency_ms']:.1f}ms "
+            f"fleet_mk={d['total_makespan_ms']:.1f}ms "
+            f"warm_hit={d['warm_hit_rate']:.0%} "
+            f"migrated={d['kv_migrated_bytes'] / 2**20:.0f}MiB"
+        )
 
 
 def _cli_device(name: str) -> torch.device:
@@ -570,6 +810,12 @@ def _cli_device(name: str) -> torch.device:
 
 
 def _main_arena(args) -> None:
+    policies = DEFAULT_POLICIES
+    if args.scenario != "serve":
+        # zoo scenarios exist to compare the partitioners against the
+        # strongest queue baseline; the serve default stays pinned to the
+        # CI baseline's exact policy set
+        policies = DEFAULT_POLICIES + ("affinity-steal",)
     rows, _ = run_arena(
         args.requests,
         args.decode_chunks,
@@ -577,10 +823,14 @@ def _main_arena(args) -> None:
         drop_step=args.drop_step,
         seed=args.seed,
         hier=args.hier,
+        scenario=args.scenario,
+        policies=policies,
     )
     print(format_table(rows))
     if not args.execute:
         return
+    if args.scenario != "serve":
+        raise SystemExit("--execute only supports --scenario serve")
     device = _cli_device(args.device)
     # the kernel build and first launches must not land in a timed kernel
     ops.warm_up(device)

@@ -161,15 +161,20 @@ def attn_block(p, x, cfg, ctx: Ctx, *, positions, causal=True):
 # decode attention (one new token against a cache)
 # ---------------------------------------------------------------------------
 
-def decode_attn_dense(q, ck, cv, k_new, v_new, pos: int):
+def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor):
     """q: (B, H, hd); caches (B, S, K, hd); pos: write position of the new
-    token.  The caches are updated in place (the serving loop owns them) and
-    returned."""
+    token, a one-element ``long`` tensor on the caches' device.  The caches
+    are updated in place (the serving loop owns them) and returned.
+
+    The position is never read on the host (``index_copy_`` writes at it,
+    a comparison against ``arange`` masks past it), so the step can be
+    captured into a CUDA graph and replayed with the position advanced on
+    the card."""
     B, S, K, hd = ck.shape
     H = q.shape[1]
     G = H // K
-    ck[:, pos] = k_new.to(ck.dtype)
-    cv[:, pos] = v_new.to(cv.dtype)
+    ck.index_copy_(1, pos, k_new[:, None].to(ck.dtype))
+    cv.index_copy_(1, pos, v_new[:, None].to(cv.dtype))
     qg = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), ck.float()) / math.sqrt(hd)
     s = s.masked_fill(torch.arange(S, device=s.device) > pos, NEG_INF)
@@ -178,11 +183,11 @@ def decode_attn_dense(q, ck, cv, k_new, v_new, pos: int):
     return o.reshape(B, H, hd).to(q.dtype), (ck, cv)
 
 
-def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: int):
-    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}.  Returns
-    (out (B,1,d), cache)."""
+def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
+    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}; pos: a one-element
+    ``long`` tensor.  Returns (out (B,1,d), cache)."""
     q, k, v = _qkv(p, x, cfg, ctx)               # (B,1,H,hd)/(B,1,K,hd)
-    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    posv = pos.view(1, 1).expand(x.shape[0], 1)
     q = apply_rope(q, posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k, posv, cfg.rope_theta)[:, 0]
     o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos)

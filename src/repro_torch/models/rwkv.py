@@ -117,8 +117,9 @@ def rwkv6_block(p, x, cfg, ctx: Ctx):
     return out, {"S": state, "x_last": x[:, -1].clone()}
 
 
-def rwkv6_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: int):
-    """One-token step.  x: (B,1,d); cache {"S": (B,H,N,N), "x_last": (B,d)}."""
+def rwkv6_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
+    """One-token step.  x: (B,1,d); cache {"S": (B,H,N,N), "x_last": (B,d)}.
+    ``pos`` is not read: the recurrence carries the position in its state."""
     B = x.shape[0]
     H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
     x_prev = cache["x_last"][:, None]

@@ -117,8 +117,9 @@ def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True)
     return x + L.mlp(p["ffn"], h, ctx), cache
 
 
-def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: int):
-    """One-token layer step.  Returns (x, new_cache)."""
+def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
+    """One-token layer step; ``pos`` is a one-element ``long`` tensor.
+    Returns (x, new_cache)."""
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         out, nc = L.attn_decode_block(p["mixer"], h, cfg, ctx, cache=cache, pos=pos)
@@ -222,10 +223,20 @@ def _write_back(cache: dict, new: dict) -> None:
             cache[name].copy_(t)
 
 
-def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig, ctx: Ctx):
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx):
     """One decode step.  tokens: (B,) ints; pos: write index (the same for
-    the whole batch).  The cache buffers are updated in place: the serving
-    loop owns them.  Returns (logits (B, V), cache)."""
+    the whole batch), an ``int`` or a one-element ``long`` tensor on the
+    tokens' device.  The cache buffers are updated in place: the serving
+    loop owns them.  Returns (logits (B, V), cache).
+
+    Nothing here reads a device value on the host, so with a tensor ``pos``
+    the step captures into one CUDA graph (``launch/serve.py``'s
+    :class:`~repro_torch.launch.serve.DecodeGraph`); an ``int`` becomes such
+    a tensor first, and the same kernels run."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.view(1)
+    else:
+        pos = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
     x = params["embed"][tokens.long()[:, None]].to(ctx.dtype)
     for u in range(cfg.n_units):
         unit_p = _unit(params["unit"], u)
