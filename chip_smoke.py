@@ -27,8 +27,12 @@ prints no result):
    bf16 at head dims 32, 64 and 128, causal and not, ``kv_len`` < Sk and 0,
    Sq != Sk both ways, GQA 32/8 and 24/8, ragged S = 33 and 77, and the
    granite-3-2b and minitron-4b prefill shapes, on the model's strided (B,
-   S, H, hd) views; head dims 4, 16 and 96 zero-padded (``pad``) in both
-   dtypes; a bf16 view whose last dimension is strided, copied (``copy``);
+   S, H, hd) views; whisper-large-v3's shapes: one query over 1500 encoder
+   frames (its decode cross-attention), its 416-token prompt over them and
+   1500 x 1500 (its encoder), not causal; head dims 4, 16 and 96
+   zero-padded (``pad``) in both dtypes, 96 also at minicpm3-4b's MLA
+   prefill shape (40 heads over 40); a bf16 view whose last dimension is
+   strided, copied (``copy``);
 5. K4 (WKV6) against its plain version, output and final state, each case
    with the path the wrapper took (``ring``, ``copy`` where TMA cannot
    address the inputs or their strides differ and the wrapper copies them
@@ -40,7 +44,9 @@ prints no result):
    16;
 6. each kernel's time at its main path's shape (median over batches
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
-   where one computes the same function, and the card's bound;
+   where one computes the same function, and the card's bound; K3 also at
+   minitron-4b's, minicpm3-4b's and whisper-large-v3's encoder and decode
+   cross-attention shapes;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -59,19 +65,28 @@ prints no result):
    the replays), with wall, makespan, fused steps, waves, cache hits and
    misses, transfers, static-input copies and peak memory, and ``gp`` on a
    stream without arrival spread or drops equal to the CPU's counters;
-10. a 2-layer, full-width cut of granite-3-2b and of rwkv6-3b in f32 (batch
-   2, prompt 128, 4 decode steps), run on the card and on the CPU from the
-   same parameters: prefill and decode logits compared;
-11. full-width serving through ``serve_smoke``: granite-3-2b, rwkv6-3b and
-   minitron-4b, 8 requests x 2048-token prompts, 32 greedy decode tokens,
-   bf16 activations.  Counters set to 0 just before each model: K3 must have
-   run once per layer of the prefill (40 for granite-3-2b at head_dim 64, 32
-   for minitron-4b at head_dim 128) and K4 32 times, all on its ``ring``
-   path (a kernel's first path, ``PATHS[0]``, is its main path's), and every
-   decode step one replay of the captured CUDA graph.  Then one prefill and 4
-   eager decode steps of granite-3-2b and rwkv6-3b under ``torch.profiler``:
-   device kernel time against wall, and the kernels that take most of it;
-12. ``[decode-graph]``: each of the three models prefilled, then 32 decode
+10. a 2-layer, full-width cut in f32 (batch 2, prompt 128, after the VLM's
+   576 patches; 4 decode steps) of granite-3-2b, rwkv6-3b,
+   granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3 (and 2 encoder
+   layers over its 1500 frames) and llava-next-mistral-7b, run on the card
+   and on the CPU from the same parameters: prefill and decode logits
+   compared;
+11. full-width serving through ``serve_smoke``, 8 requests, 32 greedy decode
+   tokens, bf16 activations: granite-3-2b, rwkv6-3b, minitron-4b,
+   granite-moe-3b-a800m, minicpm3-4b and llava-next-mistral-7b at 2048-token
+   prompts (llava's are 576 patches and 1472 text tokens), whisper-large-v3
+   at 416-token prompts over 1500 encoder frames, and deepseek-moe-16b cut
+   to 4 layers (its dense prefix layer and three MoE layers).  Counters set
+   to 0 just before each model: K3 must have run once per attention layer
+   of the prefill, on ``tma`` (on ``pad`` for minicpm3-4b's head dim 96),
+   and for whisper also once per encoder layer and once per cross-attention
+   in the prefill and in each decode step (through the graph's replays); K4
+   32 times, all on its ``ring`` path; every decode step one replay of the
+   captured CUDA graph.  Then one prefill and 4 eager decode steps of
+   granite-3-2b, rwkv6-3b, granite-moe-3b-a800m and minicpm3-4b under
+   ``torch.profiler``: device kernel time against wall, and the kernels that
+   take most of it;
+12. ``[decode-graph]``: each of the eight models prefilled, then 32 decode
    steps from the same cache eagerly and through ``DecodeGraph`` (one CUDA
    graph per step), timed back to back: greedy tokens equal, the logits'
    largest difference, the capture's ms, ms per token of both, and the
@@ -84,8 +99,10 @@ prints no result):
    routing, warm hits and transfers equal;
 14. ``[cli]``: ``--scheduler``, ``--arena --scenario moe``, ``--arena
    --replicas 3 --router all --drain-step 2`` and ``--smoke`` of
-   ``python -m repro_torch.launch.serve``, each a process of its own, all
-   started together; each must exit 0.
+   ``python -m repro_torch.launch.serve`` (granite-3-2b, and the reduced
+   granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3,
+   llava-next-mistral-7b and deepseek-moe-16b), each a process of its own,
+   all started together; each must exit 0.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound; the last line is
@@ -136,10 +153,25 @@ REPLACES = {
 SERVE = dict(n_requests=8, prompt_len=2048, decode_len=32)
 K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
 K3_MINITRON = (8, 24, 8, 2048, 128)
+K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, zero-padded to 128
+K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not causal
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
-SERVED = (("granite_3_2b", "flash_attention"), ("rwkv6_3b", "wkv6"),
-          ("minitron_4b", "flash_attention"))
-CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b")  # also the profiled ones
+# every served model: (arch, the kernel its prefill runs, its prompt length,
+# the config's one cut).  whisper-large-v3's decoder prompt is 416 tokens, so
+# 416 + 32 stays inside its published 448-token text context (beside its
+# 1500 encoder frames); llava-next-mistral-7b's 2048 positions are 576
+# patches and 1472 text tokens; deepseek-moe-16b keeps its dense prefix layer
+# and three MoE units at full width (all 28 layers would hold ~98 GB)
+SERVED = (("granite_3_2b", "flash_attention", 2048, {}), ("rwkv6_3b", "wkv6", 2048, {}),
+          ("minitron_4b", "flash_attention", 2048, {}),
+          ("granite_moe_3b_a800m", "flash_attention", 2048, {}),
+          ("minicpm3_4b", "flash_attention", 2048, {}),
+          ("whisper_large_v3", "flash_attention", 416, {}),
+          ("llava_next_mistral_7b", "flash_attention", 2048, {}),
+          ("deepseek_moe_16b", "flash_attention", 2048, {"n_layers": 4}))
+CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b",
+               "whisper_large_v3", "llava_next_mistral_7b")
+PROFILED = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b")
 PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
 
 
@@ -335,6 +367,26 @@ def check_flash(flash, ref, gen) -> float:
         (2, 4, 4, 64, 192, 128, torch.float32, False, None),
         (2, 4, 4, 192, 64, 128, torch.bfloat16, True, None),
         (2, 4, 4, 192, 64, 128, torch.float32, False, None),
+        # whisper-large-v3: the decode's cross-attention (one query over the
+        # 1500 encoder frames, inside the captured decode graph), the
+        # decoder's causal self-attention over its 416-token prompt, the
+        # prefill's cross-attention (the prompt over the frames) and the
+        # encoder's (1500 x 1500, not causal); neither 416 nor 1500 is a
+        # multiple of a key tile
+        (8, 20, 20, 1, 1500, 64, torch.bfloat16, False, None),
+        (8, 20, 20, 416, 416, 64, torch.bfloat16, True, None),
+        (2, 20, 20, 1, 1500, 64, torch.float32, False, None),
+        (8, 20, 20, 416, 1500, 64, torch.bfloat16, False, None),
+        (8, 20, 20, 1500, 1500, 64, torch.bfloat16, False, None),
+        (2, 20, 20, 1500, 1500, 64, torch.float32, False, None),
+        # minicpm3-4b's MLA prefill: head dim 96 over 40 heads, zero-padded
+        (8, 40, 40, 2048, 2048, 96, torch.bfloat16, True, None),
+        (2, 40, 40, 512, 512, 96, torch.float32, True, None),
+        # the other served prefills: granite-moe-3b-a800m, llava-next-mistral-7b
+        # (576 patches + 1472 text tokens) and deepseek-moe-16b
+        (8, 24, 8, 2048, 2048, 64, torch.bfloat16, True, None),
+        (8, 32, 8, 2048, 2048, 128, torch.bfloat16, True, None),
+        (8, 16, 16, 2048, 2048, 128, torch.bfloat16, True, None),
     ]
     # head dims that are not built, zero-padded up to the next built one
     # (minicpm3-4b's MLA attends at 96), and a bf16 view TMA cannot address
@@ -452,26 +504,32 @@ def check_wkv6(wkv6, ref, gen) -> float:
     return main_err
 
 
-def time_flash(flash, ref, gen, peaks, shape) -> tuple[tuple, tuple]:
-    """-> ((ms, plain ms, SDPA ms), bound) of K3 in bf16, causal, at
-    ``shape`` (B, H, K, S, hd) on the model's strided views."""
+def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | None = None
+               ) -> tuple[tuple, tuple]:
+    """-> ((ms, plain ms, SDPA ms), bound) of K3 in bf16 at ``shape`` (B, H,
+    K, S, hd) on the model's strided views: ``sq`` queries (default S) over
+    S keys, causal or not."""
     import torch.nn.functional as F
 
     B, H, K, S, hd = shape
-    q = _strided((B, S, H, hd), torch.bfloat16, gen)
+    Sq = S if sq is None else sq
+    q = _strided((B, Sq, H, hd), torch.bfloat16, gen)
     k = _strided((B, S, K, hd), torch.bfloat16, gen)
     v = _strided((B, S, K, hd), torch.bfloat16, gen)
-    # the library call: SDPA at Sq = Sk (where its top-left causal alignment
-    # is the reference's), K and V expanded to the query heads outside the
-    # timed call
+    # the library call: SDPA, where its top-left causal alignment is the
+    # reference's (Sq = Sk, or no mask), K and V expanded to the query heads
+    # outside the timed call
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
-    pairs = B * H * S * (S + 1) / 2  # (query, key) pairs the causal mask keeps
+    # (query, key) pairs the mask keeps, each 4 hd operations at the
+    # caller's head dim (not the padded one)
+    pairs = B * H * Sq * (S + 1) / 2 if causal else B * H * Sq * S
     bf16 = 2
-    bnd = bound(4.0 * pairs * hd, (2 * B * H * S * hd + 2 * B * K * S * hd) * bf16,
+    bnd = bound(4.0 * pairs * hd, (2 * B * H * Sq * hd + 2 * B * K * S * hd) * bf16,
                 peaks["bf16"], peaks["bytes"])
-    return (time_ms(lambda: flash(q, k, v, causal=True)),
-            time_ms(lambda: ref.flash_attention(q, k, v, causal=True), batches=3, per_batch=5),
-            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))), bnd
+    return (time_ms(lambda: flash(q, k, v, causal=causal)),
+            time_ms(lambda: ref.flash_attention(q, k, v, causal=causal), batches=3,
+                    per_batch=5),
+            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=causal))), bnd
 
 
 def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
@@ -749,18 +807,22 @@ def arena_fused(dev, modules: dict, smi: str) -> tuple[dict, dict]:
 
 
 def card_vs_cpu(arch: str, dev) -> None:
-    """2 layers of ``arch`` at full width in f32, batch 2, prompt 128, 4
-    decode steps: the same parameters (drawn on the CPU) on the card and on
-    the CPU.  Tolerance: rtol 1e-4 and atol 1e-4 x the largest CPU logit
-    (f32 products of K up to 8960 summed in another order on each side)."""
+    """2 layers of ``arch`` at full width in f32 (and 2 encoder layers for
+    the encoder-decoder), batch 2, a prompt of 128 text positions (after the
+    VLM's 576 patches), 4 decode steps: the same parameters (drawn on the
+    CPU) on the card and on the CPU.  Tolerance: rtol 1e-4 and atol 1e-4 x
+    the largest CPU logit (f32 products of K up to 14336 summed in another
+    order on each side)."""
     from repro_torch.configs.registry import get_config, make_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import init_params, tree_map
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, activation_dtype="float32")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=2, activation_dtype="float32",
+                              n_encoder_layers=2 if full.enc_dec else 0)
     ctx = Ctx(dtype=torch.float32)
-    B, S, steps = 2, 128, 4
+    B, S, steps = 2, 128 + (cfg.n_patches if cfg.vlm else 0), 4
     with torch.inference_mode():
         params = init_params(T.model_param_specs(cfg), torch.Generator().manual_seed(0))
         batch = make_batch(cfg, S, B, train=False, generator=torch.Generator().manual_seed(0))
@@ -781,48 +843,73 @@ def card_vs_cpu(arch: str, dev) -> None:
             for side, (p, _) in sides.items():
                 logits[side], caches[side] = T.decode_step(
                     p, caches[side], tok.to(p["embed"].device), S + i, cfg, ctx)
-    print(f"[card-vs-cpu] {cfg.name} 2 layers full width f32 B{B} S{S}: prefill logits "
+    layers = "2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
+    print(f"[card-vs-cpu] {cfg.name} {layers} full width f32 B{B} S{S}: prefill logits "
           f"max_abs_err={errs[0]}, decode steps {errs[1:]} (rtol=1e-4, atol=1e-4 x "
           f"max|logit|) ok")
 
 
-def serve_full_width(arch: str, kname: str, dev, smi: str) -> dict:
-    """``serve_smoke`` on the unreduced ``arch`` (bf16 activations), the
-    counters of the kernel ``kname`` set to 0 just before; -> what the run
-    printed.  A kernel with paths must have taken its first one every time."""
+def served_config(arch: str, cut: dict):
+    """The published config of ``arch`` with its one listed cut, if any."""
     from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def expected_launches(cfg, kname: str, decode_len: int) -> tuple[int, str]:
+    """-> (launches, path) of the prefill kernel ``kname`` in one
+    ``serve_smoke`` of ``cfg``: one per attention (or RWKV-6) layer of the
+    prefill; for the encoder-decoder also one per encoder layer and one
+    cross-attention per decoder layer, in the prefill and then in each
+    decode step (the warm-up before the capture, which runs eagerly, and
+    each of the ``decode_len`` replays, counted through them as the fused
+    path counts).  K3 pads a head dim that is not built (MLA's 96)."""
+    if kname == "wkv6":
+        return cfg.n_layers, "ring"
+    from repro_torch.kernels.flash_attention import built_head_dim
+
+    n = cfg.attn_layer_count()
+    if cfg.enc_dec:
+        n += cfg.n_encoder_layers + cfg.n_layers * (1 + 1 + decode_len)
+    return n, "tma" if built_head_dim(cfg.hd) == cfg.hd else "pad"
+
+
+def serve_full_width(cfg, kname: str, prompt_len: int, dev, smi: str) -> dict:
+    """``serve_smoke`` on ``cfg`` at full width (bf16 activations), 8
+    requests of ``prompt_len`` positions and 32 decode tokens, the counters
+    of the kernel ``kname`` set to 0 just before; -> what the run printed.
+    The launches and their path must be :func:`expected_launches`'."""
     from repro_torch.launch.serve import serve_smoke
 
-    cfg = get_config(arch)
     module = importlib.import_module(f"repro_torch.kernels.{kname}")
     kernel = getattr(module, kname)
+    serve = dict(SERVE, prompt_len=prompt_len)
     torch.cuda.reset_peak_memory_stats()
     module.reset_launches()
-    tokens, stats = serve_smoke(cfg, **SERVE, seed=0, device=dev)
+    tokens, stats = serve_smoke(cfg, **serve, seed=0, device=dev)
     launches = kernel.launches
-    by_path = dict(getattr(kernel, "launches_by_path", {})) or None
-    want = cfg.n_layers  # one launch per layer of the one prefill
+    by_path = dict(kernel.launches_by_path)
+    want, path = expected_launches(cfg, kname, serve["decode_len"])
     if not stats.logits_finite:
-        raise AssertionError(f"{arch}: non-finite logits")
-    if tuple(tokens.shape) != (SERVE["n_requests"], SERVE["decode_len"] + 1):
-        raise AssertionError(f"{arch}: tokens {tuple(tokens.shape)}")
-    if launches != want:
-        raise AssertionError(f"{arch}: {kernel.__name__} launched {launches} times, "
-                             f"not {want} (layers x prefills)")
-    if by_path is not None and by_path[module.PATHS[0]] != launches:
-        raise AssertionError(f"{arch}: {kname} launches by path {by_path}: every prefill "
-                             f"launch must take the {module.PATHS[0]} path")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[serve] {cfg.name} full width, {SERVE['n_requests']} requests x "
-          f"{SERVE['prompt_len']}-token prompts, {SERVE['decode_len']} decode tokens, bf16: "
-          f"prefill {stats.prefill_ms:.1f} ms, decode {stats.decode_ms_per_token:.2f} "
-          f"ms/token through one CUDA graph per step (captured in {stats.capture_ms:.1f} ms), "
-          f"{stats.tokens_per_s:.1f} tokens/s; {kernel.__name__} launches "
-          f"{launches} == {cfg.n_layers} layers x 1 prefill"
-          + (f" (by path {by_path})" if by_path is not None else "")
-          + f"; peak memory {peak_gb:.1f} GB; {smi}")
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if tuple(tokens.shape) != (serve["n_requests"], serve["decode_len"] + 1):
+        raise AssertionError(f"{cfg.name}: tokens {tuple(tokens.shape)}")
+    if launches != want or by_path[path] != launches:
+        raise AssertionError(f"{cfg.name}: {kname} launched {launches} times (by path "
+                             f"{by_path}), not {want}, all on {path}")
     if not stats.capture_ms > 0:
-        raise AssertionError(f"{arch}: serve_smoke on the card captured no decode graph")
+        raise AssertionError(f"{cfg.name}: serve_smoke on the card captured no decode graph")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shape = (f"{serve['n_requests']} requests x {prompt_len}-position prompts"
+             + (f" ({cfg.n_patches} patches + {prompt_len - cfg.n_patches} text tokens)"
+                if cfg.vlm else "")
+             + (f" over {cfg.encoder_seq} encoder frames" if cfg.enc_dec else ""))
+    print(f"[serve] {cfg.name} full width, {cfg.n_layers} layers, {shape}, "
+          f"{serve['decode_len']} decode tokens, bf16: prefill {stats.prefill_ms:.1f} ms, "
+          f"decode {stats.decode_ms_per_token:.2f} ms/token through one CUDA graph per step "
+          f"(captured in {stats.capture_ms:.1f} ms), {stats.tokens_per_s:.1f} tokens/s; "
+          f"{kernel.__name__} launches {launches} == expected {want}, all on {path} (by path "
+          f"{by_path}); peak memory {peak_gb:.1f} GB; {smi}")
     return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path}
 
 
@@ -843,8 +930,8 @@ def _top(by_name: dict[str, float], n: int = 5) -> str:
                      for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
-def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
-    """One prefill and ``steps`` decode steps of the full-width ``arch`` (the
+def profile_serving(cfg, prompt_len: int, dev, kernel_key: str, steps: int = 4) -> None:
+    """One prefill and ``steps`` decode steps of the full-width ``cfg`` (the
     serving shapes, fresh weights from seed 0) under ``torch.profiler``:
     the device kernel time against the wall of the same span, the kernels
     that take most of it, and the share of the port's kernels whose names
@@ -852,14 +939,13 @@ def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
     are the ``[serve]`` line's."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.configs.registry import make_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import cast_params, init_params
 
-    cfg = get_config(arch)
     ctx = Ctx(dtype=torch.bfloat16)
-    B, S = SERVE["n_requests"], SERVE["prompt_len"]
+    B, S = SERVE["n_requests"], prompt_len
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     spans = {}
     with torch.inference_mode():
@@ -890,8 +976,9 @@ def profile_serving(arch: str, dev, kernel_key: str, steps: int = 4) -> None:
               f"({mine / busy:.1%} of the device time); top: {_top(by_name)}")
 
 
-def decode_graph(arch: str, dev, smi: str) -> None:
-    """``[decode-graph]``: the full-width ``arch`` (8 x 2048-token prompts, bf16,
+def decode_graph(cfg, prompt_len: int, dev, smi: str) -> None:
+    """``[decode-graph]``: the full-width ``cfg`` (8 prompts of ``prompt_len``
+    positions, bf16,
     weights from seed 0) prefilled once, then 32 greedy decode steps from the
     same cache twice, timed back to back: the eager loop (``T.decode_step``
     called once per token, as ``profile_serving`` calls it) and
@@ -903,15 +990,15 @@ def decode_graph(arch: str, dev, smi: str) -> None:
     over the same 32 steps under ``torch.profiler``: device busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.configs.registry import make_batch
     from repro_torch.launch.serve import DecodeGraph
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import cast_params, init_params, tree_leaves, tree_map
 
-    cfg = get_config(arch)
+    arch = cfg.name
     ctx = Ctx(dtype=torch.bfloat16)
-    B, S, n = SERVE["n_requests"], SERVE["prompt_len"], SERVE["decode_len"]
+    B, S, n = SERVE["n_requests"], prompt_len, SERVE["decode_len"]
     with torch.inference_mode():
         gen = torch.Generator(dev).manual_seed(0)
         params = cast_params(init_params(T.model_param_specs(cfg), gen), ctx.dtype)
@@ -976,7 +1063,8 @@ def decode_graph(arch: str, dev, smi: str) -> None:
     by_name, launched = _kernel_ms(prof)
     busy = sum(by_name.values())
     share = f"{busy / wall:.1%}" if launched else "not measured (the profiler saw no kernel)"
-    print(f"[decode-graph] {cfg.name} full width, {B} requests x {S}-token prompts, {n} decode "
+    print(f"[decode-graph] {cfg.name} full width, {cfg.n_layers} layers, {B} requests x "
+          f"{S}-position prompts, {n} decode "
           f"tokens, bf16: greedy tokens equal to eager; logits "
           f"{'bit-equal' if bit_equal else 'within rtol 1e-4, atol 1e-4 x max|logit|'} "
           f"(max_abs_err={err}); capture {capture_ms:.1f} ms (one warm-up step included); "
@@ -1105,6 +1193,9 @@ CLI_MODES = (
     ["--arena", "--requests", "24", "--steps", "4", "--replicas", "3", "--router", "all",
      "--drain-step", "2"],
     ["--arch", "granite_3_2b", "--smoke", "--requests", "8", "--decode-len", "16"],
+    *(["--arch", arch, "--smoke", "--requests", "2", "--decode-len", "4"]
+      for arch in ("granite_moe_3b_a800m", "minicpm3_4b", "whisper_large_v3",
+                   "llava_next_mistral_7b", "deepseek_moe_16b")),
 )
 
 
@@ -1295,11 +1386,21 @@ def main() -> int:
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
-    # K3 at minitron-4b's prefill shape (head_dim 128), beside granite's
-    t, bnd = time_flash(flash_attention, ref, gen, peaks, K3_MINITRON)
-    minitron_k3_ms = t[0]
-    rows.insert(3, ("flash_attention", "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_MINITRON),
-                    t, bnd))
+    # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
+    # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
+    # encoder (1500 x 1500, not causal) and one decode step's cross-attention
+    # (one query over the 1500 frames)
+    k3_ms = {}
+    for label, shape, causal, sq in (("minitron_4b", K3_MINITRON, True, None),
+                                     ("minicpm3_4b", K3_MINICPM3, True, None),
+                                     ("whisper_large_v3", K3_WHISPER, False, None),
+                                     ("whisper decode", K3_WHISPER, False, 1)):
+        t, bnd = time_flash(flash_attention, ref, gen, peaks, shape, causal, sq)
+        k3_ms[label] = t[0]
+        B_, H_, K_, S_, hd_ = shape
+        desc = (f"B{B_} H{H_}/K{K_} Sq{sq or S_} Sk{S_} hd{hd_} bf16 "
+                f"{'causal' if causal else 'full'} ({label})")
+        rows.insert(3 + len(k3_ms) - 1, ("flash_attention", desc, t, bnd))
     for k, shape, (ms, plain, lib_ms), (b_ms, b_by) in rows:
         lib_txt = "none (no single PyTorch call)" if lib_ms is None else f"{lib_ms:.4f} ms"
         extra = f"; host-paced kernel {paced[k]:.4f} ms/call" if k in paced else ""
@@ -1409,27 +1510,31 @@ def main() -> int:
     # in the JSON line are summed over the models it serves (K1's and K2's
     # over the unfused and the two fused arenas and the router's fleet)
     by_path = dict(by_path_arena)
+    # the prefill kernel's time at each model's own prefill shape, where it
+    # was timed above
     serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
-                 "minitron_4b": minitron_k3_ms}
-    for arch, kname in SERVED:
-        run = serve_full_width(arch, kname, dev, smi)
+                       "minitron_4b": k3_ms["minitron_4b"], "minicpm3_4b": k3_ms["minicpm3_4b"]}
+    for arch, kname, prompt_len, cut in SERVED:
+        cfg = served_config(arch, cut)
+        run = serve_full_width(cfg, kname, prompt_len, dev, smi)
         launches[kname] = launches.get(kname, 0) + run["launches"]
         if run["by_path"] is not None:
             by_path[kname] = {p: n + by_path.get(kname, {}).get(p, 0)
                               for p, n in run["by_path"].items()}
-        busy = run["launches"] * serve_kernel_ms[arch]
-        print(f"[serve] {arch}: {kname} launches x kernel time = {busy:.1f} ms, "
-              f"{busy / run['prefill_ms']:.1%} of the prefill")
+        if arch in serve_kernel_ms:
+            busy = run["launches"] * serve_kernel_ms[arch]
+            print(f"[serve] {arch}: {kname} launches x kernel time = {busy:.1f} ms, "
+                  f"{busy / run['prefill_ms']:.1%} of the prefill")
         gc.collect()
         torch.cuda.empty_cache()
-        if arch in CARD_VS_CPU:
-            profile_serving(arch, dev, PROFILE_KEY[kname])
+        if arch in PROFILED:
+            profile_serving(cfg, prompt_len, dev, PROFILE_KEY[kname])
             gc.collect()
             torch.cuda.empty_cache()
 
     # 12. decode as one CUDA graph per step against the eager loop, same call
-    for arch, _ in SERVED:
-        decode_graph(arch, dev, smi)
+    for arch, _, prompt_len, cut in SERVED:
+        decode_graph(served_config(arch, cut), prompt_len, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
 

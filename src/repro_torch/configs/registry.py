@@ -39,10 +39,23 @@ def get_config(name: str) -> ModelConfig:
 
 def make_batch(cfg: ModelConfig, seq: int, batch: int, *, train: bool,
                generator: torch.Generator) -> dict:
-    """Random int32 tokens in ``[0, vocab)`` of a ``(batch, seq)`` batch (and
-    labels when ``train``), on the generator's device.  The VLM and
-    encoder-decoder inputs are not drawn: those variants are not ported."""
-    names = ("tokens", "labels") if train else ("tokens",)
-    return {name: torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
-                                device=generator.device, dtype=torch.int32)
-            for name in names}
+    """A random batch of ``seq`` positions on the generator's device, drawn
+    in the reference's order: for the VLM ``patch_embeds`` ``(batch,
+    n_patches, d)`` and ``seq - n_patches`` text tokens, for the
+    encoder-decoder ``enc_embeds`` ``(batch, encoder_seq, d)`` (both
+    ``normal x 0.02`` in bf16), then int32 ``tokens`` in ``[0, vocab)`` (and
+    ``labels`` when ``train``)."""
+    device = generator.device
+    embeds = []
+    s_text = seq
+    if cfg.vlm:
+        s_text = seq - cfg.n_patches
+        embeds.append(("patch_embeds", (batch, cfg.n_patches, cfg.d_model)))
+    if cfg.enc_dec:
+        embeds.append(("enc_embeds", (batch, cfg.encoder_seq, cfg.d_model)))
+    out = {name: (torch.randn(shape, generator=generator, device=device) * 0.02).to(
+        torch.bfloat16) for name, shape in embeds}
+    for name in ("tokens", "labels") if train else ("tokens",):
+        out[name] = torch.randint(0, cfg.vocab, (batch, s_text), generator=generator,
+                                  device=device, dtype=torch.int32)
+    return out

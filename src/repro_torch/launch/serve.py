@@ -30,8 +30,9 @@ writes the metrics to ``--bench-out`` (the schema
       --replicas 3 --router all --drain-step 2
 
 ``--smoke`` serves a model: a batch of prompts prefilled, then greedy
-decode, for the ``attn`` and ``rwkv6`` architectures (granite-3-2b,
-rwkv6-3b, ...).  Prefill attention is the CUDA flash-attention kernel (K3)
+decode, for every architecture but jamba's Mamba (granite-3-2b, rwkv6-3b,
+granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3, llava-next-mistral-7b,
+deepseek-moe-16b, ...).  Prefill attention is the CUDA flash-attention kernel (K3)
 and the RWKV-6 recurrence the CUDA WKV6 kernel (K4); on the card each
 decode step is one replay of a captured CUDA graph (:class:`DecodeGraph`).
 Without ``--arena`` the request DAG is then simulated under ``--scheduler``
@@ -74,7 +75,7 @@ from ..kernels import ops
 from ..kernels.graphs import CapturedChain
 from ..models import transformer as T
 from ..models.layers import Ctx
-from ..models.params import cast_params, init_params, tree_leaves, tree_map
+from ..models.params import cast_params, init_params
 
 # every policy runs in executed mode: gp/incremental-gp produce class
 # assignments natively; eager/dmda/heft go through the worker-pull dispatch
@@ -122,11 +123,13 @@ class DecodeGraph:
 
     The graph's static buffers are the token buffer ``(B,)``, a one-element
     position buffer that the graph itself advances after each step, the
-    cache tensors (``decode_step`` writes them in place), and ``params``.
+    cache tensors (``decode_step`` writes them in place; an encoder-decoder's
+    nested cross-attention K/V it only reads), and ``params``.
     The warm-up before the capture executes the step, which would advance
-    every RWKV state by one token, so the cache is restored from a snapshot
-    after the capture.  A capture or a replay that fails raises: there is
-    no eager fallback."""
+    every RWKV state by one token, so the tensors the step writes (all but
+    the cross-attention K/V) are restored from a snapshot after the
+    capture.  A capture or a replay that fails raises: there is no eager
+    fallback."""
 
     def __init__(self, params, cache, tokens, pos: int, cfg, ctx: Ctx):
         device = tokens.device
@@ -137,9 +140,10 @@ class DecodeGraph:
             p.add_(1)
             return (logits,)
 
-        saved = tree_map(torch.clone, cache)
+        written = _written_leaves(cache)
+        saved = [t.clone() for t in written]
         self.chain = CapturedChain(step, (tokens, pos_t), device, warmup=1)
-        for dst, src in zip(tree_leaves(cache), tree_leaves(saved)):
+        for dst, src in zip(written, saved):
             dst.copy_(src)
         for dst, src in zip(self.chain.static_in, (tokens, pos_t)):
             dst.copy_(src)
@@ -154,6 +158,15 @@ class DecodeGraph:
         self.chain.release()
 
 
+def _written_leaves(cache) -> list:
+    """The cache tensors ``T.decode_step`` writes: every leaf but those of
+    the ``cross`` subtrees (the encoder's K/V, which decode only reads)."""
+    if isinstance(cache, dict):
+        return [leaf for k in sorted(cache) if k != "cross"
+                for leaf in _written_leaves(cache[k])]
+    return [cache]
+
+
 def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
                 seed: int = 0, device=None, params=None, batch=None):
     """Prefill a batch of prompts, decode greedily.
@@ -166,7 +179,14 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
     (:class:`DecodeGraph`) and replayed per token; on the CPU it runs
     eagerly.  Returns the greedy tokens ``(n_requests, decode_len + 1)`` on
     the host (the prefill's, then one per decode step) and a
-    :class:`ServeStats`."""
+    :class:`ServeStats`.
+
+    Decode starts where the prefill's sequence ended (the patches and the
+    text tokens of the batch), and the cache holds that many positions plus
+    ``decode_len``.  The reference's ``serve_smoke`` starts the VLM
+    ``n_patches`` later and sizes its cache ``n_patches`` longer, which
+    leaves that many zero slots inside the window decode attends to
+    (ROADMAP section 3, fault 6)."""
     device = default_device(device)
     ctx = Ctx(dtype=DTYPES[cfg.activation_dtype])
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *a: None)
@@ -181,9 +201,11 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
             batch = make_batch(cfg, prompt_len, n_requests, train=False, generator=gen)
         batch = {k: v.to(device) for k, v in batch.items()}
 
+        pos0 = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1] if cfg.vlm else 0)
+        cache_len = pos0 + decode_len
         sync(device)
         t0 = time.perf_counter()
-        cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=prompt_len + decode_len)
+        cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=cache_len)
         tok = logits.argmax(-1)
         finite = torch.isfinite(logits).all()
         sync(device)
@@ -191,7 +213,7 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
         t2 = t1
         try:
             if device.type == "cuda" and decode_len:
-                graph = DecodeGraph(params, cache, tok, prompt_len, cfg, ctx)
+                graph = DecodeGraph(params, cache, tok, pos0, cfg, ctx)
                 sync(device)
                 t2 = time.perf_counter()
 
@@ -199,7 +221,7 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
                     return graph(tok)
             else:
                 def step(tok, i):
-                    return T.decode_step(params, cache, tok, prompt_len + i, cfg, ctx)[0]
+                    return T.decode_step(params, cache, tok, pos0 + i, cfg, ctx)[0]
             out_tokens = [tok]
             for i in range(decode_len):
                 logits = step(tok, i)

@@ -1,12 +1,12 @@
-"""Shared transformer layers: norms, rotary embeddings, the dense MLP and GQA
-attention (the port of ``repro/models/layers.py``, one device).
+"""Shared transformer layers: norms, rotary embeddings, the dense MLP, GQA
+attention and MLA (the port of ``repro/models/layers.py``, one device).
 
 All functions take ``params`` (nested dicts of tensors) and activations and
 return tensors; parameter builders return :class:`~.params.P` spec trees.
 Prefill attention is K3 (:func:`repro_torch.kernels.ops.flash_attention`):
 the hand-written CUDA kernel on the card, its plain version on the CPU.
 Decode attention (one new token against the cache) has no TPU kernel in the
-reference and stays plain tensor code.
+reference and stays plain tensor code; so does MLA's absorbed-weight decode.
 
 Weights are cast to the activation dtype at each use, as in the reference
 (``p["wq"].to(x.dtype)``); a tree cast once at load
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -30,11 +31,16 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Execution context: the activation dtype.  The reference's attention
-    chunk sizes are not taken: they pick one of two attention branches that
-    compute the same function, and the port sends both to one K3 call."""
+    """Execution context: the activation dtype, and the device mesh the
+    reference shards over (``mesh.shape`` maps axis names to sizes).  The
+    port runs on one device and nothing in it sets ``mesh`` yet: a caller's
+    mesh only makes the sharded paths it would select raise (ROADMAP queue
+    1, item 9).  The reference's attention chunk sizes are
+    not taken: they pick one of two attention branches that compute the same
+    function, and the port sends both to one K3 call."""
 
     dtype: torch.dtype = torch.bfloat16
+    mesh: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +198,82 @@ def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     k = apply_rope(k, posv, cfg.rope_theta)[:, 0]
     o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos)
     return _out(o, p["wo"], x.dtype)[:, None], {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+def mla_params(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": P((d, r_q)),
+        "q_norm": rmsnorm_params(r_q),
+        "wq_b": P((r_q, H, dn + dr)),
+        "wkv_a": P((d, r_kv + dr)),
+        "kv_norm": rmsnorm_params(r_kv),
+        "wk_b": P((r_kv, H, dn)),
+        "wv_b": P((r_kv, H, dv)),
+        "wo": P((H, dv, d)),
+    }
+
+
+def _mla_q(p, x, cfg, ctx: Ctx, positions):
+    dn = cfg.qk_nope_dim
+    ql = rmsnorm(p["q_norm"], x @ p["wq_a"].to(x.dtype), cfg.norm_eps)
+    q = _proj(ql, p["wq_b"])
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    return q[..., :dn], q_rope
+
+
+def _mla_latent(p, x, cfg, ctx: Ctx, positions):
+    r_kv = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"].to(x.dtype)
+    latent = rmsnorm(p["kv_norm"], kv[..., :r_kv], cfg.norm_eps)
+    # k_rope is a single shared rope head: (B, S, dr) -> (B, S, 1, dr)
+    k_rope = apply_rope(kv[..., None, r_kv:], positions, cfg.rope_theta)[..., 0, :]
+    return latent, k_rope
+
+
+def mla_block(p, x, cfg, ctx: Ctx, *, positions):
+    """Prefill MLA: K and V expanded from the latent, one K3 call at head dim
+    ``qk_nope + qk_rope`` (v zero-padded up to it and the output cropped,
+    as in the reference).  Returns (out, (latent, k_rope)) for caching."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, ctx, positions)
+    latent, k_rope = _mla_latent(p, x, cfg, ctx, positions)
+    k_nope = _proj(latent, p["wk_b"])
+    v = _proj(latent, p["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+    o = attention(q, k, F.pad(v, (0, dn + dr - dv)), causal=True)[..., :dv]
+    return _out(o, p["wo"], x.dtype), (latent, k_rope)
+
+
+def mla_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
+    """Absorbed-weight MLA decode: the query scored in latent space against
+    the compact cache {"latent": (B, S, r_kv), "k_rope": (B, S, dr)}, which
+    is written at ``pos`` (a one-element ``long`` tensor) in place and
+    returned; like :func:`decode_attn_dense`, nothing is read on the host."""
+    B = x.shape[0]
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    posv = pos.view(1, 1).expand(B, 1)
+    q_nope, q_rope = _mla_q(p, x, cfg, ctx, posv)          # (B, 1, H, .)
+    latent_new, k_rope_new = _mla_latent(p, x, cfg, ctx, posv)
+    cl, cr = cache["latent"], cache["k_rope"]
+    cl.index_copy_(1, pos, latent_new.to(cl.dtype))
+    cr.index_copy_(1, pos, k_rope_new.to(cr.dtype))
+    S = cl.shape[1]
+    # absorb wk_b into the query: q_lat (B, H, r_kv)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"].to(x.dtype))
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cl.float())
+         + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), cr.float())) * (
+        1.0 / math.sqrt(dn + dr))
+    s = s.masked_fill(torch.arange(S, device=s.device) > pos, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, cl.to(x.dtype))
+    o = torch.einsum("bhr,rhk->bhk", o_lat, p["wv_b"].to(x.dtype))
+    return _out(o, p["wo"], x.dtype)[:, None], {"latent": cl, "k_rope": cr}

@@ -1,15 +1,15 @@
 """Block-pattern transformer assembly (the port of
 ``repro/models/transformer.py``, one device, serving only).
 
-A model is {embedding -> repeating *units* of layers -> final norm -> LM
-head}, each layer = {mixer} + {ffn}.  The unit parameters keep the
-reference's stacked leading axis (``params["unit"]`` holds one
-``(n_units, ...)`` tensor per leaf), and the forward loops over it where
-the reference scans.
+A model is {embedding -> [prefix layers] -> repeating *units* of layers ->
+final norm -> LM head}, each layer = {mixer in attn|mla|rwkv6} + {ffn in
+dense|moe}, plus the optional encoder (Whisper, with cross-attention in
+every decoder layer) and the patch-embedding prefix (LLaVA).  The unit
+parameters keep the reference's stacked leading axis (``params["unit"]``
+holds one ``(n_units, ...)`` tensor per leaf), and the forward loops over
+it where the reference scans; prefix layers are unstacked, as there.
 
-Ported: the ``attn`` and ``rwkv6`` mixers and the ``dense`` FFN.  The other
-mixers and FFNs, unstacked prefix layers, attention logit caps, and the
-encoder-decoder and VLM variants raise ``NotImplementedError`` naming the
+Mamba and attention logit caps raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 
@@ -20,19 +20,16 @@ import torch.nn.functional as F
 
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers as L
+from . import moe as M
 from . import rwkv
 from .layers import Ctx
 from .params import P, tree_map
 
 _WAITING = {
-    "mla": "MLA (ROADMAP queue 1, item 6)",
     "mamba": "Mamba, models/ssm.py (ROADMAP queue 1, item 6)",
-    "moe": "MoE, models/moe.py::moe_ref (ROADMAP queue 1, item 6)",
-    "enc_dec": "the encoder-decoder variant (ROADMAP queue 1, item 6)",
-    "vlm": "the VLM variant (ROADMAP queue 1, item 6)",
-    "prefix": "a prefix of unstacked layers (deepseek-moe-16b; ROADMAP queue 1, item 6)",
     "softcap": "an attention logit cap (no config sets one; ROADMAP queue 1, item 6)",
 }
+_ENCODER = LayerSpec("attn", "dense")
 
 
 def _not_ported(what: str):
@@ -40,35 +37,36 @@ def _not_ported(what: str):
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    for flag in ("enc_dec", "vlm", "prefix"):
-        if getattr(cfg, flag):
-            raise _not_ported(flag)
     if cfg.attn_logit_softcap:
         raise _not_ported("softcap")
-    for spec in cfg.unit:
-        if spec.mixer not in ("attn", "rwkv6"):
-            raise _not_ported(spec.mixer)
-        if spec.ffn != "dense":
-            raise _not_ported(spec.ffn)
+    for spec in cfg.layer_specs():
+        if spec.mixer == "mamba":
+            raise _not_ported("mamba")
 
 
 # ---------------------------------------------------------------------------
 # parameter trees
 # ---------------------------------------------------------------------------
 
-def layer_param_specs(spec: LayerSpec, cfg: ModelConfig) -> dict:
+def layer_param_specs(spec: LayerSpec, cfg: ModelConfig, cross: bool = False) -> dict:
     d = cfg.d_model
     p: dict = {"mixer_norm": L.rmsnorm_params(d)}
     if spec.mixer == "attn":
         p["mixer"] = L.attn_params(cfg)
+    elif spec.mixer == "mla":
+        p["mixer"] = L.mla_params(cfg)
     elif spec.mixer == "rwkv6":
         p["mixer"] = rwkv.rwkv_params(cfg)
     else:
         raise _not_ported(spec.mixer)
+    if cross:
+        p["cross_norm"] = L.rmsnorm_params(d)
+        p["cross"] = L.attn_params(cfg)
     p["ffn_norm"] = L.rmsnorm_params(d)
-    if spec.ffn != "dense":
-        raise _not_ported(spec.ffn)
-    p["ffn"] = L.mlp_params(d, cfg.d_ff)
+    if spec.ffn == "dense":
+        p["ffn"] = L.mlp_params(d, cfg.d_ff)
+    else:
+        p["ffn"] = M.moe_params(cfg)
     return p
 
 
@@ -87,8 +85,16 @@ def model_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = P((d, V))
-    unit = {f"l{i}": layer_param_specs(s, cfg) for i, s in enumerate(cfg.unit)}
+    if cfg.prefix:
+        p["prefix"] = {f"p{i}": layer_param_specs(s, cfg, cross=cfg.enc_dec)
+                       for i, s in enumerate(cfg.prefix)}
+    unit = {f"l{i}": layer_param_specs(s, cfg, cross=cfg.enc_dec)
+            for i, s in enumerate(cfg.unit)}
     p["unit"] = _stack(unit, cfg.n_units)
+    if cfg.enc_dec:
+        p["enc_unit"] = _stack({"l0": layer_param_specs(_ENCODER, cfg)},
+                               cfg.n_encoder_layers)
+        p["enc_final_norm"] = L.rmsnorm_params(d)
     return p
 
 
@@ -97,44 +103,111 @@ def _unit(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _stack_trees(trees: list):
+    """Stack same-shaped trees of tensors on a new leading axis, as the
+    reference's scan stacks each unit's caches."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
 
-def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True):
-    """Full-sequence layer.  Returns (x, cache)."""
-    h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
+def _mixer_full(spec, p, h, cfg, ctx, positions, causal):
     if spec.mixer == "attn":
         out, (k, v) = L.attn_block(p["mixer"], h, cfg, ctx, positions=positions,
                                    causal=causal)
-        cache = {"k": k, "v": v}
-    elif spec.mixer == "rwkv6":
-        out, cache = rwkv.rwkv6_block(p["mixer"], h, cfg, ctx)
-    else:
-        raise _not_ported(spec.mixer)
+        return out, {"k": k, "v": v}
+    if spec.mixer == "mla":
+        out, (lat, kr) = L.mla_block(p["mixer"], h, cfg, ctx, positions=positions)
+        return out, {"latent": lat, "k_rope": kr}
+    if spec.mixer == "rwkv6":
+        return rwkv.rwkv6_block(p["mixer"], h, cfg, ctx)
+    raise _not_ported(spec.mixer)
+
+
+def _cross_kv(p, enc_out, cfg, ctx):
+    """Cross-attention K/V from the encoder output (no rope)."""
+    k = L._proj(enc_out, p["wk"])
+    v = L._proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v
+
+
+def _cross_attend(p, x, kv, cfg, ctx):
+    """q from x (no rope), non-causal attention (K3) over the encoder K/V."""
+    q = L._proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    o = L.attention(q, kv[0], kv[1], causal=False)
+    return L._out(o, p["wo"], x.dtype)
+
+
+def _ffn(spec, p, h, cfg, ctx):
+    """-> (out, aux): the dense MLP (aux 0.0) or the MoE with its aux loss."""
+    if spec.ffn == "dense":
+        return L.mlp(p["ffn"], h, ctx), 0.0
+    return M.moe_apply(p["ffn"], h, cfg, ctx)
+
+
+def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
+                enc_out=None):
+    """Full-sequence layer.  Returns (x, cache, aux); with ``enc_out`` and
+    cross-attention weights the cache is {"self": ..., "cross": {"k", "v"}}."""
+    h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
+    out, cache = _mixer_full(spec, p, h, cfg, ctx, positions, causal)
     x = x + out
+    if enc_out is not None and "cross" in p:
+        h = L.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        kv = _cross_kv(p["cross"], enc_out, cfg, ctx)
+        x = x + _cross_attend(p["cross"], h, kv, cfg, ctx)
+        cache = {"self": cache, "cross": {"k": kv[0], "v": kv[1]}}
     h = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h, ctx), cache
+    out, aux = _ffn(spec, p, h, cfg, ctx)
+    return x + out, cache, aux
 
 
 def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     """One-token layer step; ``pos`` is a one-element ``long`` tensor.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux)."""
+    self_cache = cache["self"] if "cross" in p else cache
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     if spec.mixer == "attn":
-        out, nc = L.attn_decode_block(p["mixer"], h, cfg, ctx, cache=cache, pos=pos)
+        out, nc = L.attn_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache, pos=pos)
+    elif spec.mixer == "mla":
+        out, nc = L.mla_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache, pos=pos)
     elif spec.mixer == "rwkv6":
-        out, nc = rwkv.rwkv6_decode_block(p["mixer"], h, cfg, ctx, cache=cache, pos=pos)
+        out, nc = rwkv.rwkv6_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache,
+                                          pos=pos)
     else:
         raise _not_ported(spec.mixer)
     x = x + out
+    if "cross" in p:
+        h = L.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        ckv = (cache["cross"]["k"], cache["cross"]["v"])
+        x = x + _cross_attend(p["cross"], h, ckv, cfg, ctx)
+        nc = {"self": nc, "cross": cache["cross"]}
     h = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h, ctx), nc
+    out, aux = _ffn(spec, p, h, cfg, ctx)
+    return x + out, nc, aux
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
+
+def _encoder(params, enc_embeds, cfg, ctx: Ctx):
+    x = enc_embeds.to(ctx.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for u in range(cfg.n_encoder_layers):
+        x, _, _ = apply_layer(_ENCODER, _unit(params["enc_unit"], u)["l0"], x, cfg, ctx,
+                              positions=positions, causal=False)
+    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+
 
 def embed_tokens(params, tokens, cfg, ctx: Ctx):
     return params["embed"][tokens.long()].to(ctx.dtype)
@@ -143,28 +216,40 @@ def embed_tokens(params, tokens, cfg, ctx: Ctx):
 def forward(params, batch, cfg: ModelConfig, ctx: Ctx, *, collect_cache=False):
     """Full-sequence forward to final hidden states.
 
-    batch: {"tokens": (B,S)}.  Returns (hidden, caches); the unit caches are
-    stacked on a leading (n_units,) axis, as the reference's scan stacks them.
-    """
+    batch: {"tokens": (B,S)} [+ "patch_embeds" (B,P,d) for vlm, placed
+    before the text, + "enc_embeds" (B,F,d) for enc_dec].  Returns (hidden,
+    caches, aux_total); the unit caches are stacked on a leading (n_units,)
+    axis, as the reference's scan stacks them."""
     _check_ported(cfg)
     x = embed_tokens(params, batch["tokens"], cfg, ctx)
+    if cfg.vlm:
+        x = torch.cat([batch["patch_embeds"].to(ctx.dtype), x], dim=1)
+    enc_out = _encoder(params, batch["enc_embeds"], cfg, ctx) if cfg.enc_dec else None
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), device=x.device)
     caches: dict = {}
+    if cfg.prefix:
+        caches["prefix"] = {}
+        for i, spec in enumerate(cfg.prefix):
+            x, c, aux = apply_layer(spec, params["prefix"][f"p{i}"], x, cfg, ctx,
+                                    positions=positions, enc_out=enc_out)
+            aux_total = aux_total + aux
+            if collect_cache:
+                caches["prefix"][f"p{i}"] = c
     per_unit = []
     for u in range(cfg.n_units):
         unit_p = _unit(params["unit"], u)
         unit_caches = {}
         for i, spec in enumerate(cfg.unit):
-            x, c = apply_layer(spec, unit_p[f"l{i}"], x, cfg, ctx, positions=positions)
-            if collect_cache:
-                unit_caches[f"l{i}"] = c
-        per_unit.append(unit_caches)
+            x, c, aux = apply_layer(spec, unit_p[f"l{i}"], x, cfg, ctx, positions=positions,
+                                    enc_out=enc_out)
+            aux_total = aux_total + aux
+            unit_caches[f"l{i}"] = c
+        if collect_cache:
+            per_unit.append(unit_caches)
     if collect_cache:
-        caches["unit"] = {
-            f"l{i}": {name: torch.stack([c[f"l{i}"][name] for c in per_unit])
-                      for name in per_unit[0][f"l{i}"]}
-            for i in range(len(cfg.unit))}
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+        caches["unit"] = _stack_trees(per_unit)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -186,29 +271,36 @@ def logits_for(params, x_last, cfg, ctx: Ctx):
 def prefill(params, batch, cfg, ctx: Ctx, *, cache_len: int | None = None):
     """Run the full prompt, return (cache, last-token logits).
 
-    The attention caches are padded to length ``cache_len`` (>= prompt
-    length) so decode can continue in place."""
-    hidden, caches = forward(params, batch, cfg, ctx, collect_cache=True)
+    The self-attention caches are padded to length ``cache_len`` (>= the
+    sequence's length, the VLM's patches included) so decode can continue
+    in place."""
+    hidden, caches, _ = forward(params, batch, cfg, ctx, collect_cache=True)
     S = hidden.shape[1]
     if cache_len is not None:
         if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+            raise ValueError(f"cache_len {cache_len} < prompt length {S} (incl. modality "
+                             f"prefix tokens)")
         if cache_len > S:
             caches = _grow_caches(caches, cache_len - S)
     return caches, logits_for(params, hidden[:, -1], cfg, ctx)
 
 
 def _grow_caches(caches, extra: int):
-    """Zero-pad the sequence axis of every K/V cache buffer by ``extra``
-    (fresh tensors: decode writes into them in place)."""
+    """Zero-pad the sequence axis of every sequence-indexed cache buffer by
+    ``extra`` (fresh tensors: decode writes into them in place).  The
+    cross-attention caches (the fixed encoder length) are left untouched."""
 
     def walk(tree):
         out = {}
         for name, leaf in tree.items():
-            if isinstance(leaf, dict):
+            if name == "cross":
+                out[name] = leaf
+            elif isinstance(leaf, dict):
                 out[name] = walk(leaf)
             elif name in ("k", "v"):          # (..., S, K, hd)
                 out[name] = F.pad(leaf, (0, 0, 0, 0, 0, extra))
+            elif name in ("latent", "k_rope"):  # (..., S, r)
+                out[name] = F.pad(leaf, (0, 0, 0, extra))
             else:
                 out[name] = leaf
         return out
@@ -217,9 +309,11 @@ def _grow_caches(caches, extra: int):
 
 
 def _write_back(cache: dict, new: dict) -> None:
-    """Store a layer's new cache into the (stacked) buffers it came from."""
+    """Store a layer's new cache into the buffers it came from."""
     for name, t in new.items():
-        if t is not cache[name]:
+        if isinstance(t, dict):
+            _write_back(cache[name], t)
+        elif t is not cache[name]:
             cache[name].copy_(t)
 
 
@@ -238,12 +332,17 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx):
     else:
         pos = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
     x = params["embed"][tokens.long()[:, None]].to(ctx.dtype)
+    for i, spec in enumerate(cfg.prefix):
+        c = cache["prefix"][f"p{i}"]
+        x, nc, _ = apply_layer_decode(spec, params["prefix"][f"p{i}"], x, cfg, ctx,
+                                      cache=c, pos=pos)
+        _write_back(c, nc)
     for u in range(cfg.n_units):
         unit_p = _unit(params["unit"], u)
         unit_c = _unit(cache["unit"], u)
         for i, spec in enumerate(cfg.unit):
-            x, nc = apply_layer_decode(spec, unit_p[f"l{i}"], x, cfg, ctx,
-                                       cache=unit_c[f"l{i}"], pos=pos)
+            x, nc, _ = apply_layer_decode(spec, unit_p[f"l{i}"], x, cfg, ctx,
+                                          cache=unit_c[f"l{i}"], pos=pos)
             _write_back(unit_c[f"l{i}"], nc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_for(params, x[:, 0], cfg, ctx), cache
@@ -258,13 +357,26 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
     _check_ported(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     H6, N6 = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    bf16 = torch.bfloat16
 
     def one(spec: LayerSpec) -> dict:
         if spec.mixer == "attn":
-            return {"k": P((B, S, K, hd), torch.bfloat16, "zeros"),
-                    "v": P((B, S, K, hd), torch.bfloat16, "zeros")}
-        return {"S": P((B, H6, N6, N6), torch.float32, "zeros"),
-                "x_last": P((B, cfg.d_model), torch.bfloat16, "zeros")}
+            c = {"k": P((B, S, K, hd), bf16, "zeros"),
+                 "v": P((B, S, K, hd), bf16, "zeros")}
+        elif spec.mixer == "mla":
+            c = {"latent": P((B, S, cfg.kv_lora_rank), bf16, "zeros"),
+                 "k_rope": P((B, S, cfg.qk_rope_dim), bf16, "zeros")}
+        else:
+            c = {"S": P((B, H6, N6, N6), torch.float32, "zeros"),
+                 "x_last": P((B, cfg.d_model), bf16, "zeros")}
+        if cfg.enc_dec:
+            c = {"self": c,
+                 "cross": {"k": P((B, cfg.encoder_seq, K, hd), bf16, "zeros"),
+                           "v": P((B, cfg.encoder_seq, K, hd), bf16, "zeros")}}
+        return c
 
-    return {"unit": _stack({f"l{i}": one(s) for i, s in enumerate(cfg.unit)},
-                           cfg.n_units)}
+    out: dict = {}
+    if cfg.prefix:
+        out["prefix"] = {f"p{i}": one(s) for i, s in enumerate(cfg.prefix)}
+    out["unit"] = _stack({f"l{i}": one(s) for i, s in enumerate(cfg.unit)}, cfg.n_units)
+    return out

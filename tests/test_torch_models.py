@@ -1,13 +1,18 @@
 """The port's model serving path (configs, params, transformer, serve_smoke)
 against the JAX reference, for the architectures the port serves.
 
-``granite_3_2b`` (dense GQA attention, K3), ``rwkv6_3b`` (RWKV-6, K4) and
+``granite_3_2b`` (dense GQA attention, K3), ``rwkv6_3b`` (RWKV-6, K4),
 ``minitron_4b`` (dense GQA attention at its head_dim of 128, set on both
-packages' reduced configs) run in their reduced configs with f32
-activations, on the reference's own
+packages' reduced configs), ``granite_moe_3b_a800m`` (MoE), ``minicpm3_4b``
+(MLA, kept at its published head dims: qk_nope 64 + qk_rope 32 = 96, v 64),
+``whisper_large_v3`` (encoder-decoder), ``llava_next_mistral_7b`` (VLM) and
+``deepseek_moe_16b`` (a dense prefix layer, then MoE with shared experts)
+run in their reduced configs with f32 activations, on the reference's own
 ``init_params`` arrays carried across by ``params_from_numpy``.  Prefill
 logits and caches and four decode steps agree at 1e-4 (f32, summed in
-another order); greedy tokens are equal.
+another order); greedy tokens are equal.  The MoE routers see f32 inputs
+drawn from a seed, on which no two routing probabilities tie, so
+``torch.topk`` and ``jax.lax.top_k`` pick the same experts.
 """
 
 import pytest
@@ -33,9 +38,11 @@ from repro_torch.models.params import (cast_params, init_params, params_from_num
                                        tree_leaves)
 
 CPU = torch.device("cpu")
-ARCHS = ["granite_3_2b", "rwkv6_3b", "minitron_4b"]
+ARCHS = ["granite_3_2b", "rwkv6_3b", "minitron_4b", "granite_moe_3b_a800m", "minicpm3_4b",
+         "whisper_large_v3", "llava_next_mistral_7b", "deepseek_moe_16b"]
 # fields the reduced config resets that a served head dim depends on
-KEEP = {"minitron_4b": dict(head_dim=128)}
+KEEP = {"minitron_4b": dict(head_dim=128),
+        "minicpm3_4b": dict(head_dim=96, qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64)}
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 12, 4
 
@@ -49,6 +56,46 @@ def _cfgs(arch):
 
 def _ref_params(jcfg, seed=0):
     return jinit_params(jT.model_param_specs(jcfg, tp=1), jax.random.PRNGKey(seed))
+
+
+def _np_batch(cfg, b, s, seed=1):
+    """A numpy batch of ``s`` positions: int32 tokens, and the VLM's patch
+    embeddings (which take ``n_patches`` of the positions) or the encoder's
+    frames, f32 ``normal x 0.02``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.vlm:
+        out["patch_embeds"] = (rng.standard_normal((b, cfg.n_patches, cfg.d_model))
+                               * 0.02).astype(np.float32)
+        s -= cfg.n_patches
+    if cfg.enc_dec:
+        out["enc_embeds"] = (rng.standard_normal((b, cfg.encoder_seq, cfg.d_model))
+                             * 0.02).astype(np.float32)
+    out["tokens"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    return out
+
+
+def _to_torch(batch):
+    """A reference (or numpy) batch as CPU tensors, bf16 kept bit for bit."""
+    return params_from_numpy(jax.tree.map(np.asarray, dict(batch)), CPU)
+
+
+def _reference_tokens(jcfg, jparams, jbatch, decode_len):
+    """Greedy tokens of the reference's prefill and ``decode_step``, decoding
+    from where the prefill's sequence ended (the reference's own
+    ``serve_smoke`` starts the VLM ``n_patches`` later: ROADMAP section 3,
+    fault 6)."""
+    S = jbatch["tokens"].shape[1] + (jcfg.n_patches if jcfg.vlm else 0)
+    pctx = make_ctx(jcfg, None, "prefill", DistConfig())
+    dctx = make_ctx(jcfg, None, "decode", DistConfig(decode_seqpar=False))
+    cache, logits = jT.prefill(jparams, jbatch, jcfg, pctx, cache_len=S + decode_len)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    out = [tok]
+    for i in range(decode_len):
+        logits, cache = jT.decode_step(jparams, cache, tok, jnp.int32(S + i), jcfg, dctx)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        out.append(tok)
+    return np.stack([np.asarray(t) for t in out], 1)
 
 
 def _np_leaves(tree):
@@ -87,16 +134,16 @@ def test_prefill_and_decode_match_the_reference(arch):
     jcfg, tcfg = _cfgs(arch)
     jparams = _ref_params(jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), CPU)
-    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    batch = _np_batch(jcfg, B, S)
     pctx = make_ctx(jcfg, None, "prefill", DistConfig())
     dctx = make_ctx(jcfg, None, "decode", DistConfig(decode_seqpar=False))
     tctx = Ctx(dtype=torch.float32)
 
-    jcache, jlogits = jT.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, pctx,
+    jcache, jlogits = jT.prefill(jparams, jax.tree.map(jnp.asarray, batch), jcfg, pctx,
                                  cache_len=S + STEPS)
     with torch.inference_mode():
-        tcache, tlogits = tT.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tcfg,
-                                     tctx, cache_len=S + STEPS)
+        tcache, tlogits = tT.prefill(tparams, _to_torch(batch), tcfg, tctx,
+                                     cache_len=S + STEPS)
     assert tuple(tlogits.shape) == (B, tcfg.padded_vocab(1))
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
     jl, tl = _np_leaves(jcache), _np_leaves(tcache)
@@ -122,14 +169,18 @@ def test_prefill_and_decode_match_the_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_smoke_tokens_equal_the_reference(arch):
     jcfg, tcfg = _cfgs(arch)
-    want, _ = jserve.serve_smoke(jcfg, n_requests=B, prompt_len=S, decode_len=STEPS,
-                                 seed=0)
     # the reference's serve_smoke draws these two from seed 0 and PRNGKey(0)
-    params = params_from_numpy(jax.tree.map(np.asarray, _ref_params(jcfg)), CPU)
+    jparams = _ref_params(jcfg)
     batch = jreg.make_batch(jcfg, S, B, train=False)
+    if jcfg.vlm:  # the reference's serve_smoke decodes the VLM off by n_patches
+        want = _reference_tokens(jcfg, jparams, batch, STEPS)
+    else:
+        want, _ = jserve.serve_smoke(jcfg, n_requests=B, prompt_len=S, decode_len=STEPS,
+                                     seed=0)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), CPU)
     tokens, stats = tserve.serve_smoke(
         tcfg, n_requests=B, prompt_len=S, decode_len=STEPS, device="cpu", params=params,
-        batch={"tokens": torch.from_numpy(np.array(batch["tokens"]))})
+        batch=_to_torch(batch))
     assert tokens.shape == (B, STEPS + 1)
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
     assert stats.logits_finite and stats.prefill_ms > 0 and stats.tokens_per_s > 0
@@ -161,10 +212,11 @@ def test_make_batch_draws_from_the_generator():
 def test_cache_specs_match_the_prefill_caches(arch):
     _, tcfg = _cfgs(arch)
     params = init_params(tT.model_param_specs(tcfg), torch.Generator().manual_seed(0))
+    S0 = 6 + (tcfg.n_patches if tcfg.vlm else 0)
     with torch.inference_mode():
-        cache, _ = tT.prefill(params, {"tokens": torch.zeros(2, 6, dtype=torch.int32)},
-                              tcfg, Ctx(dtype=torch.float32), cache_len=9)
-    specs = tT.cache_specs(tcfg, 2, 9)
+        cache, _ = tT.prefill(params, _to_torch(_np_batch(tcfg, 2, S0)), tcfg,
+                              Ctx(dtype=torch.float32), cache_len=S0 + 3)
+    specs = tT.cache_specs(tcfg, 2, S0 + 3)
     assert [s.shape for s in tree_leaves(specs)] == [tuple(t.shape) for t in
                                                        tree_leaves(cache)]
 
@@ -181,12 +233,10 @@ def test_cast_params_keeps_the_f32_parameters():
     assert torch.equal(mixer["wr"], params["unit"]["l0"]["mixer"]["wr"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("variant", [
-    "minicpm3_4b", "jamba_1_5_large_398b", "granite_moe_3b_a800m", "whisper_large_v3",
-    "llava_next_mistral_7b", "deepseek_moe_16b", "granite_3_2b+softcap"])
+@pytest.mark.parametrize("variant", ["jamba_1_5_large_398b", "granite_3_2b+softcap"])
 def test_unported_architectures_raise(variant):
-    """MLA, Mamba, MoE, enc-dec, VLM, a prefix of unstacked layers, and an
-    attention logit cap (which K3 does not take) all name their ROADMAP item."""
+    """Mamba and an attention logit cap (which K3 does not take) name their
+    ROADMAP item."""
     arch, _, extra = variant.partition("+")
     cfg = treg.get_config(arch).smoke()
     if extra:
