@@ -10,8 +10,8 @@ prints no result):
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
-   ``wgmma``s; a K1 ``wgmma``, K3 or K4 specialisation that spills fails the
-   run;
+   ``wgmma``s; a K1 ``wgmma``, K3, K3b or K4 specialisation that spills, or
+   one missing, fails the run;
 2. K1 (matmul) against its plain PyTorch version on the card, each case
    with the path the wrapper chose (``wgmma`` or ``fma``): 2048^3 f32 with a
    row-major B (the MM DAG's layout) and with the serving ``prefill``
@@ -32,7 +32,15 @@ prints no result):
    1500 x 1500 (its encoder), not causal; head dims 4, 16 and 96
    zero-padded (``pad``) in both dtypes, 96 also at minicpm3-4b's MLA
    prefill shape (40 heads over 40); a bf16 view whose last dimension is
-   strided, copied (``copy``);
+   strided, copied (``copy``); then ``[K3-lse]``: the log-sum-exp rows K3
+   writes for training (``flash_attention_fwd``) against the plain
+   version's on the ``tma``, ``fp32`` and ``pad`` paths, the output
+   bit-identical to a launch without them; and ``[K3b]``: the CUDA
+   flash-attention backward's dq, dk and dv against its plain version, each
+   case with its path (``direct``, ``pad``): head dims 32, 64, 128 and
+   padded 16 and 96, causal and not, GQA 32/8, Sq != Sk both ways, ragged
+   S = 33 and 130, ``kv_len`` < Sk, granite-3-2b's training shape,
+   minicpm3-4b's MLA at 96 and whisper-large-v3's 416 x 1500;
 5. K4 (WKV6) against its plain version, output and final state, each case
    with the path the wrapper took (``ring``, ``copy`` where TMA cannot
    address the inputs or their strides differ and the wrapper copies them
@@ -46,7 +54,8 @@ prints no result):
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
    where one computes the same function, and the card's bound; K3 also at
    minitron-4b's, minicpm3-4b's and whisper-large-v3's encoder and decode
-   cross-attention shapes;
+   cross-attention shapes; K3 with its LSE and K3b at granite-3-2b's
+   training shape, K3b beside the backward of SDPA;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -102,7 +111,22 @@ prints no result):
    ``python -m repro_torch.launch.serve`` (granite-3-2b, and the reduced
    granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3,
    llava-next-mistral-7b and deepseek-moe-16b), each a process of its own,
-   all started together; each must exit 0.
+   all started together; each must exit 0;
+15. training: ``[train-vs-cpu]``, one ``make_train_step`` step of a 2-layer,
+   full-width cut of granite-3-2b, minicpm3-4b and whisper-large-v3 (and 2
+   encoder layers) in f32 at batch 2 x 128 on the card and on the CPU from
+   the same parameters (loss, ``grad_norm``, updated parameters and
+   moments), and rwkv6 training on the card raising for want of a K4
+   backward; ``[train]``, granite-3-2b at full width and depth (f32
+   parameters and AdamW state, bf16 activations, remat), 6 steps of 8 x
+   2048 synthetic tokens through ``launch.train.train``, the counters set
+   to 0 just before: K3 80 and K3b 40 launches a step, losses finite,
+   every parameter moved, ms a step, tokens/s, peak memory, and one step
+   under ``torch.profiler``; ``[train-restart]``, 2 full-width layers, a
+   failure injected at step 7 and a restart from the step-5 checkpoint,
+   the losses after it against an uninterrupted run's; ``[train-cli]``,
+   ``python -m repro_torch.launch.train --arch granite_3_2b --smoke
+   --steps 4``, which must exit 0.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound; the last line is
@@ -146,6 +170,9 @@ REPLACES = {
     "matadd": "src/repro/kernels/matadd.py:28",
     "flash_attention": "src/repro/kernels/flash_attention.py:95",
     "wkv6": "src/repro/kernels/wkv6.py:52",
+    # not a Pallas kernel: the reference's fusedkernel_flash_bwd region, the
+    # backward of its flash attention's custom_vjp
+    "flash_attention_bwd": "src/repro/models/layers.py:278",
 }
 # the main paths' shapes: granite-3-2b prefill attention (8 requests x 2048
 # tokens, 32 query heads over 8 KV heads of 64), minitron-4b's (24 over 8 of
@@ -436,6 +463,166 @@ def check_flash(flash, ref, gen) -> float:
         if main_err is None:
             main_err = err
     return main_err
+
+
+def check_flash_lse(gen) -> None:
+    """``[K3-lse]``: K3's log-sum-exp rows (``flash_attention_fwd``) against
+    the plain version's, on the ``tma``, ``fp32`` and ``pad`` paths, causal
+    or not, GQA, ``kv_len`` < Sk; the output bit-identical to a launch
+    without the LSE.  Tolerance rtol = atol = 1e-5 in f32 and 1e-4 in bf16:
+    the logits of bf16 inputs are exact f32 products in both versions, but
+    the bf16 kernel sums ``ex2.approx`` terms (relative error ~2^-22 each)
+    and takes its log in base 2."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd
+
+    cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len, path
+        (2, 32, 8, 2048, 2048, 64, torch.bfloat16, True, None, "tma"),
+        (2, 8, 8, 416, 1500, 64, torch.bfloat16, False, None, "tma"),
+        (2, 8, 2, 130, 130, 128, torch.bfloat16, True, 77, "tma"),
+        (2, 8, 2, 130, 130, 32, torch.bfloat16, False, None, "tma"),
+        (2, 32, 8, 512, 512, 64, torch.float32, True, None, "fp32"),
+        (2, 8, 2, 130, 190, 128, torch.float32, False, 77, "fp32"),
+        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "pad"),
+        (2, 8, 2, 130, 130, 16, torch.float32, True, None, "pad"),
+    ]
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len, want_path in cases:
+        q = _strided((B, Sq, H, hd), dt, gen)
+        k = _strided((B, Sk, K, hd), dt, gen)
+        v = _strided((B, Sk, K, hd), dt, gen)
+        (o, lse), taken = paths_taken(
+            flash_attention, lambda: flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len))
+        plain = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        want_o, want_lse = ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        if taken != [want_path]:
+            raise AssertionError(f"flash_attention_fwd hd{hd} {dt}: paths {taken}, "
+                                 f"want {want_path}")
+        if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+            raise AssertionError(f"flash_attention_fwd lse {lse.shape} {lse.dtype}")
+        if not torch.equal(o, plain):
+            raise AssertionError(f"flash_attention_fwd B{B} H{H} Sq{Sq} hd{hd} {dt}: output "
+                                 f"differs from the launch without the LSE")
+        tol = 1e-4 if dt == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+        err = (lse - want_lse).abs().max().item()
+        print(f"[K3-lse] B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} causal={causal} "
+              f"kv_len={kv_len} path={taken[0]} lse max_abs_err={err:.3e} (rtol=atol={tol:g}); "
+              f"output bit-identical to the launch without the LSE ok")
+
+
+def check_flash_bwd(gen) -> float:
+    """``[K3b]``: dq, dk and dv of the CUDA backward against the plain
+    version's (``ref.flash_attention_bwd``), both fed the same q, k, v, o,
+    LSE (K3's forward) and dout, each case on the path it names (``direct``
+    or ``pad``).  -> the largest error at granite-3-2b's training shape.
+
+    Tolerance, on each gradient, max |kernel - plain| <= tol x max |plain|:
+    1e-4 in f32 (sums of up to Sq x G terms taken in another order) and
+    1e-2 in bf16, K3's bf16 tolerance: P and dS are rounded to bf16 before
+    their products in both versions, and a sum taken in another order can
+    round an element one bf16 step (2^-8) the other way."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    B0, H0, K0, S0, hd0 = K3_SHAPE
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
+        (B0, H0, K0, S0, S0, hd0, bf16, True, None),  # granite-3-2b's training shape
+        (8, 40, 40, 2048, 2048, 96, bf16, True, None),  # minicpm3-4b's MLA, pad
+        (8, 20, 20, 416, 1500, 64, bf16, False, None),  # whisper's cross-attention
+        (2, 32, 8, 512, 512, 64, f32, True, None),    # GQA 32/8
+        (2, 32, 8, 512, 512, 64, bf16, False, None),
+        (2, 4, 4, 256, 256, 32, f32, True, None),
+        (2, 4, 4, 256, 256, 32, bf16, False, None),
+        (2, 4, 2, 256, 256, 128, f32, True, None),
+        (2, 4, 2, 256, 256, 128, bf16, True, None),
+        (2, 4, 2, 130, 130, 128, f32, False, None),
+        (2, 4, 4, 64, 192, 64, f32, True, None),      # Sq < Sk
+        (2, 4, 4, 192, 64, 64, bf16, True, None),     # Sq > Sk
+        (2, 4, 4, 192, 64, 128, f32, False, None),
+        (2, 4, 2, 33, 33, 64, f32, True, None),       # ragged
+        (2, 4, 2, 33, 33, 64, bf16, True, None),
+        (2, 4, 2, 130, 130, 64, f32, True, None),
+        (2, 4, 2, 130, 130, 32, bf16, False, None),
+        (1, 4, 4, 128, 160, 64, f32, True, 77),       # kv_len < Sk
+        (1, 4, 4, 128, 160, 64, bf16, False, 77),
+        (2, 4, 2, 130, 130, 16, f32, True, None),     # padded head dims
+        (2, 4, 2, 130, 130, 16, bf16, False, None),
+        (2, 8, 8, 256, 256, 96, f32, True, None),
+        (2, 8, 8, 256, 256, 96, bf16, False, 200),
+    ]
+    main_err = None
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
+        q = _strided((B, Sq, H, hd), dt, gen)
+        k = _strided((B, Sk, K, hd), dt, gen)
+        v = _strided((B, Sk, K, hd), dt, gen)
+        dout = _strided((B, Sq, H, hd), dt, gen)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+        got, taken = paths_taken(flash_attention_bwd, lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout, causal=causal, kv_len=kv_len))
+        want = ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        want_path = "direct" if hd in (32, 64, 128) else "pad"
+        if taken != [want_path]:
+            raise AssertionError(f"flash_attention_bwd hd{hd} {dt}: paths {taken}, "
+                                 f"want {want_path}")
+        tol = 1e-2 if dt == bf16 else 1e-4
+        errs, worst = [], 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"flash_attention_bwd {name}: {g.shape} {g.dtype}, want "
+                                     f"{w.shape} {w.dtype}")
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            if not (torch.isfinite(g).all() and err <= tol * scale):
+                raise AssertionError(f"flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} "
+                                     f"{dt} causal={causal} kv_len={kv_len}: {name} max_abs_err "
+                                     f"{err} > {tol:g} x max|plain| {scale}")
+            errs.append(f"{name} {err:.3e} (max|plain| {scale:.3e})")
+            worst = max(worst, err)
+        if main_err is None:
+            main_err = worst
+        print(f"[K3b] flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
+              f"causal={causal} kv_len={kv_len} path={taken[0]} max_abs_err " + ", ".join(errs)
+              + f" (<= {tol:g} x max|plain|) ok")
+        del q, k, v, dout, o, lse, got, want
+    return main_err
+
+
+def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, float]:
+    """-> ((K3b ms, plain ms, SDPA backward ms), bound, K3-with-LSE ms) in
+    bf16 at granite-3-2b's training shape, on the model's strided views.
+    The bound counts the five products of a backward that recomputes P, 10
+    hd operations per (query, key) pair the causal mask keeps, against the
+    bf16 tensor peak, over q, k, v, o, dout and the LSE read once and dq,
+    dk, dv written once.  The library call: ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention(is_causal=True)`` (K and V expanded to
+    the query heads outside the timed call), the backward alone."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    B, H, K, S, hd = K3_SHAPE
+    q = _strided((B, S, H, hd), torch.bfloat16, gen)
+    k = _strided((B, S, K, hd), torch.bfloat16, gen)
+    v = _strided((B, S, K, hd), torch.bfloat16, gen)
+    dout = _strided((B, S, H, hd), torch.bfloat16, gen)
+    o, lse = flash_attention_fwd(q, k, v)
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = (4 * B * H * S * hd + 4 * B * K * S * hd) * 2 + B * H * S * 4
+    bnd = bound(10.0 * pairs * hd, nbytes, peaks["bf16"], peaks["bytes"])
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout), batches=5, per_batch=5)
+    plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout), batches=3,
+                    per_batch=1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in
+                  (q, k.repeat_interleave(H // K, dim=1), v.repeat_interleave(H // K, dim=1)))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))
+    fwd_lse = time_ms(lambda: flash_attention_fwd(q, k, v))
+    return (ms, plain, lib), bnd, fwd_lse
 
 
 def wkv6_inputs(B, H, S, N, gen, layout: str = "bshn"):
@@ -1097,6 +1284,278 @@ class _CountedReplica:
         return self.inner.drain_kv()
 
 
+TRAIN_ARCH = "granite_3_2b"
+TRAIN_BATCH = (8, 2048)    # sequences x positions of the full-depth [train] run
+TRAIN_STEPS = 6
+TRAIN_VS_CPU = ("granite_3_2b", "minicpm3_4b", "whisper_large_v3")
+
+
+def _counts() -> dict:
+    """K3's and K3b's launch counts by path."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    return {"flash_attention": dict(flash_attention.launches_by_path),
+            "flash_attention_bwd": dict(flash_attention_bwd.launches_by_path)}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+
+    flash_attention.reset_launches()
+    flash_attention_bwd.reset_launches()
+
+
+def train_vs_cpu(arch: str, dev) -> None:
+    """``[train-vs-cpu]``: one ``make_train_step`` step of a 2-layer,
+    full-width cut of ``arch`` in f32 (and 2 encoder layers for the
+    encoder-decoder), batch 2 x 128, on the card and on the CPU from the
+    same parameters (drawn on the CPU) and batch.  The card's step must
+    launch K3 twice per attention (the forward and the remat recompute) and
+    K3b once.  Tolerance: the loss and ``grad_norm`` at 1e-4 relative (f32
+    sums taken in another order on each side); the updated parameters at
+    1e-4 x the largest parameter, and the first moments (0.1 x the clipped
+    gradient) at 1e-4 x the largest of them: scales of the whole tree, as
+    some gradients are 0 up to rounding (a key bias shifts every logit of a
+    row alike), and their elements' noise is all a leaf of them holds."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=2, activation_dtype="float32",
+                              n_encoder_layers=2 if full.enc_dec else 0)
+    step, p_specs, o_specs, _ = make_train_step(cfg)
+    params = init_params(p_specs, torch.Generator().manual_seed(0))
+    opt = init_params(o_specs, torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, 128, 2, train=True, generator=torch.Generator().manual_seed(1))
+    card = (tree_map(lambda t: t.to(dev, copy=True), params),
+            tree_map(lambda t: t.to(dev, copy=True), opt),
+            {k: t.to(dev) for k, t in batch.items()})
+    _reset_counts()
+    p_card, o_card, m_card = step(*card)
+    torch.cuda.synchronize()
+    counts = _counts()
+    p_cpu, o_cpu, m_cpu = step(params, opt, batch)
+    n_attn = cfg.attn_layer_count() + (cfg.n_layers + cfg.n_encoder_layers if cfg.enc_dec else 0)
+    k3, k3b = sum(counts["flash_attention"].values()), sum(counts["flash_attention_bwd"].values())
+    if (k3, k3b) != (2 * n_attn, n_attn):
+        raise AssertionError(f"[train-vs-cpu] {cfg.name}: K3/K3b launched {k3}/{k3b} times "
+                             f"{counts}, want {2 * n_attn}/{n_attn}")
+    for key in ("loss", "grad_norm"):
+        got, want = float(m_card[key]), float(m_cpu[key])
+        if not abs(got - want) <= 1e-4 * abs(want):
+            raise AssertionError(f"[train-vs-cpu] {cfg.name}: {key} card {got} CPU {want}")
+    worst = {}
+    for name, got, want in (("params", tree_leaves(p_card), tree_leaves(p_cpu)),
+                            ("m", [mv["m"] for mv in _mv(o_card["moments"])],
+                             [mv["m"] for mv in _mv(o_cpu["moments"])])):
+        scale = max(w.abs().max().item() for w in want)
+        err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"[train-vs-cpu] {cfg.name}: updated {name} off by {err} "
+                                 f"(largest {scale})")
+        worst[name] = err / scale
+    if int(o_card["step"]) != 1:
+        raise AssertionError(f"[train-vs-cpu] {cfg.name}: step {int(o_card['step'])}")
+    layers = "2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
+    print(f"[train-vs-cpu] {cfg.name} {layers} full width f32 B2 S128: loss card "
+          f"{float(m_card['loss']):.7f} CPU {float(m_cpu['loss']):.7f}, grad_norm card "
+          f"{float(m_card['grad_norm']):.6f} CPU {float(m_cpu['grad_norm']):.6f} (rtol 1e-4); "
+          f"updated params and first moments max_err / their largest "
+          f"{worst['params']:.3e}, {worst['m']:.3e} (< 1e-4); K3 {counts['flash_attention']}, "
+          f"K3b {counts['flash_attention_bwd']} ok")
+
+
+def _mv(moments) -> list:
+    """The {"m", "v"} leaves of a moments tree, in the parameters' order."""
+    if set(moments) == {"m", "v"}:
+        return [moments]
+    return [mv for k in sorted(moments) for mv in _mv(moments[k])]
+
+
+def rwkv6_training_raises(dev) -> None:
+    """rwkv6 training on the card raises (K4 has no backward yet) instead of
+    running a plain version."""
+    from repro_torch.configs.registry import get_config, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("rwkv6_3b").smoke(), activation_dtype="float32")
+    step, p_specs, o_specs, _ = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = (init_params(p_specs, gen), init_params(o_specs, gen),
+            make_batch(cfg, 32, 2, train=True, generator=gen))
+    try:
+        step(*args)
+    except NotImplementedError as e:
+        print(f"[train-vs-cpu] rwkv6 training on the card raises: {e} ok")
+        return
+    raise AssertionError("rwkv6 training on the card ran without a K4 backward")
+
+
+def train_full(dev, smi: str) -> dict:
+    """``[train]``: granite-3-2b at full width and depth (f32 parameters and
+    AdamW state, bf16 activations, remat on), synthetic data, TRAIN_STEPS
+    steps of TRAIN_BATCH through ``repro_torch.launch.train.train``, the
+    counters set to 0 just before: K3 must have run twice per layer and step
+    (the forward and the remat recompute) and K3b once, every loss finite
+    and every parameter moved.  Then one more step under ``torch.profiler``.
+    -> {"k3": launches, "k3b": launches, "step_ms": median}."""
+    import contextlib
+    import io
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import count_params, init_params, tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        params, opt, losses = train(cfg, steps=TRAIN_STEPS, global_batch=B, seq_len=S,
+                                    log_every=1, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(log.getvalue(), end="")
+    step_ms = [float(m) for m in re.findall(r"\((\d+) ms/step\)", log.getvalue())]
+    n = cfg.attn_layer_count()
+    want = {"flash_attention": ("tma", 2 * n * TRAIN_STEPS),
+            "flash_attention_bwd": ("direct", n * TRAIN_STEPS)}
+    for k, (path, count) in want.items():
+        if sum(counts[k].values()) != count or counts[k][path] != count:
+            raise AssertionError(f"[train] {k} launched {counts[k]}, want {count} on {path} "
+                                 f"({count // TRAIN_STEPS} a step)")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train] losses {losses}")
+    init = init_params(make_train_step(cfg)[1], torch.Generator(device=dev).manual_seed(0))
+    still = [tuple(a.shape) for a, b in zip(tree_leaves(params), tree_leaves(init))
+             if torch.equal(a, b)]
+    del init
+    if still:
+        raise AssertionError(f"[train] parameters that did not move: {still}")
+    tokens = B * S
+    steady = statistics.median(step_ms[1:])
+    n_params = count_params(make_train_step(cfg)[1])
+    ratio = 6 * n_params * tokens / (steady / 1e3) / 989e12
+    print(f"[train] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f}B params), f32 params and AdamW state, bf16 activations, "
+          f"remat on, batch {B} x {S}, {TRAIN_STEPS} steps in {wall:.1f} s: losses "
+          f"{[round(x, 4) for x in losses]}, ms/step {step_ms} (median of steps 2-"
+          f"{TRAIN_STEPS} {steady:.0f}), {tokens / (steady / 1e3):.0f} tokens/s, "
+          f"6 N tokens / step time / 989 TFLOP/s = {ratio:.3f} (a ratio, not a claim), "
+          f"peak {peak_gb:.1f} GB; K3 {counts['flash_attention']} = 2 x {n} a step, "
+          f"K3b {counts['flash_attention_bwd']} = {n} a step; {smi}")
+
+    # one more step under the profiler: the device's busy share and top kernels
+    step, *_ = make_train_step(cfg)
+    it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev,
+                 start_step=TRAIN_STEPS)
+    batch = next(it)
+    it.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, launched = _kernel_ms(prof)
+    busy = sum(by_name.values())
+    k3b_ms = sum(t for name, t in by_name.items()
+                 if any(k in name for k in ("bwd_dq<", "bwd_dkdv<", "bwd_delta<")))
+    k3_ms = sum(t for name, t in by_name.items() if "flash_fwd<" in name)
+    print(f"[train] profiled step: device {busy:.1f} of {wall_ms:.1f} ms wall "
+          f"({busy / wall_ms:.1%} busy), {launched} kernels; K3b {k3b_ms:.1f} ms "
+          f"({k3b_ms / busy:.1%}), K3 {k3_ms:.1f} ms ({k3_ms / busy:.1%}); top: "
+          f"{_top(by_name, 6)}; {smi}")
+    return {"k3": sum(counts["flash_attention"].values()),
+            "k3b": sum(counts["flash_attention_bwd"].values()), "step_ms": steady}
+
+
+def train_restart(dev) -> None:
+    """``[train-restart]``: granite-3-2b cut to 2 full-width layers, batch 2 x
+    256, 12 steps with a checkpoint every 5 and a failure injected before
+    step 7, then a restart from step 5 to 12, against an uninterrupted run:
+    the losses logged after the restart must equal the uninterrupted run's
+    for steps 6-12, bit for bit or within 1e-6 relative, which is said.
+    The checkpoints go under the temporary directory; where its disk holds
+    less than 3 of them (~2.7 GB each), the reduced config is run instead,
+    and said."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import count_params, tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    tmp = tempfile.mkdtemp(prefix="train_restart_")
+    try:
+        state_gb = 3 * 4 * count_params(make_train_step(cfg)[1]) / 1e9  # params, m, v
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        which = f"2 full-width layers ({state_gb:.1f} GB a checkpoint)"
+        if free_gb < 4 * state_gb:
+            cfg = get_config(TRAIN_ARCH).smoke()
+            which = (f"the reduced config: {free_gb:.1f} GB free under the temporary "
+                     f"directory, below 4 checkpoints of the 2-layer cut")
+        kw = dict(steps=12, global_batch=2, seq_len=256, log_every=1, seed=0, device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            p_ref, _, want = train(cfg, **kw)
+            try:
+                train(cfg, ckpt_dir=tmp, ckpt_every=5, fail_at=7, **kw)
+                raise AssertionError("[train-restart] the injected failure did not raise")
+            except RuntimeError as e:
+                if "injected failure at step 7" not in str(e):
+                    raise
+            p, o, got = train(cfg, ckpt_dir=tmp, ckpt_every=5, **kw)
+        if int(o["step"]) != 12 or len(got) != 7:
+            raise AssertionError(f"[train-restart] step {int(o['step'])}, losses {got}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want[5:]))
+        exact = got == want[5:]
+        params_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(p_ref)))
+        if not rel <= 1e-6:
+            raise AssertionError(f"[train-restart] losses after the restart {got} vs "
+                                 f"uninterrupted {want[5:]}")
+        print(f"[train-restart] {cfg.name}, {which}, batch 2 x 256: 12 steps, checkpoint "
+              f"every 5, failure injected at step 7, restart from step 5: losses of steps "
+              f"6-12 {got} "
+              + ("bit-equal to the uninterrupted run's" if exact else
+                 f"within {rel:.2e} relative of the uninterrupted run's {want[5:]} (not "
+                 f"bit-equal: a PyTorch op on the path, the embedding's index backward "
+                 f"among them, adds with atomics)")
+              + f"; final parameters {'bit-equal' if params_equal else 'not bit-equal'} ok")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_cli() -> None:
+    """``[train-cli]``: ``python -m repro_torch.launch.train --arch
+    granite_3_2b --smoke --steps 4`` in a process of its own, on the card's
+    default device; it must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = ["--arch", "granite_3_2b", "--smoke", "--steps", "4"]
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[train-cli] {' '.join(args)}: rc {proc.returncode}; "
+          + (" | ".join(lines[-2:]) if lines else "no output"))
+    if proc.returncode != 0 or "step     4 loss" not in proc.stdout:
+        raise AssertionError(f"[train-cli] failed: {proc.stderr[-2000:]}")
+
+
 def executed_fleet(device):
     """3 ``ExecutorReplica``s (each a ``ServingExecutor`` of the flat
     big/small platform, every class on ``device``, blocks of side ``SIDE``,
@@ -1229,10 +1688,10 @@ def cli_phase() -> None:
 
 def build_report(build) -> None:
     """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
-    static shared memory, the dynamic shared memory K1's ``wgmma`` path and
-    K3 set, and whether ``ptxas`` serialised the kernel's ``wgmma``s (its
-    C7510-C7520 notes, which name the function).  Raises when a K1
-    ``wgmma``, K3 or K4 specialisation spills or is missing."""
+    static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3
+    and K3b set, and whether ``ptxas`` serialised the kernel's ``wgmma``s
+    (its C7510-C7520 notes, which name the function).  Raises when a K1
+    ``wgmma``, K3, K3b or K4 specialisation spills or is missing."""
     import re
 
     lib = build.library()
@@ -1247,15 +1706,18 @@ def build_report(build) -> None:
             name = m.group(1)
             k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)E", name)
             k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
+            k3b = re.search(r"(bwd_dq|bwd_dkdv)I(f|13__nv_bfloat16)Li(\d+)E", name)
             cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2))),
                    "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
-                                 "KM"[int(k1.group(2))], "KN"[int(k1.group(3))])}
+                                 "KM"[int(k1.group(2))], "KN"[int(k1.group(3))]),
+                   "k3b": k3b and (k3b.group(1), "f32" if k3b.group(2) == "f" else "bf16",
+                                   int(k3b.group(3)))}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
         elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
             cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
-    k1, k3, k4 = {}, {}, {}
+    k1, k3, k4, k3b = {}, {}, {}, {}
     for kern in kernels:
         label = kern["name"]
         if m := re.search(r"wkv6_ringILi(\d+)E", kern["name"]):
@@ -1267,6 +1729,12 @@ def build_report(build) -> None:
             label = f"flash_fwd<{dtype}, hd {hd}>"
             dynamic = lib.repro_flash_attention_smem(int(dtype == "bf16"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
+        elif kern["k3b"]:
+            which, dtype, hd = kern["k3b"]
+            k3b[kern["k3b"]] = kern
+            label = f"{which}<{dtype}, hd {hd}>"
+            dynamic = lib.repro_flash_attention_bwd_smem(int(which == "bwd_dkdv"), hd)
+            kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif kern["k1"]:
             dtype, a_major, b_major = kern["k1"]
             k1[kern["k1"]] = kern
@@ -1275,6 +1743,8 @@ def build_report(build) -> None:
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif "mm_fma" in kern["name"]:
             label = f"mm_fma<{'bf16' if 'bfloat16' in kern['name'] else 'f32'}>"
+        elif m := re.search(r"bwd_deltaI(f|13__nv_bfloat16)E", kern["name"]):
+            label = f"bwd_delta<{'f32' if m.group(1) == 'f' else 'bf16'}>"
         elif m := re.search(r"(add_stream|add_scalar)I(f|i|13__nv_bfloat16)E", kern["name"]):
             dtype = {"f": "f32", "i": "int32"}.get(m.group(2), "bf16")
             label = f"{m.group(1)}<{dtype}>"
@@ -1290,9 +1760,13 @@ def build_report(build) -> None:
     want = {32, 64}
     if set(k4) != want:
         raise AssertionError(f"K4 specialisations built {sorted(k4)}, want {sorted(want)}")
-    spilled = [key for key, kern in {**k1, **k3, **k4}.items() if any(kern["spill"])]
+    want = {(w, dt, hd) for w in ("bwd_dq", "bwd_dkdv") for dt in ("f32", "bf16")
+            for hd in (32, 64, 128)}
+    if set(k3b) != want:
+        raise AssertionError(f"K3b specialisations built {sorted(k3b)}, want {sorted(want)}")
+    spilled = [key for key, kern in {**k1, **k3, **k4, **k3b}.items() if any(kern["spill"])]
     if spilled:
-        raise AssertionError(f"K1 wgmma, K3 or K4 specialisations spill: {spilled}")
+        raise AssertionError(f"K1 wgmma, K3, K3b or K4 specialisations spill: {spilled}")
 
 
 def main() -> int:
@@ -1348,6 +1822,8 @@ def main() -> int:
             "matadd": check_matadd(matadd, ref, gen),
             "flash_attention": check_flash(flash_attention, ref, gen),
             "wkv6": check_wkv6(wkv6, ref, gen)}
+    check_flash_lse(gen)
+    errs["flash_attention_bwd"] = check_flash_bwd(gen)
 
     # 6. times at the main paths' shapes: prefill = x @ x.T, decode = x + x,
     # granite-3-2b prefill attention, rwkv6-3b prefill recurrence
@@ -1382,9 +1858,14 @@ def main() -> int:
     more_times, more_bounds = time_attention_and_wkv6(flash_attention, wkv6, ref, gen, peaks)
     times.update(more_times)
     bounds.update(more_bounds)
+    times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3_lse_ms = time_flash_bwd(
+        gen, peaks)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
-              "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE)}
+              "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
+              "flash_attention_bwd": "B{} H{}/K{} S{} hd{} bf16 causal (granite-3-2b's training "
+                                     "shape; the bound counts 10 hd operations a kept pair)"
+                                     .format(*K3_SHAPE)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
     # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
@@ -1413,6 +1894,11 @@ def main() -> int:
                      f"{k4_issue_ms[2.5]:.4f} ms at the two-step form's 2.5)")
         print(f"[time] {k} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}; {smi}")
+    print(f"[time] flash_attention with its LSE (flash_attention_fwd, the training forward) "
+          "B{} H{}/K{} S{} hd{} bf16 causal: kernel ".format(*K3_SHAPE)
+          + f"{k3_lse_ms:.4f} ms (without: {times['flash_attention'][0]:.4f} ms); {smi}")
+    print(f"[time] flash_attention_bwd library = torch.autograd.grad through "
+          f"scaled_dot_product_attention(is_causal=True), the backward alone; {smi}")
 
     # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,
@@ -1548,6 +2034,26 @@ def main() -> int:
 
     # 14. the CLI's new modes, each a process of its own
     cli_phase()
+
+    # 15. training: a full-width step on the card against the CPU, then
+    # granite-3-2b at full width and depth, a crash and restart, the CLI
+    for arch in TRAIN_VS_CPU:
+        train_vs_cpu(arch, dev)
+        gc.collect()
+    rwkv6_training_raises(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = train_full(dev, smi)
+    launches["flash_attention"] += run["k3"]
+    launches["flash_attention_bwd"] = run["k3b"]
+    by_path["flash_attention"]["tma"] += run["k3"]
+    by_path["flash_attention_bwd"] = {"direct": run["k3b"], "pad": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_restart(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cli()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

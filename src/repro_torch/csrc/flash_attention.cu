@@ -8,7 +8,11 @@
 // from 0, also when Sq != Sk), masked logits set to -1e30, the probabilities
 // rounded to V's dtype before the P.V product, and out = acc / max(l, 1e-30).
 // A row whose keys are all masked (kv_len == 0) therefore averages V, as the
-// reference does.  GQA is native: query head h reads KV head h / G.  Built
+// reference does.  Where the caller passes `lse` (training: the backward K3b
+// reads it), each row's log-sum-exp of its scaled logits is written there,
+// lse = m + log(max(l, 1e-30)) in natural-log units as the reference's
+// `_flash_fwd_inner` computes it; serving passes nullptr and nothing else
+// changes.  GQA is native: query head h reads KV head h / G.  Built
 // for head dims 32, 64 and 128, in f32 or bf16.  The caller passes the
 // scale, 1/sqrt of its own head dim: the wrapper zero-pads q, k and v of any
 // other head dim up to the next built one (zero columns add nothing to
@@ -92,7 +96,8 @@ struct Cfg {
 template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int G, int Sq, int Sk,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int G, int Sq, int Sk,
               int kv_len, int causal, float scale, Strides sq, Strides sk, Strides sv,
               Strides so) {
   using C = Cfg<HD>;
@@ -196,12 +201,15 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS)
     float* op = o + b * so.b + h * so.h + (long long)row * so.s;
 #pragma unroll
     for (int d = 0; d < HP; ++d) op[(d0 + d) * so.d] = acc[d] * inv;
+    // the SPLIT threads of a row hold the same m and l
+    if (lse != nullptr && threadIdx.x % C::SPLIT == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + row] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-           int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int G, int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
            cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const Strides sq{st[0], st[1], st[2], st[3]};
@@ -210,7 +218,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const Strides so{st[12], st[13], st[14], st[15]};
   flash_fwd<HD><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, kv_len, causal,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, G, Sq, Sk, kv_len, causal,
       scale, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
@@ -234,6 +242,7 @@ constexpr int THREADS = (CONSUMERS + 1) * 128;  // and one producer warpgroup
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
@@ -312,8 +321,9 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2], floa
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
-              int G, int Sq, int Sk, int kv_len, int causal, float scale_log2, Strides so) {
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int H, int G, int Sq, int Sk, int kv_len, int causal,
+              float scale_log2, Strides so) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -490,6 +500,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
             __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      // m is in log2 units of the scaled logits, but a row whose keys are all
+      // masked keeps the unscaled -1e30 (the reference's -1e30 + log l)
+      if (lse != nullptr && t % 4 == 0)
+        lse[((long long)b * H + h) * Sq + row] =
+            m[i] == NEG_INF ? NEG_INF + logf(fmaxf(li, 1e-30f))
+                            : (m[i] + log2f(fmaxf(li, 1e-30f))) * LN2;
     }
   }
 }
@@ -513,8 +529,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S, int hea
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G, int Sq,
-           int Sk, int kv_len, int causal, float scale, const long long* st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int G,
+           int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
            cudaStream_t stream) {
   using C = Cfg<HD>;
   const EncodeTiled enc = tensor_map_encoder();
@@ -537,15 +553,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const Strides so{st[12], st[13], st[14], st[15]};
   const float scale_log2 = LOG2E * scale;
-  flash_fwd<HD><<<grid, THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), H,
-                                                   G, Sq, Sk, kv_len, causal, scale_log2, so);
+  flash_fwd<HD><<<grid, THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
+                                                   lse, H, G, Sq, Sk, kv_len, causal, scale_log2,
+                                                   so);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bf16
 
-using LaunchFn = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                         int, int, float, const long long*, cudaStream_t);
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
+                         int, int, int, int, float, const long long*, cudaStream_t);
 
 int dynamic_smem(int dtype, int hd) {
   if (dtype != 1) return 0;
@@ -584,15 +601,17 @@ LaunchFn pick(int dtype, int hd) {
 // 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536.
 // Logits are scaled by `scale`: 1/sqrt(hd) of the caller's head dim, which is
 // smaller than hd when the caller zero-padded q, k and v up to a built size.
+// `lse`: nullptr, or a contiguous (B, H, Sq) float32 buffer that receives
+// each row's log-sum-exp of its scaled logits (natural log).
 // Launches on `stream` and returns a cudaError_t (0 when the launch was
 // accepted).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* o, int B, int H, int G, int Sq, int Sk, int hd,
-                                     int kv_len, int causal, float scale,
+                                     void* o, float* lse, int B, int H, int G, int Sq, int Sk,
+                                     int hd, int kv_len, int causal, float scale,
                                      const long long* strides, void* stream) {
   const LaunchFn fn = (dtype == 0 || dtype == 1) ? pick(dtype, hd) : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, B, H, G, Sq, Sk, kv_len, causal, scale, strides,
+  return fn(q, k, v, o, lse, B, H, G, Sq, Sk, kv_len, causal, scale, strides,
             static_cast<cudaStream_t>(stream));
 }
 

@@ -23,6 +23,11 @@ by path:
   one (in that same layout) and the output's extra columns cropped.  Padding
   is exact: zero columns add nothing to ``Q K^T``, and the scale passed is
   ``1/sqrt`` of the caller's head dim.
+
+:func:`flash_attention_fwd` is the same launch, which also writes each
+row's log-sum-exp ``(B, H, Sq)`` in f32 for the backward (K3b,
+:mod:`.flash_attention_bwd`); :func:`flash_attention`, the serving call,
+passes the kernel no LSE buffer.  Both count as K3 launches.
 """
 
 from __future__ import annotations
@@ -79,6 +84,19 @@ def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
     """Launch the kernel; raises on an input it does not take."""
+    return _launch(q, k, v, causal, kv_len, want_lse=False)[0]
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, kv_len: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (o, lse): the kernel's output and each query row's log-sum-exp of
+    its scaled logits, ``(B, H, Sq)`` f32 (natural log; ``pad`` crops
+    nothing from it).  Raises on an input the kernel does not take."""
+    return _launch(q, k, v, causal, kv_len, want_lse=True)
+
+
+def _launch(q, k, v, causal, kv_len, want_lse: bool):
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -100,8 +118,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Sq < {_BQ * (2**16 - 1)}: {(B, H, Sq, Sk)}")
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
     out = torch.empty((B, Sq, H, built), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if want_lse
+           else None)
     if B == 0 or H == 0 or Sq == 0 or hd == 0:
-        return out[..., :hd]
+        return out[..., :hd], lse
     lib = _build.library()
     with torch.cuda.device(q.device):
         path, q, k, v = prepare(q, k, v)
@@ -110,12 +130,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd), strides,
-            stream)
+            None if lse is None else lse.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv,
+            int(causal), 1.0 / math.sqrt(hd), strides, stream)
     _build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
-    return out if built == hd else out[..., :hd]
+    return (out if built == hd else out[..., :hd]), lse
 
 
 def reset_launches() -> None:

@@ -1,6 +1,10 @@
 """Dispatch by device: a CUDA tensor goes to the hand-written kernel (which
 runs or raises), a CPU tensor to the plain PyTorch version.  There is no
-switch that sends CUDA tensors anywhere else."""
+switch that sends CUDA tensors anywhere else.
+
+Attention under autograd goes through :class:`FlashAttention`, whose
+forward is K3 writing the log-sum-exp rows and whose backward is K3b (on
+the CPU, the plain versions of both)."""
 
 from __future__ import annotations
 
@@ -9,6 +13,8 @@ import torch
 from . import ref as _ref
 from .flash_attention import HEAD_DIMS
 from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention import flash_attention_fwd as _flash_fwd_kernel
+from .flash_attention_bwd import flash_attention_bwd as _flash_bwd_kernel
 from .matadd import matadd as _matadd_kernel
 from .matmul import matmul as _matmul_kernel
 from .wkv6 import HEAD_SIZES as WKV6_HEAD_SIZES
@@ -29,10 +35,42 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
-    """q ``(B, H, Sq, hd)`` over k, v ``(B, K, Sk, hd)``, K dividing H."""
+    """q ``(B, H, Sq, hd)`` over k, v ``(B, K, Sk, hd)``, K dividing H.
+    With grad enabled and an input that requires it, through
+    :class:`FlashAttention`; otherwise the serving call, with no LSE."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, kv_len)
     if q.is_cuda or k.is_cuda or v.is_cuda:
         return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len)
     return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the reference's ``_flash_attend_core`` gradient: the
+    forward saves (q, k, v, o, lse), the backward recomputes P from the LSE
+    (FlashAttention-2).  On CUDA tensors the forward is K3 with its LSE and
+    the backward K3b; on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_len: int | None):
+        if q.is_cuda or k.is_cuda or v.is_cuda:
+            o, lse = _flash_fwd_kernel(q, k, v, causal=causal, kv_len=kv_len)
+        else:
+            o, lse = _ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.kv_len = causal, kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.is_cuda:
+            grads = _flash_bwd_kernel(q, k, v, o, lse, dout, causal=ctx.causal,
+                                      kv_len=ctx.kv_len)
+        else:
+            grads = _ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=ctx.causal,
+                                             kv_len=ctx.kv_len)
+        return (*grads, None, None)
 
 
 def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,7 +81,8 @@ def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 KERNELS = {"matmul": _matmul_kernel, "matadd": _matadd_kernel,
-           "flash_attention": _flash_kernel, "wkv6": _wkv6_kernel}
+           "flash_attention": _flash_kernel, "wkv6": _wkv6_kernel,
+           "flash_attention_bwd": _flash_bwd_kernel}
 _warm: set[torch.device] = set()  # devices warm_up has run on
 
 

@@ -26,6 +26,27 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 NEG_INF = -1e30  # the reference's mask value: a fully masked row stays finite
 
 
+def _expand(t: torch.Tensor, G: int) -> torch.Tensor:
+    """KV heads repeated for the G query heads of each group."""
+    return t.repeat_interleave(G, dim=1) if G > 1 else t
+
+
+def _scores(q, k, causal, kv_len, scale):
+    """Masked logits ``(B, H, Sq, Sk)`` in f32: ``q . k`` divided by
+    ``sqrt(hd)`` (or times ``scale``), -1e30 where masked.  ``k`` has the
+    query heads already."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
+    kpos = torch.arange(Sk, device=q.device)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+    if kv_len is not None:
+        s = s.masked_fill(kpos >= kv_len, NEG_INF)
+    return s
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
@@ -40,22 +61,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked.  Masked logits are -1e30, so a fully masked row averages V.
     The probabilities are rounded to ``v.dtype`` before the product with V;
     the output is in ``q.dtype``."""
-    B, H, Sq, hd = q.shape
-    Sk = k.shape[2]
-    G = H // k.shape[1]
-    if G > 1:
-        k = k.repeat_interleave(G, dim=1)
-        v = v.repeat_interleave(G, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s / math.sqrt(hd) if scale is None else s * scale
-    kpos = torch.arange(Sk, device=q.device)
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)
-        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
-    if kv_len is not None:
-        s = s.masked_fill(kpos >= kv_len, NEG_INF)
+    return _attend(q, k, v, causal, kv_len, scale)[0]
+
+
+def _attend(q, k, v, causal, kv_len, scale):
+    """-> (the output, the masked logits)."""
+    G = q.shape[1] // k.shape[1]
+    s = _scores(q, _expand(k, G), causal, kv_len, scale)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), _expand(v, G)).to(q.dtype), s
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, kv_len: int | None = None,
+                        scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention`'s output and each query row's log-sum-exp of
+    its masked, scaled logits, ``(B, H, Sq)`` f32, as the reference's
+    ``_flash_fwd_inner`` returns it: ``m + log(max(l, 1e-30))`` with ``m``
+    the row's largest logit and ``l`` the sum of ``exp(s - m)``."""
+    o, s = _attend(q, k, v, causal, kv_len, scale)
+    m = s.amax(dim=-1)
+    l_sum = torch.exp(s - m[..., None]).sum(dim=-1)
+    return o, m + torch.log(l_sum.clamp_min(1e-30))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        kv_len: int | None = None, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` given its
+    output ``o``, the output's gradient ``dout`` and the forward's ``lse``:
+    the reference's ``fusedkernel_flash_bwd`` in its two passes, each
+    recomputing ``P = exp(s - lse)`` from the saved rows.  ``delta =
+    rowsum(dout * o)`` in f32; the dq pass takes ``dS = P (dP - delta) *
+    scale`` with ``dP = dout . v``, then ``dq = dS k``; the dk/dv pass
+    recomputes P and dS, then ``dk = dS^T q`` and ``dv = P^T dout``, summed
+    over the G query heads of each KV head.  P and dS are rounded to the
+    input dtype before their products (the reference's ``.astype``); every
+    sum is f32; the gradients are in the inputs' dtypes."""
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    G = H // Kh
+    sc = 1.0 / math.sqrt(hd) if scale is None else scale
+    ke, ve = _expand(k, G), _expand(v, G)
+    delta = (dout.float() * o.float()).sum(dim=-1)
+
+    def probs_and_ds():
+        p = torch.exp(_scores(q, ke, causal, kv_len, scale) - lse[..., None])
+        dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), ve.float())
+        return p, p * (dp - delta[..., None]) * sc
+
+    # pass 1: dq
+    _, ds = probs_and_ds()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), ke.float())
+    # pass 2: dk and dv, P recomputed
+    p, ds = probs_and_ds()
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dout.float())
+    dk = dk.view(B, Kh, G, Sk, hd).sum(dim=2)
+    dv = dv.view(B, Kh, G, Sk, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

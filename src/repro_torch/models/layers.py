@@ -3,8 +3,11 @@ attention and MLA (the port of ``repro/models/layers.py``, one device).
 
 All functions take ``params`` (nested dicts of tensors) and activations and
 return tensors; parameter builders return :class:`~.params.P` spec trees.
-Prefill attention is K3 (:func:`repro_torch.kernels.ops.flash_attention`):
-the hand-written CUDA kernel on the card, its plain version on the CPU.
+Prefill and training attention is K3
+(:func:`repro_torch.kernels.ops.flash_attention`): the hand-written CUDA
+kernel on the card, its plain version on the CPU; under autograd its
+gradient is K3b (:class:`repro_torch.kernels.ops.FlashAttention`), on the
+CPU too through the plain versions, as the reference's ``custom_vjp``.
 Decode attention (one new token against the cache) has no TPU kernel in the
 reference and stays plain tensor code; so does MLA's absorbed-weight decode.
 
@@ -31,16 +34,19 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Execution context: the activation dtype, and the device mesh the
-    reference shards over (``mesh.shape`` maps axis names to sizes).  The
-    port runs on one device and nothing in it sets ``mesh`` yet: a caller's
-    mesh only makes the sharded paths it would select raise (ROADMAP queue
-    1, item 9).  The reference's attention chunk sizes are
+    """Execution context: the activation dtype, the device mesh the
+    reference shards over (``mesh.shape`` maps axis names to sizes), and
+    whether training rematerializes each unit and each CE chunk
+    (``remat``, the reference's ``jax.checkpoint``; it changes no value).
+    The port runs on one device and nothing in it sets ``mesh`` yet: a
+    caller's mesh only makes the sharded paths it would select raise
+    (ROADMAP queue 1, item 9).  The reference's attention chunk sizes are
     not taken: they pick one of two attention branches that compute the same
     function, and the port sends both to one K3 call."""
 
     dtype: torch.dtype = torch.bfloat16
     mesh: Any = None
+    remat: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +109,9 @@ def mlp(p, x, ctx: Ctx):
 
 def attention(q, k, v, *, causal: bool):
     """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * G.  One K3 call on
-    (B, heads, S, hd) views: no transposed copies, no K/V repeat.  The
-    reference's query offset and logit cap are not taken: no configuration
-    of the repo sets either."""
+    (B, heads, S, hd) views: no transposed copies, no K/V repeat; under
+    autograd its backward is one K3b call.  The reference's query offset and
+    logit cap are not taken: no configuration of the repo sets either."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=causal)
     return o.transpose(1, 2)

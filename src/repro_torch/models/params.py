@@ -82,7 +82,10 @@ def init_params(tree, generator: torch.Generator):
 def params_from_numpy(tree, device) -> dict:
     """The reference's parameter tree, converted leaf by leaf with
     ``np.asarray``, as tensors on ``device`` (the same bits, bf16 included;
-    the stacked ``"unit"`` axis is kept)."""
+    the stacked ``"unit"`` axis is kept).  Any nested dict of arrays carries
+    across the same way: the reference's AdamW state (its int32 step, the
+    {"m", "v"} moments, the bf16 errors), whose spec tree is
+    :func:`repro_torch.optim.adamw.state_specs`."""
 
     def one(a):
         a = np.asarray(a)
@@ -113,3 +116,8 @@ def cast_params(tree, dtype: torch.dtype) -> dict:
 
     return walk(tree)
 
+
+
+def count_params(tree) -> int:
+    """Elements in a spec tree."""
+    return sum(math.prod(s.shape) for s in tree_leaves(tree))

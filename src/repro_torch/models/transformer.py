@@ -1,5 +1,5 @@
 """Block-pattern transformer assembly (the port of
-``repro/models/transformer.py``, one device, serving only).
+``repro/models/transformer.py``, one device: serving and training).
 
 A model is {embedding -> [prefix layers] -> repeating *units* of layers ->
 final norm -> LM head}, each layer = {mixer in attn|mla|rwkv6} + {ffn in
@@ -8,6 +8,9 @@ every decoder layer) and the patch-embedding prefix (LLaVA).  The unit
 parameters keep the reference's stacked leading axis (``params["unit"]``
 holds one ``(n_units, ...)`` tensor per leaf), and the forward loops over
 it where the reference scans; prefix layers are unstacked, as there.
+Training (:func:`lm_loss`) rematerializes each unit, each encoder layer and
+each chunk of the LM head's cross-entropy when ``ctx.remat``, as the
+reference's ``jax.checkpoint`` does.
 
 Mamba and attention logit caps raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -15,8 +18,11 @@ ROADMAP item that ports them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers as L
@@ -101,6 +107,25 @@ def model_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
 def _unit(tree, i: int):
     """Unit ``i`` of a stacked tree: views, no copies."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _units(tree, n: int) -> list:
+    """The ``n`` units of a stacked tree, each a tree of views: one
+    ``unbind`` per leaf, so a backward stacks each leaf's ``n`` gradients
+    once instead of adding ``n`` full-size ones."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[u], parts) for u in range(n)]
+
+
+def _remat(ctx: Ctx) -> bool:
+    """Rematerialize in the backward: asked for, and a backward can follow."""
+    return ctx.remat and torch.is_grad_enabled()
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward instead
+    of kept (no random numbers are drawn, so no RNG state is saved)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _stack_trees(trees: list):
@@ -203,9 +228,14 @@ def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torc
 def _encoder(params, enc_embeds, cfg, ctx: Ctx):
     x = enc_embeds.to(ctx.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for u in range(cfg.n_encoder_layers):
-        x, _, _ = apply_layer(_ENCODER, _unit(params["enc_unit"], u)["l0"], x, cfg, ctx,
-                              positions=positions, causal=False)
+
+    def body(x, unit_p):
+        return apply_layer(_ENCODER, unit_p["l0"], x, cfg, ctx, positions=positions,
+                           causal=False)[0]
+
+    for unit_p in _units(params["enc_unit"], cfg.n_encoder_layers):
+        x = _checkpoint(functools.partial(body, unit_p=unit_p), x) if _remat(ctx) \
+            else body(x, unit_p)
     return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -236,30 +266,89 @@ def forward(params, batch, cfg: ModelConfig, ctx: Ctx, *, collect_cache=False):
             aux_total = aux_total + aux
             if collect_cache:
                 caches["prefix"][f"p{i}"] = c
-    per_unit = []
-    for u in range(cfg.n_units):
-        unit_p = _unit(params["unit"], u)
-        unit_caches = {}
+
+    def unit_body(x, aux_total, unit_p, unit_caches):
         for i, spec in enumerate(cfg.unit):
             x, c, aux = apply_layer(spec, unit_p[f"l{i}"], x, cfg, ctx, positions=positions,
                                     enc_out=enc_out)
             aux_total = aux_total + aux
-            unit_caches[f"l{i}"] = c
+            if unit_caches is not None:
+                unit_caches[f"l{i}"] = c
+        return x, aux_total
+
+    per_unit = []
+    for unit_p in _units(params["unit"], cfg.n_units):
         if collect_cache:
-            per_unit.append(unit_caches)
+            per_unit.append({})
+            x, aux_total = unit_body(x, aux_total, unit_p, per_unit[-1])
+        elif _remat(ctx):
+            x, aux_total = _checkpoint(functools.partial(unit_body, unit_p=unit_p,
+                                                         unit_caches=None), x, aux_total)
+        else:
+            x, aux_total = unit_body(x, aux_total, unit_p, None)
     if collect_cache:
         caches["unit"] = _stack_trees(per_unit)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches, aux_total
 
 
 # ---------------------------------------------------------------------------
-# prefill / decode
+# chunked cross-entropy LM head
 # ---------------------------------------------------------------------------
 
 def _unembed_matrix(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["unembed"]
+
+
+def chunked_ce(params, hidden, labels, mask, cfg, ctx: Ctx, chunk: int = 256):
+    """Mean CE over masked positions; the logits never exist beyond one
+    ``(B, chunk, V)`` slab, recomputed in the backward when ``ctx.remat``.
+    Logits of the padded vocabulary are -1e30; ``cfg.logits_softcap`` caps
+    them with ``tanh``.  Returns (loss, n_tokens)."""
+    B, S, _ = hidden.shape
+    W = _unembed_matrix(params, cfg)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the CE chunk {chunk}")
+    vocab_pad = torch.arange(W.shape[1], device=hidden.device) >= cfg.vocab
+
+    def body(h_c, y_c, m_c):
+        logits = (h_c @ W.to(h_c.dtype)).float()
+        logits = logits.masked_fill(vocab_pad, L.NEG_INF)
+        if cfg.logits_softcap:
+            logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, y_c.long()[..., None])[..., 0]
+        return ((lse - ll) * m_c).sum()
+
+    tot = torch.zeros((), device=hidden.device)
+    for c0 in range(0, S, chunk):
+        args = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
+        tot = tot + (_checkpoint(body, *args) if _remat(ctx) else body(*args))
+    n_tok = mask.sum().clamp_min(1.0)
+    return tot / n_tok, n_tok
+
+
+def lm_loss(params, batch, cfg: ModelConfig, ctx: Ctx):
+    """Next-token CE + the MoE aux loss.  batch needs "tokens" and "labels"
+    (+ the modality extras); a label of -100 is masked, and the VLM's patch
+    positions carry none.  Returns (total, {"ce", "aux", "n_tok"})."""
+    hidden, _, aux = forward(params, batch, cfg, ctx)
+    labels = batch["labels"]
+    if cfg.vlm:
+        pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]), -100,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = (labels >= 0).float()
+    loss, n_tok = chunked_ce(params, hidden, labels.clamp_min(0), mask, cfg, ctx)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"ce": loss, "aux": aux, "n_tok": n_tok}
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
 
 
 def logits_for(params, x_last, cfg, ctx: Ctx):
