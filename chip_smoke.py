@@ -11,7 +11,8 @@ prints no result):
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
    ``wgmma``s; a K1 ``wgmma``, K3, K3b or K4 specialisation that spills, or
-   one missing, fails the run;
+   one missing, or a bf16 K3b kernel whose ``wgmma``s ``ptxas`` serialised,
+   fails the run;
 2. K1 (matmul) against its plain PyTorch version on the card, each case
    with the path the wrapper chose (``wgmma`` or ``fma``): 2048^3 f32 with a
    row-major B (the MM DAG's layout) and with the serving ``prefill``
@@ -37,10 +38,13 @@ prints no result):
    version's on the ``tma``, ``fp32`` and ``pad`` paths, the output
    bit-identical to a launch without them; and ``[K3b]``: the CUDA
    flash-attention backward's dq, dk and dv against its plain version, each
-   case with its path (``direct``, ``pad``): head dims 32, 64, 128 and
-   padded 16 and 96, causal and not, GQA 32/8, Sq != Sk both ways, ragged
-   S = 33 and 130, ``kv_len`` < Sk, granite-3-2b's training shape,
-   minicpm3-4b's MLA at 96 and whisper-large-v3's 416 x 1500;
+   case with its path (``tma``, ``fp32``, ``copy``, ``pad``): head dims 32,
+   64, 128 and padded 16 and 96, causal and not, GQA 32/8, Sq != Sk both
+   ways, ragged S = 33 and 130, one query row, ``kv_len`` < Sk and 0,
+   granite-3-2b's training shape, minicpm3-4b's MLA at 96, whisper-large-v3's
+   416 x 1500, a bf16 dout with a strided last dimension and a q whose base
+   is 4 bytes off the 16-byte granule (``copy``); a second launch on the
+   same inputs must give the same bits;
 5. K4 (WKV6) against its plain version, output and final state, each case
    with the path the wrapper took (``ring``, ``copy`` where TMA cannot
    address the inputs or their strides differ and the wrapper copies them
@@ -55,7 +59,8 @@ prints no result):
    where one computes the same function, and the card's bound; K3 also at
    minitron-4b's, minicpm3-4b's and whisper-large-v3's encoder and decode
    cross-attention shapes; K3 with its LSE and K3b at granite-3-2b's
-   training shape, K3b beside the backward of SDPA;
+   training shape, K3b beside the backward of SDPA and its five- and
+   seven-product bounds;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -120,7 +125,8 @@ prints no result):
    backward; ``[train]``, granite-3-2b at full width and depth (f32
    parameters and AdamW state, bf16 activations, remat), 6 steps of 8 x
    2048 synthetic tokens through ``launch.train.train``, the counters set
-   to 0 just before: K3 80 and K3b 40 launches a step, losses finite,
+   to 0 just before: K3 80 and K3b 40 launches a step, all on ``tma``
+   (printed by path), losses finite,
    every parameter moved, ms a step, tokens/s, peak memory, and one step
    under ``torch.profiler``; ``[train-restart]``, 2 full-width layers, a
    failure injected at step 7 and a restart from the step-5 checkpoint,
@@ -514,8 +520,11 @@ def check_flash_lse(gen) -> None:
 def check_flash_bwd(gen) -> float:
     """``[K3b]``: dq, dk and dv of the CUDA backward against the plain
     version's (``ref.flash_attention_bwd``), both fed the same q, k, v, o,
-    LSE (K3's forward) and dout, each case on the path it names (``direct``
-    or ``pad``).  -> the largest error at granite-3-2b's training shape.
+    LSE (K3's forward) and dout, each case on the path it names (``tma``,
+    ``fp32``, ``copy`` for a bf16 dout with a strided last dimension and a q
+    whose base is 4 bytes off the 16-byte granule, or ``pad``); a second
+    launch on the same inputs must give the same bits (no atomics).  -> the
+    largest error at granite-3-2b's training shape.
 
     Tolerance, on each gradient, max |kernel - plain| <= tol x max |plain|:
     1e-4 in f32 (sums of up to Sq x G terms taken in another order) and
@@ -552,19 +561,35 @@ def check_flash_bwd(gen) -> float:
         (2, 4, 2, 130, 130, 16, bf16, False, None),
         (2, 8, 8, 256, 256, 96, f32, True, None),
         (2, 8, 8, 256, 256, 96, bf16, False, 200),
+        (1, 4, 4, 128, 160, 64, bf16, True, 0),       # kv_len 0: every key masked
+        (2, 4, 4, 1, 300, 64, bf16, False, None),     # one query row
+        # TMA cannot address them: the copy path
+        (2, 32, 8, 512, 512, 64, bf16, True, "strided dout"),
+        (2, 4, 2, 130, 200, 128, bf16, False, "offset q"),
     ]
     main_err = None
     for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
-        q = _strided((B, Sq, H, hd), dt, gen)
+        layout = kv_len if isinstance(kv_len, str) else None
+        kv_len = None if layout else kv_len
+        if layout == "offset q":  # the base 4 bytes past an allocation's
+            buf = torch.randn(B * Sq * H * hd + 2, device="cuda", generator=gen).to(dt)
+            q = buf[2:].view(B, Sq, H, hd).transpose(1, 2)
+        else:
+            q = _strided((B, Sq, H, hd), dt, gen)
         k = _strided((B, Sk, K, hd), dt, gen)
         v = _strided((B, Sk, K, hd), dt, gen)
-        dout = _strided((B, Sq, H, hd), dt, gen)
+        if layout == "strided dout":
+            dout = _strided((B, Sq, H, 2 * hd), dt, gen)[..., ::2]
+        else:
+            dout = _strided((B, Sq, H, hd), dt, gen)
         o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
         got, taken = paths_taken(flash_attention_bwd, lambda: flash_attention_bwd(
             q, k, v, o, lse, dout, causal=causal, kv_len=kv_len))
+        again = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len)
         want = ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len)
         torch.cuda.synchronize()
-        want_path = "direct" if hd in (32, 64, 128) else "pad"
+        want_path = ("pad" if hd not in (32, 64, 128) else "fp32" if dt == f32
+                     else "copy" if layout else "tma")
         if taken != [want_path]:
             raise AssertionError(f"flash_attention_bwd hd{hd} {dt}: paths {taken}, "
                                  f"want {want_path}")
@@ -582,25 +607,37 @@ def check_flash_bwd(gen) -> float:
                                      f"{err} > {tol:g} x max|plain| {scale}")
             errs.append(f"{name} {err:.3e} (max|plain| {scale:.3e})")
             worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {dt}: "
+                                 f"two launches on the same inputs differ")
         if main_err is None:
             main_err = worst
         print(f"[K3b] flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
-              f"causal={causal} kv_len={kv_len} path={taken[0]} max_abs_err " + ", ".join(errs)
-              + f" (<= {tol:g} x max|plain|) ok")
-        del q, k, v, dout, o, lse, got, want
+              f"causal={causal} kv_len={kv_len}{f' ({layout})' if layout else ''} "
+              f"path={taken[0]} max_abs_err " + ", ".join(errs)
+              + f" (<= {tol:g} x max|plain|); a second launch bit-equal ok")
+        del q, k, v, dout, o, lse, got, again, want
     return main_err
 
 
-def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, float]:
-    """-> ((K3b ms, plain ms, SDPA backward ms), bound, K3-with-LSE ms) in
-    bf16 at granite-3-2b's training shape, on the model's strided views.
+def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, tuple, float, dict]:
+    """-> ((K3b ms, plain ms, SDPA backward ms), bound, seven-product bound,
+    K3-with-LSE ms, {K3b's kernel: device ms a launch}) in bf16 at
+    granite-3-2b's training shape, on the model's strided views; the split
+    by kernel (its three launches) from ``torch.profiler`` over 5 calls.
     The bound counts the five products of a backward that recomputes P, 10
     hd operations per (query, key) pair the causal mask keeps, against the
     bf16 tensor peak, over q, k, v, o, dout and the LSE read once and dq,
-    dk, dv written once.  The library call: ``torch.autograd.grad`` through
-    ``scaled_dot_product_attention(is_causal=True)`` (K and V expanded to
-    the query heads outside the timed call), the backward alone."""
+    dk, dv written once; the seven-product bound the 14 hd of K3b's two
+    kernels, which both compute S and dP.  The library call:
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention(
+    is_causal=True)`` (K and V expanded to the query heads outside the
+    timed call), the backward alone."""
+    import re
+
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
@@ -614,6 +651,7 @@ def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, float]:
     pairs = B * H * S * (S + 1) / 2
     nbytes = (4 * B * H * S * hd + 4 * B * K * S * hd) * 2 + B * H * S * 4
     bnd = bound(10.0 * pairs * hd, nbytes, peaks["bf16"], peaks["bytes"])
+    bnd7 = bound(14.0 * pairs * hd, nbytes, peaks["bf16"], peaks["bytes"])
     ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout), batches=5, per_batch=5)
     plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout), batches=3,
                     per_batch=1)
@@ -622,7 +660,14 @@ def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, float]:
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     lib = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))
     fwd_lse = time_ms(lambda: flash_attention_fwd(q, k, v))
-    return (ms, plain, lib), bnd, fwd_lse
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flash_attention_bwd(q, k, v, o, lse, dout)
+        torch.cuda.synchronize()
+    split = {m.group(1): t / 5 for name, t in _kernel_ms(prof)[0].items()
+             if (m := re.search(r"(bwd_\w+(?:<\d+>)?)", name))}
+    return (ms, plain, lib), bnd, bnd7, fwd_lse, split
 
 
 def wkv6_inputs(B, H, S, N, gen, layout: str = "bshn"):
@@ -1431,7 +1476,7 @@ def train_full(dev, smi: str) -> dict:
     step_ms = [float(m) for m in re.findall(r"\((\d+) ms/step\)", log.getvalue())]
     n = cfg.attn_layer_count()
     want = {"flash_attention": ("tma", 2 * n * TRAIN_STEPS),
-            "flash_attention_bwd": ("direct", n * TRAIN_STEPS)}
+            "flash_attention_bwd": ("tma", n * TRAIN_STEPS)}
     for k, (path, count) in want.items():
         if sum(counts[k].values()) != count or counts[k][path] != count:
             raise AssertionError(f"[train] {k} launched {counts[k]}, want {count} on {path} "
@@ -1455,7 +1500,7 @@ def train_full(dev, smi: str) -> dict:
           f"{TRAIN_STEPS} {steady:.0f}), {tokens / (steady / 1e3):.0f} tokens/s, "
           f"6 N tokens / step time / 989 TFLOP/s = {ratio:.3f} (a ratio, not a claim), "
           f"peak {peak_gb:.1f} GB; K3 {counts['flash_attention']} = 2 x {n} a step, "
-          f"K3b {counts['flash_attention_bwd']} = {n} a step; {smi}")
+          f"K3b by path {counts['flash_attention_bwd']} = {n} a step; {smi}")
 
     # one more step under the profiler: the device's busy share and top kernels
     step, *_ = make_train_step(cfg)
@@ -1472,14 +1517,15 @@ def train_full(dev, smi: str) -> dict:
     by_name, launched = _kernel_ms(prof)
     busy = sum(by_name.values())
     k3b_ms = sum(t for name, t in by_name.items()
-                 if any(k in name for k in ("bwd_dq<", "bwd_dkdv<", "bwd_delta<")))
+                 if any(k in name for k in ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "bwd_delta")))
     k3_ms = sum(t for name, t in by_name.items() if "flash_fwd<" in name)
     print(f"[train] profiled step: device {busy:.1f} of {wall_ms:.1f} ms wall "
           f"({busy / wall_ms:.1%} busy), {launched} kernels; K3b {k3b_ms:.1f} ms "
           f"({k3b_ms / busy:.1%}), K3 {k3_ms:.1f} ms ({k3_ms / busy:.1%}); top: "
           f"{_top(by_name, 6)}; {smi}")
     return {"k3": sum(counts["flash_attention"].values()),
-            "k3b": sum(counts["flash_attention_bwd"].values()), "step_ms": steady}
+            "k3b": sum(counts["flash_attention_bwd"].values()),
+            "k3b_by_path": counts["flash_attention_bwd"], "step_ms": steady}
 
 
 def train_restart(dev) -> None:
@@ -1691,7 +1737,8 @@ def build_report(build) -> None:
     static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3
     and K3b set, and whether ``ptxas`` serialised the kernel's ``wgmma``s
     (its C7510-C7520 notes, which name the function).  Raises when a K1
-    ``wgmma``, K3, K3b or K4 specialisation spills or is missing."""
+    ``wgmma``, K3, K3b or K4 specialisation spills or is missing, or when
+    ``ptxas`` serialised the ``wgmma``s of a bf16 K3b kernel."""
     import re
 
     lib = build.library()
@@ -1706,12 +1753,12 @@ def build_report(build) -> None:
             name = m.group(1)
             k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)E", name)
             k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
-            k3b = re.search(r"(bwd_dq|bwd_dkdv)I(f|13__nv_bfloat16)Li(\d+)E", name)
+            k3b = re.search(r"(bwd_dq|bwd_dkdv)(_wgmma)?I(f)?Li(\d+)E", name)
             cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2))),
                    "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
                                  "KM"[int(k1.group(2))], "KN"[int(k1.group(3))]),
-                   "k3b": k3b and (k3b.group(1), "f32" if k3b.group(2) == "f" else "bf16",
-                                   int(k3b.group(3)))}
+                   "k3b": k3b and (k3b.group(1), "f32" if k3b.group(3) else "bf16",
+                                   int(k3b.group(4)))}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -1732,8 +1779,9 @@ def build_report(build) -> None:
         elif kern["k3b"]:
             which, dtype, hd = kern["k3b"]
             k3b[kern["k3b"]] = kern
-            label = f"{which}<{dtype}, hd {hd}>"
-            dynamic = lib.repro_flash_attention_bwd_smem(int(which == "bwd_dkdv"), hd)
+            label = f"{which}<{dtype}, hd {hd}>" + (" (wgmma)" if dtype == "bf16" else "")
+            dynamic = lib.repro_flash_attention_bwd_smem(int(dtype == "bf16"),
+                                                         int(which == "bwd_dkdv"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif kern["k1"]:
             dtype, a_major, b_major = kern["k1"]
@@ -1743,8 +1791,10 @@ def build_report(build) -> None:
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif "mm_fma" in kern["name"]:
             label = f"mm_fma<{'bf16' if 'bfloat16' in kern['name'] else 'f32'}>"
-        elif m := re.search(r"bwd_deltaI(f|13__nv_bfloat16)E", kern["name"]):
-            label = f"bwd_delta<{'f32' if m.group(1) == 'f' else 'bf16'}>"
+        elif "bwd_deltaIfE" in kern["name"]:
+            label = "bwd_delta<f32>"
+        elif "bwd_rowstats" in kern["name"]:
+            label = "bwd_rowstats<bf16>"
         elif m := re.search(r"(add_stream|add_scalar)I(f|i|13__nv_bfloat16)E", kern["name"]):
             dtype = {"f": "f32", "i": "int32"}.get(m.group(2), "bf16")
             label = f"{m.group(1)}<{dtype}>"
@@ -1767,6 +1817,9 @@ def build_report(build) -> None:
     spilled = [key for key, kern in {**k1, **k3, **k4, **k3b}.items() if any(kern["spill"])]
     if spilled:
         raise AssertionError(f"K1 wgmma, K3, K3b or K4 specialisations spill: {spilled}")
+    serial = [key for key, kern in k3b.items() if key[1] == "bf16" and kern["name"] in serialised]
+    if serial:
+        raise AssertionError(f"ptxas serialised the wgmmas of K3b's bf16 kernels {serial}")
 
 
 def main() -> int:
@@ -1858,8 +1911,8 @@ def main() -> int:
     more_times, more_bounds = time_attention_and_wkv6(flash_attention, wkv6, ref, gen, peaks)
     times.update(more_times)
     bounds.update(more_bounds)
-    times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3_lse_ms = time_flash_bwd(
-        gen, peaks)
+    times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3b_bound7, k3_lse_ms, \
+        k3b_split = time_flash_bwd(gen, peaks)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
@@ -1888,6 +1941,9 @@ def main() -> int:
         if k == "matmul":
             b_by += (f", 3xTF32 at the tf32 tensor peak; IEEE f32 FMA bound "
                      f"{fma_bound[0]:.4f} ms ({fma_bound[1]})")
+        if k == "flash_attention_bwd":
+            b_by += (f"; seven-product bound {k3b_bound7[0]:.4f} ms ({k3b_bound7[1]}, 14 hd a "
+                     f"kept pair: S and dP in both kernels)")
         if k == "wkv6":
             b_by += (f"; CUDA-core issue floor {k4_issue_ms[3.0]:.4f} ms (3 FP32 "
                      f"instructions per state element and step at {peaks['f32'] / 2e12:g}e12/s; "
@@ -1898,7 +1954,9 @@ def main() -> int:
           "B{} H{}/K{} S{} hd{} bf16 causal: kernel ".format(*K3_SHAPE)
           + f"{k3_lse_ms:.4f} ms (without: {times['flash_attention'][0]:.4f} ms); {smi}")
     print(f"[time] flash_attention_bwd library = torch.autograd.grad through "
-          f"scaled_dot_product_attention(is_causal=True), the backward alone; {smi}")
+          f"scaled_dot_product_attention(is_causal=True), the backward alone; by kernel "
+          f"(torch.profiler, ms a launch): "
+          + ", ".join(f"{k} {t:.4f}" for k, t in sorted(k3b_split.items())) + f"; {smi}")
 
     # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,
@@ -2047,7 +2105,7 @@ def main() -> int:
     launches["flash_attention"] += run["k3"]
     launches["flash_attention_bwd"] = run["k3b"]
     by_path["flash_attention"]["tma"] += run["k3"]
-    by_path["flash_attention_bwd"] = {"direct": run["k3b"], "pad": 0}
+    by_path["flash_attention_bwd"] = run["k3b_by_path"]
     gc.collect()
     torch.cuda.empty_cache()
     train_restart(dev)

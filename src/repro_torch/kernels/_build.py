@@ -56,12 +56,12 @@ SIGNATURES = {
                               _LP, _P),
     # dtype, hd -> bytes of dynamic shared memory of that kernel
     "repro_flash_attention_smem": (_I, _I),
-    # dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, G, Sq, Sk, hd, kv_len, causal,
+    # dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, hd, kv_len, causal,
     # scale, strides[32], stream
     "repro_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _LP, _P),
-    # 0 = the dq kernel, 1 = the dk/dv kernel; hd -> bytes of dynamic shared memory
-    "repro_flash_attention_bwd_smem": (_I, _I),
+    # dtype, 0 = the dq kernel or 1 = the dk/dv kernel, hd -> bytes of dynamic shared memory
+    "repro_flash_attention_bwd_smem": (_I, _I, _I),
     # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _P),
 }

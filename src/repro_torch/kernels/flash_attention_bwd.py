@@ -11,11 +11,18 @@ returns ``(dq, dk, dv)`` with the semantics of
 bfloat16 CUDA tensors.  The gradients are allocated in the model's ``(B, S,
 heads, hd)`` layout and returned as their ``(B, heads, S, hd)`` views.
 
-The kernel reads every input through its strides, so no layout is copied.
-It is built for head dims 32, 64 and 128; what the wrapper hands it is
-counted by path:
+The kernel is built for head dims 32, 64 and 128.  What the wrapper hands
+it is decided from the dtype, the head dim and the layout alone
+(:func:`prepare`, mirroring K3's) and counted by path:
 
-* ``direct``: a built head dim, every tensor read in place;
+* ``tma``: bf16 on the tensor cores, q, k, v and dout read in place by TMA,
+  which takes a layout only when the last dimension is contiguous and every
+  other stride and each base address is a multiple of 16 bytes (the model's
+  views are); o is read through its strides;
+* ``fp32``: f32 on the CUDA cores, every tensor read in place through any
+  strides;
+* ``copy``: a bf16 q, k, v or dout that TMA cannot address, copied first
+  into the model's ``(B, S, heads, hd)`` layout;
 * ``pad``: q, k, v, o and dout zero-padded up to the next built head dim
   (zero columns add nothing to any product, so the extra columns of the
   gradients are 0 and cropped), with the scale ``1/sqrt`` of the caller's
@@ -30,23 +37,31 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import built_head_dim
+from .flash_attention import built_head_dim, tma_addressable
 from .layout import copy_bshd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PATHS = ("direct", "pad")
+PATHS = ("tma", "fp32", "copy", "pad")
 _INT_MAX = 2**31 - 1
-_BLOCK = 64  # query rows and keys per block; blocks per (batch, head) stay below 2**16
+_BLOCK = 64  # the f32 kernels' query rows and keys per block (bf16's: 128)
+_PAD_ROWS = 128  # the bf16 kernels' LSE and delta rows are padded to a multiple of this
 
 
 def prepare(q, k, v, o, dout) -> tuple[str, tuple[torch.Tensor, ...]]:
-    """-> (path, (q, k, v, o, dout)) as the kernel reads them, from the head
-    dim alone.  Device-agnostic: the tests run it on the CPU."""
+    """-> (path, (q, k, v, o, dout)) as the kernel reads them, from the
+    dtype, the head dim and the layout alone (see the module's docstring).
+    Device-agnostic: the tests run it on the CPU."""
     hd = q.shape[-1]
     built = built_head_dim(hd)
     if built != hd:
         return "pad", tuple(copy_bshd(t, built) for t in (q, k, v, o, dout))
-    return "direct", (q, k, v, o, dout)
+    if q.dtype == torch.float32:
+        return "fp32", (q, k, v, o, dout)
+    ok = [tma_addressable(t) for t in (q, k, v, dout)]
+    if all(ok):
+        return "tma", (q, k, v, o, dout)
+    q, k, v, dout = (t if good else copy_bshd(t) for t, good in zip((q, k, v, dout), ok))
+    return "copy", (q, k, v, o, dout)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -86,7 +101,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         dv.zero_()
         return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     lib = _build.library()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the f32 kernels' delta rows, or the bf16 kernels' lse log2(e) and delta
+    # rows padded to a multiple of _PAD_ROWS
+    scratch = torch.empty(2 * B * H * -(-Sq // _PAD_ROWS) * _PAD_ROWS, dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         path, (q, k, v, o, dout) = prepare(q, k, v, o, dout)
         strides = (ctypes.c_longlong * 32)(*q.stride(), *k.stride(), *v.stride(), *o.stride(),
@@ -95,7 +113,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd),
             strides, stream)
     _build.check(err, f"flash_attention_bwd ({path})")

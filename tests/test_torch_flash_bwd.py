@@ -12,8 +12,14 @@ the port's ``L.attention``.  Tolerance: the reference suite's rtol = atol =
 1e-4 (``tests/test_models.py::test_flash_equals_dense_attention_with_grads``).
 The CUDA kernels run only on the card (``chip_smoke.py`` ``[K3-lse]``,
 ``[K3b]``); here K3b's wrapper is held to refusing CPU tensors, and what it
-hands the kernel (``prepare``: the zero-padding of head dims that are not
-built) is fed to the plain version with the kernel's scale.
+hands the kernel (``prepare``: the path, the copies of layouts TMA cannot
+address and the zero-padding of head dims that are not built) is fed to the
+plain version with the kernel's scale.  ``_tiled_bwd`` transcribes the bf16
+kernels' tiling into plain PyTorch (their blocks and tiles, which tiles are
+masked, P in base 2 from padded row statistics, where P and dS are rounded,
+the order of every sum); it is held to the reference's
+``fusedkernel_flash_bwd`` and ``jax.grad`` in f32 at 1e-4 and to the plain
+``ref.flash_attention_bwd`` in bf16 at 1e-2 x max |grad|.
 """
 
 import pytest
@@ -29,6 +35,7 @@ import numpy as np
 from repro.models import layers as jL
 from repro.parallel.sharding import TRAIN_RULES
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import tma_addressable
 from repro_torch.kernels.flash_attention_bwd import PATHS, flash_attention_bwd, prepare
 from repro_torch.models import layers as tL
 
@@ -61,9 +68,10 @@ def _bhsd(a):
     return torch.from_numpy(a.reshape(B, S, -1, a.shape[-1])).transpose(1, 2)
 
 
-def _ref_regions(q, k, v, do, causal):
+def _ref_regions(q, k, v, do, causal, kv_len=None):
     hd = q.shape[-1]
-    kw = dict(causal=causal, scale=1 / math.sqrt(hd), Cq=16, Ck=16, logit_cap=0.0)
+    kw = dict(causal=causal, scale=1 / math.sqrt(hd), Cq=16, Ck=16, logit_cap=0.0,
+              kv_len=kv_len)
     o, lse = jL.fusedkernel_flash_fwd(q, k, v, 0, **kw)
     grads = jL.fusedkernel_flash_bwd(q, k, v, o, lse, do, 0, **kw)
     return o, lse, grads
@@ -172,10 +180,249 @@ def test_prepare_pads_head_dims_exactly(hd):
     k, v = (torch.randn(B, Sk, K, hd, generator=gen).transpose(1, 2) for _ in range(2))
     _, lse = ref.flash_attention_fwd(q, k, v, causal=True)
     path, prepared = prepare(q, k, v, o, dout)
-    assert path in PATHS and path == ("direct" if hd in (32, 64, 128) else "pad")
+    assert path in PATHS and path == ("fp32" if hd in (32, 64, 128) else "pad")
     want = ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=True)
     got = ref.flash_attention_bwd(*prepared[:4], lse, prepared[4], causal=True,
                                   scale=1 / math.sqrt(hd))
     for g, w in zip(got, want):
         torch.testing.assert_close(g[..., :hd], w, rtol=1e-5, atol=1e-5)
         assert not g[..., hd:].any()
+
+
+def test_prepare_picks_each_path_from_dtype_head_dim_and_layout():
+    """K3's paths: f32 in place through any strides (``fp32``), bf16 in place
+    where TMA addresses q, k, v and dout (``tma``; o is read through its
+    strides), head dims that are not built padded (``pad``)."""
+    assert PATHS == ("tma", "fp32", "copy", "pad")
+    x = torch.zeros(1, 2, 8, 64)
+    assert prepare(*[x] * 5)[0] == "fp32"
+    assert prepare(*[x[..., ::2]] * 5)[0] == "fp32"  # any strides
+    y = x.to(torch.bfloat16)
+    path, got = prepare(y, y, y, y[..., ::2].repeat_interleave(2, -1)[..., ::2], y)
+    assert path == "tma" and all(a is b for a, b in zip(got[:3], (y, y, y))) and got[4] is y
+    for hd, built in ((16, 32), (96, 128)):
+        z = torch.ones(1, 2, 8, hd, dtype=torch.bfloat16)
+        path, got = prepare(*[z] * 5)
+        assert path == "pad" and all(t.shape[-1] == built for t in got)
+
+
+def test_prepare_copies_what_tma_cannot_address_bit_for_bit():
+    """The ``copy`` path: a bf16 dout whose last dimension has stride 2 and a
+    q whose base is 4 bytes off the 16-byte granule are copied into the
+    model's (B, S, heads, hd) layout with the same bits; the tensors TMA can
+    address, and o (read through its strides), are passed on untouched."""
+    gen = torch.Generator().manual_seed(7)
+    B, H, K, S, hd = 2, 4, 2, 24, 64
+    q, o = (torch.randn(B, S, H, hd, generator=gen).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    k, v = (torch.randn(B, S, K, hd, generator=gen).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    strided = torch.randn(B, S, H, 2 * hd, generator=gen).to(torch.bfloat16)[..., ::2]
+    strided = strided.transpose(1, 2)
+    flat = torch.randn(B * S * H * hd + 2, generator=gen).to(torch.bfloat16)
+    offset = flat[2:].view(B, S, H, hd).transpose(1, 2)
+    assert all(tma_addressable(t) for t in (q, k, v, o))
+    assert not tma_addressable(strided) and not tma_addressable(offset)
+    for qq, dout in ((q, strided), (offset, q)):
+        path, got = prepare(qq, k, v, o, dout)
+        assert path == "copy"
+        for t, given in zip(got, (qq, k, v, o, dout)):
+            assert torch.equal(t, given)
+            if tma_addressable(given) or t is o:
+                assert t is given
+            else:
+                assert tma_addressable(t) and t.transpose(1, 2).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' tiling, transcribed
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+BQ = BKV = 128  # query rows a dq block owns; keys a dk/dv block owns
+
+
+def _tile_sizes(hd: int) -> tuple[int, int]:
+    """(keys per tile of the dq kernel, query rows per tile of the dk/dv
+    kernel) at a built head dim: fewer at 128, for registers."""
+    return (64, 32) if hd > 64 else (128, 64)
+
+
+def _rows(t, r0, n):
+    """Rows [r0, r0 + n) of ``t`` (..., S, hd) in f32, zeros past S (TMA's
+    zero fill)."""
+    out = torch.zeros((*t.shape[:-2], n, t.shape[-1]))
+    stop = min(r0 + n, t.shape[-2])
+    if stop > r0:
+        out[..., :stop - r0, :] = t[..., r0:stop, :].float()
+    return out
+
+
+def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
+    """K3b's bf16 kernels in plain PyTorch: (dq, dk, dv) as they compute them,
+    for any dtype (P and dS are rounded to it).
+
+    Row statistics: ``lse2 = lse log2(e)`` and ``delta = rowsum(dO O)`` in
+    rows padded to a multiple of 128, the padding's ``lse2`` +inf, so a row
+    past Sq gets P = 0 unmasked.  dq: a block owns 128 query rows, each half
+    of 64 (a consumer warpgroup) sums its key tiles in order; the tiles
+    wholly below kv_len and the half's diagonal are unmasked, the rest
+    masked; blocks past the diagonal or kv_len are skipped when kv_len > 0.
+    dk/dv: a block owns 128 keys of a KV head, each half of 64 sums over the
+    G query heads, then the query tiles from the first that sees the block's
+    keys; the first tiles of each head, up to the half's diagonal (all of
+    them where its keys cross kv_len), masked.  P = exp2(s scale log2(e) -
+    lse2), a masked logit -1e30 log2(e)."""
+    B, H, Sq, hd = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    G = H // Kh
+    sc = 1.0 / math.sqrt(hd) if scale is None else scale
+    kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
+    BK, BQT = _tile_sizes(hd)
+    f32 = torch.float32
+    sl = torch.tensor(sc, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    neg2 = torch.tensor(-1e30, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+
+    def rnd(x):
+        return x.to(q.dtype).float()
+
+    sq_pad = -(-Sq // BQ) * BQ
+    lse2 = torch.full((B, H, sq_pad), math.inf)
+    lse2[..., :Sq] = lse.float() * torch.tensor(LOG2E, dtype=f32)
+    delta = torch.zeros((B, H, sq_pad))
+    delta[..., :Sq] = (dout.float() * o.float()).sum(-1)
+    any_valid = kv > 0
+
+    def masked(x, l2, rows, keys):
+        ok = keys < kv
+        if causal:
+            ok = ok & (keys <= rows)
+        return torch.where(ok, x, neg2 - l2)
+
+    # dq
+    dq = torch.zeros((B, H, sq_pad, hd))
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    for q0 in range(0, sq_pad, BQ):
+        k_end = kv if any_valid else Sk
+        if causal and any_valid:
+            k_end = min(k_end, q0 + BQ)
+        n_tiles = -(-k_end // BK)
+        for w in range(2):
+            first_row = q0 + 64 * w
+            rows = torch.arange(first_row, first_row + 64)
+            n_plain = 0
+            if any_valid:
+                n_plain = min(n_tiles, (min(kv, first_row + 1) if causal else kv) // BK)
+            qt, dot = _rows(q, first_row, 64), _rows(dout, first_row, 64)
+            l2, dl = lse2[..., rows, None], delta[..., rows, None]
+            acc = torch.zeros((B, H, 64, hd))
+            for i in range(n_tiles):
+                kt, vt = _rows(ke, i * BK, BK), _rows(ve, i * BK, BK)
+                x = (qt @ kt.transpose(-1, -2)) * sl - l2
+                if i >= n_plain:
+                    x = masked(x, l2, rows[:, None], torch.arange(i * BK, (i + 1) * BK))
+                ds = torch.exp2(x) * (dot @ vt.transpose(-1, -2) - dl) * sc
+                acc = acc + rnd(ds) @ kt
+            dq[..., rows, :] = acc
+    # dk and dv
+    sk_pad = -(-Sk // BKV) * BKV
+    dk = torch.zeros((B, Kh, sk_pad, hd))
+    dv = torch.zeros((B, Kh, sk_pad, hd))
+    for k0 in range(0, sk_pad, BKV):
+        first = k0 // BQT if causal and any_valid else 0
+        n_per = 0 if any_valid and k0 >= kv else max(0, -(-Sq // BQT) - first)
+        for w in range(2):
+            kw = k0 + 64 * w
+            keys = torch.arange(kw, kw + 64)
+            n_mask = n_per
+            if any_valid and kw + 64 <= kv:
+                n_mask = min(n_per, max(0, -(-(kw + 63) // BQT) - first)) if causal else 0
+            kt, vt = _rows(k, kw, 64), _rows(v, kw, 64)
+            dk_acc = torch.zeros((B, Kh, 64, hd))
+            dv_acc = torch.zeros((B, Kh, 64, hd))
+            for g in range(G):
+                heads = torch.arange(Kh) * G + g
+                for jj in range(n_per):
+                    r0 = (first + jj) * BQT
+                    rows = torch.arange(r0, r0 + BQT)
+                    qt, dot = _rows(q[:, heads], r0, BQT), _rows(dout[:, heads], r0, BQT)
+                    l2, dl = lse2[:, heads][..., None, rows], delta[:, heads][..., None, rows]
+                    x = (kt @ qt.transpose(-1, -2)) * sl - l2
+                    if jj < n_mask:
+                        x = masked(x, l2, rows[None, :], keys[:, None])
+                    p = torch.exp2(x)
+                    ds = p * (vt @ dot.transpose(-1, -2) - dl) * sc
+                    dv_acc = dv_acc + rnd(p) @ dot
+                    dk_acc = dk_acc + rnd(ds) @ qt
+            dk[..., keys, :] = dk_acc
+            dv[..., keys, :] = dv_acc
+    return (dq[..., :Sq, :].to(q.dtype), dk[..., :Sk, :].to(k.dtype),
+            dv[..., :Sk, :].to(v.dtype))
+
+
+def _tiled_as_kernel(q, k, v, o, lse, dout, *, causal, kv_len=None):
+    """The transcription on what the wrapper hands the kernel (``prepare``:
+    head dims padded with the caller's scale), cropped back."""
+    hd = q.shape[-1]
+    _, (pq, pk, pv, po, pdo) = prepare(q, k, v, o, dout)
+    got = _tiled_bwd(pq, pk, pv, po, lse, pdo, causal=causal, kv_len=kv_len,
+                     scale=1 / math.sqrt(hd))
+    return tuple(g[..., :hd] for g in got)
+
+
+# CASES, a ragged Sq != Sk over several tiles of each kernel, and every key
+# masked (kv_len 0); B, Sq, Sk, K, G, hd, causal, kv_len
+TILED_CASES = [(*c, None) for c in CASES] + [
+    (1, 208, 336, 2, 2, 64, True, None),
+    (1, 336, 208, 1, 3, 32, True, 200),
+    (1, 176, 144, 2, 2, 128, False, 100),
+    (1, 48, 80, 2, 2, 32, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_transcription_matches_fusedkernel_flash_bwd_in_f32(case):
+    """f32, the reference's own output and LSE in: the tiling (which tiles
+    run, which are masked, the padded statistics, the order of the sums)
+    gives the reference's gradients at 1e-4, and ``jax.grad`` of its dense
+    attention where no kv_len is set."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v, do = _inputs(B, Sq, Sk, K, G, hd)
+    o, lse, want = _ref_regions(q, k, v, do, causal, kv_len)
+    tlse = torch.from_numpy(np.array(lse).reshape(B, K * G, Sq))
+    got = _tiled_as_kernel(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(o), tlse, _bhsd(do),
+                           causal=causal, kv_len=kv_len)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy().reshape(w.shape), np.asarray(w),
+                                   **TOL)
+    if kv_len is None:
+        H = K * G
+        ctx = jL.Ctx(rules=TRAIN_RULES, dtype=jnp.float32, q_chunk=4096, kv_chunk=4096)
+        do4 = jnp.asarray(do.reshape(B, Sq, H, hd))
+
+        def loss(q4, k, v):
+            return (jL.attention(q4, k, v, causal=causal, ctx=ctx) * do4).sum()
+
+        dense = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q.reshape(B, Sq, H, hd)),
+                                                  jnp.asarray(k), jnp.asarray(v))
+        for g, w in zip(got, dense):
+            np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_transcription_matches_plain_in_bf16(case):
+    """bf16: the transcription against the plain ``ref.flash_attention_bwd``,
+    both fed the plain forward's output and LSE, at ``chip_smoke.py``'s
+    bf16 tolerance for K3b: max |got - plain| <= 1e-2 x max |plain| on each
+    gradient (P and dS rounded to bf16 at the same places; sums in another
+    order can round an element one bf16 step the other way)."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v, do = (_bhsd(a).to(torch.bfloat16) for a in _inputs(B, Sq, Sk, K, G, hd, seed=5))
+    o, lse = ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+    got = _tiled_as_kernel(q, k, v, o, lse, do, causal=causal, kv_len=kv_len)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, kv_len=kv_len)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (err, scale)
