@@ -57,10 +57,10 @@ prints no result):
 6. each kernel's time at its main path's shape (median over batches
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
    where one computes the same function, and the card's bound; K3 also at
-   minitron-4b's, minicpm3-4b's and whisper-large-v3's encoder and decode
-   cross-attention shapes; K3 with its LSE and K3b at granite-3-2b's
-   training shape, K3b beside the backward of SDPA and its five- and
-   seven-product bounds;
+   minitron-4b's, minicpm3-4b's, command-r-35b's (64 query heads over 8 of
+   128) and whisper-large-v3's encoder and decode cross-attention shapes;
+   K3 with its LSE and K3b at granite-3-2b's training shape, K3b beside the
+   backward of SDPA and its five- and seven-product bounds;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -82,25 +82,34 @@ prints no result):
 10. a 2-layer, full-width cut in f32 (batch 2, prompt 128, after the VLM's
    576 patches; 4 decode steps) of granite-3-2b, rwkv6-3b,
    granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3 (and 2 encoder
-   layers over its 1500 frames) and llava-next-mistral-7b, run on the card
-   and on the CPU from the same parameters: prefill and decode logits
-   compared;
-11. full-width serving through ``serve_smoke``, 8 requests, 32 greedy decode
-   tokens, bf16 activations: granite-3-2b, rwkv6-3b, minitron-4b,
-   granite-moe-3b-a800m, minicpm3-4b and llava-next-mistral-7b at 2048-token
-   prompts (llava's are 576 patches and 1472 text tokens), whisper-large-v3
-   at 416-token prompts over 1500 encoder frames, and deepseek-moe-16b cut
-   to 4 layers (its dense prefix layer and three MoE layers).  Counters set
-   to 0 just before each model: K3 must have run once per attention layer
-   of the prefill, on ``tma`` (on ``pad`` for minicpm3-4b's head dim 96),
-   and for whisper also once per encoder layer and once per cross-attention
-   in the prefill and in each decode step (through the graph's replays); K4
-   32 times, all on its ``ring`` path; every decode step one replay of the
-   captured CUDA graph.  Then one prefill and 4 eager decode steps of
-   granite-3-2b, rwkv6-3b, granite-moe-3b-a800m and minicpm3-4b under
-   ``torch.profiler``: device kernel time against wall, and the kernels that
-   take most of it;
-12. ``[decode-graph]``: each of the eight models prefilled, then 32 decode
+   layers over its 1500 frames), llava-next-mistral-7b, command-r-35b and
+   jamba-1.5-large (layers 0 and 4 of its unit: a Mamba and the attention
+   layer, each with a dense FFN), run on the card and on the CPU from the
+   same parameters: prefill and decode logits compared;
+11. full-width serving through ``serve_smoke``, 32 greedy decode tokens,
+   bf16 activations, 8 requests: granite-3-2b, rwkv6-3b, minitron-4b,
+   granite-moe-3b-a800m, minicpm3-4b, llava-next-mistral-7b and
+   command-r-35b (all 40 layers) at 2048-token prompts (llava's are 576
+   patches and 1472 text tokens), whisper-large-v3 at 416-token prompts
+   over 1500 encoder frames, and deepseek-moe-16b cut to 4 layers (its
+   dense prefix layer and three MoE layers); 4 requests of 2048 tokens:
+   jamba-1.5-large cut to the first five layers of its unit (four Mamba,
+   the attention layer, two MoE).  Before each of the first eight,
+   ``[init]``: its weights drawn leaf by leaf in bf16 bit-equal to the f32
+   tree cast afterwards.  Counters set to 0 just before each model: K3 must
+   have run once per attention layer of the prefill, on ``tma`` (on
+   ``pad`` for minicpm3-4b's head dim 96), and for whisper also once per
+   encoder layer and once per cross-attention in the prefill and in each
+   decode step (through the graph's replays); K4 32 times, all on its
+   ``ring`` path; every decode step one replay of the captured CUDA graph;
+   each ``[serve]`` line with the greedy tokens' sha256.  Then one prefill
+   and 4 eager decode steps of granite-3-2b, rwkv6-3b,
+   granite-moe-3b-a800m, minicpm3-4b and jamba under ``torch.profiler``:
+   device kernel time against wall, and the kernels that take most of it;
+   and ``[prefill-split]``, jamba's prefill timed layer by layer (Mamba
+   mixers, MoE and dense FFNs, the attention layer) and its Mamba
+   recurrence alone;
+12. ``[decode-graph]``: each of the ten models prefilled, then 32 decode
    steps from the same cache eagerly and through ``DecodeGraph`` (one CUDA
    graph per step), timed back to back: greedy tokens equal, the logits'
    largest difference, the capture's ms, ms per token of both, and the
@@ -115,7 +124,8 @@ prints no result):
    --replicas 3 --router all --drain-step 2`` and ``--smoke`` of
    ``python -m repro_torch.launch.serve`` (granite-3-2b, and the reduced
    granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3,
-   llava-next-mistral-7b and deepseek-moe-16b), each a process of its own,
+   llava-next-mistral-7b, deepseek-moe-16b, jamba-1.5-large and
+   command-r-35b), each a process of its own,
    all started together; each must exit 0;
 15. training: ``[train-vs-cpu]``, one ``make_train_step`` step of a 2-layer,
    full-width cut of granite-3-2b, minicpm3-4b and whisper-large-v3 (and 2
@@ -143,6 +153,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import importlib
 import json
 import math
@@ -188,23 +199,44 @@ K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
 K3_MINITRON = (8, 24, 8, 2048, 128)
 K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, zero-padded to 128
 K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not causal
+K3_COMMAND_R = (8, 64, 8, 2048, 128)
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
 # every served model: (arch, the kernel its prefill runs, its prompt length,
-# the config's one cut).  whisper-large-v3's decoder prompt is 416 tokens, so
-# 416 + 32 stays inside its published 448-token text context (beside its
-# 1500 encoder frames); llava-next-mistral-7b's 2048 positions are 576
-# patches and 1472 text tokens; deepseek-moe-16b keeps its dense prefix layer
-# and three MoE units at full width (all 28 layers would hold ~98 GB)
-SERVED = (("granite_3_2b", "flash_attention", 2048, {}), ("rwkv6_3b", "wkv6", 2048, {}),
-          ("minitron_4b", "flash_attention", 2048, {}),
-          ("granite_moe_3b_a800m", "flash_attention", 2048, {}),
-          ("minicpm3_4b", "flash_attention", 2048, {}),
-          ("whisper_large_v3", "flash_attention", 416, {}),
-          ("llava_next_mistral_7b", "flash_attention", 2048, {}),
-          ("deepseek_moe_16b", "flash_attention", 2048, {"n_layers": 4}))
+# the config's one cut, its requests).  whisper-large-v3's decoder prompt is
+# 416 tokens, so 416 + 32 stays inside its published 448-token text context
+# (beside its 1500 encoder frames); llava-next-mistral-7b's 2048 positions
+# are 576 patches and 1472 text tokens; deepseek-moe-16b keeps its dense
+# prefix layer and three MoE units at full width (all 28 layers would hold
+# ~98 GB); command-r-35b is served whole (64.8 GB in bf16); jamba-1.5-large
+# keeps the first five layers of its 8-layer unit (four Mamba, the attention
+# layer at index 4, two MoE: 48.1 GB in bf16; the whole unit holds ~90 GB)
+# and 4 requests, as its MoE computes every expert for every token, (16, T,
+# 24576) products of about 2.6 MB a token
+SERVED = (("granite_3_2b", "flash_attention", 2048, {}, 8), ("rwkv6_3b", "wkv6", 2048, {}, 8),
+          ("minitron_4b", "flash_attention", 2048, {}, 8),
+          ("granite_moe_3b_a800m", "flash_attention", 2048, {}, 8),
+          ("minicpm3_4b", "flash_attention", 2048, {}, 8),
+          ("whisper_large_v3", "flash_attention", 416, {}, 8),
+          ("llava_next_mistral_7b", "flash_attention", 2048, {}, 8),
+          ("deepseek_moe_16b", "flash_attention", 2048, {"n_layers": 4}, 8),
+          ("command_r_35b", "flash_attention", 2048, {}, 8),
+          ("jamba_1_5_large_398b", "flash_attention", 2048,
+           {"n_layers": 5, "unit": slice(5)}, 4))
 CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b",
-               "whisper_large_v3", "llava_next_mistral_7b")
-PROFILED = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b")
+               "whisper_large_v3", "llava_next_mistral_7b", "command_r_35b",
+               "jamba_1_5_large_398b")
+# [card-vs-cpu]'s 2 layers of a model whose unit is longer: which layers of
+# the unit (jamba: a Mamba and the attention layer, each with a dense FFN)
+CARD_VS_CPU_UNIT = {"jamba_1_5_large_398b": (0, 4)}
+PROFILED = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b",
+            "jamba_1_5_large_398b")
+# served models whose weights drawn in bf16 are checked against the f32 tree
+# cast afterwards (``[init]``): those whose two trees fit the card together
+# (command-r's and jamba's f32 trees do not fit it alone)
+INIT_CHECKED = ("granite_3_2b", "rwkv6_3b", "minitron_4b", "granite_moe_3b_a800m",
+                "minicpm3_4b", "whisper_large_v3", "llava_next_mistral_7b", "deepseek_moe_16b")
+# served models whose prefill is also timed layer by layer (``[prefill-split]``)
+PREFILL_SPLIT = ("jamba_1_5_large_398b",)
 PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
 
 
@@ -1040,26 +1072,28 @@ def arena_fused(dev, modules: dict, smi: str) -> tuple[dict, dict]:
 
 def card_vs_cpu(arch: str, dev) -> None:
     """2 layers of ``arch`` at full width in f32 (and 2 encoder layers for
-    the encoder-decoder), batch 2, a prompt of 128 text positions (after the
-    VLM's 576 patches), 4 decode steps: the same parameters (drawn on the
-    CPU) on the card and on the CPU.  Tolerance: rtol 1e-4 and atol 1e-4 x
-    the largest CPU logit (f32 products of K up to 14336 summed in another
-    order on each side)."""
+    the encoder-decoder; jamba's layers 0 and 4, a Mamba and the attention
+    layer), batch 2, a prompt of 128 text positions (after the VLM's 576
+    patches), 4 decode steps: the same parameters (drawn on the card, where
+    drawing is fast, and copied to the CPU) on the card and on the CPU.
+    Tolerance: rtol 1e-4 and atol 1e-4 x the largest CPU logit (f32
+    products of K up to 24576 summed in another order on each side)."""
     from repro_torch.configs.registry import get_config, make_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import init_params, tree_map
 
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=2, activation_dtype="float32",
+    unit = tuple(full.unit[i] for i in CARD_VS_CPU_UNIT.get(arch, range(len(full.unit))))
+    cfg = dataclasses.replace(full, n_layers=2, unit=unit, activation_dtype="float32",
                               n_encoder_layers=2 if full.enc_dec else 0)
     ctx = Ctx(dtype=torch.float32)
     B, S, steps = 2, 128 + (cfg.n_patches if cfg.vlm else 0), 4
     with torch.inference_mode():
-        params = init_params(T.model_param_specs(cfg), torch.Generator().manual_seed(0))
+        params = init_params(T.model_param_specs(cfg), torch.Generator(dev).manual_seed(0))
         batch = make_batch(cfg, S, B, train=False, generator=torch.Generator().manual_seed(0))
-        sides = {"cpu": (params, batch), "card": (tree_map(lambda t: t.to(dev), params),
-                                                 {k: t.to(dev) for k, t in batch.items()})}
+        sides = {"cpu": (tree_map(lambda t: t.cpu(), params), batch),
+                 "card": (params, {k: t.to(dev) for k, t in batch.items()})}
         caches, logits = {}, {}
         for side, (p, b) in sides.items():
             caches[side], logits[side] = T.prefill(p, b, cfg, ctx, cache_len=S + steps)
@@ -1075,17 +1109,23 @@ def card_vs_cpu(arch: str, dev) -> None:
             for side, (p, _) in sides.items():
                 logits[side], caches[side] = T.decode_step(
                     p, caches[side], tok.to(p["embed"].device), S + i, cfg, ctx)
-    layers = "2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
+    layers = ("2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
+              + (f" ({', '.join(f'{s.mixer}+{s.ffn}' for s in unit)})"
+                 if arch in CARD_VS_CPU_UNIT else ""))
     print(f"[card-vs-cpu] {cfg.name} {layers} full width f32 B{B} S{S}: prefill logits "
           f"max_abs_err={errs[0]}, decode steps {errs[1:]} (rtol=1e-4, atol=1e-4 x "
           f"max|logit|) ok")
 
 
 def served_config(arch: str, cut: dict):
-    """The published config of ``arch`` with its one listed cut, if any."""
+    """The published config of ``arch`` with its one listed cut, if any:
+    fewer layers, and for a ``unit`` slice only those layers of the unit."""
     from repro_torch.configs.registry import get_config
 
-    return dataclasses.replace(get_config(arch), **cut)
+    cfg = get_config(arch)
+    if "unit" in cut:
+        cut = dict(cut, unit=cfg.unit[cut["unit"]])
+    return dataclasses.replace(cfg, **cut)
 
 
 def expected_launches(cfg, kname: str, decode_len: int) -> tuple[int, str]:
@@ -1106,16 +1146,40 @@ def expected_launches(cfg, kname: str, decode_len: int) -> tuple[int, str]:
     return n, "tma" if built_head_dim(cfg.hd) == cfg.hd else "pad"
 
 
-def serve_full_width(cfg, kname: str, prompt_len: int, dev, smi: str) -> dict:
-    """``serve_smoke`` on ``cfg`` at full width (bf16 activations), 8
-    requests of ``prompt_len`` positions and 32 decode tokens, the counters
-    of the kernel ``kname`` set to 0 just before; -> what the run printed.
-    The launches and their path must be :func:`expected_launches`'."""
+def init_in_dtype(cfg, dev) -> None:
+    """``[init]``: the weights as ``serve_smoke`` draws them, each leaf cast
+    to bf16 as it is drawn (``init_params(..., dtype)``), against the f32
+    tree drawn whole and cast afterwards (``cast_params``), both from seed 0
+    on the card: every leaf bit-equal, so drawing in bf16 changes no served
+    token.  Run where both trees fit the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import cast_params, init_params, tree_leaves
+
+    specs = T.model_param_specs(cfg)
+    with torch.inference_mode():
+        got = tree_leaves(init_params(specs, torch.Generator(dev).manual_seed(0),
+                                      torch.bfloat16))
+        want = tree_leaves(cast_params(init_params(specs, torch.Generator(dev).manual_seed(0)),
+                                       torch.bfloat16))
+        same = sum(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    if same != len(want) or len(got) != len(want):
+        raise AssertionError(f"[init] {cfg.name}: {same} of {len(want)} leaves bit-equal")
+    print(f"[init] {cfg.name} full width, {cfg.n_layers} layers: the {len(got)} leaves drawn "
+          f"in bf16 bit-equal to the f32 tree cast afterwards")
+
+
+def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi: str
+                     ) -> dict:
+    """``serve_smoke`` on ``cfg`` at full width (bf16 activations),
+    ``n_requests`` requests of ``prompt_len`` positions and 32 decode tokens,
+    the counters of the kernel ``kname`` set to 0 just before; -> what the
+    run printed.  The launches and their path must be
+    :func:`expected_launches`'."""
     from repro_torch.launch.serve import serve_smoke
 
     module = importlib.import_module(f"repro_torch.kernels.{kname}")
     kernel = getattr(module, kname)
-    serve = dict(SERVE, prompt_len=prompt_len)
+    serve = dict(SERVE, prompt_len=prompt_len, n_requests=n_requests)
     torch.cuda.reset_peak_memory_stats()
     module.reset_launches()
     tokens, stats = serve_smoke(cfg, **serve, seed=0, device=dev)
@@ -1141,7 +1205,8 @@ def serve_full_width(cfg, kname: str, prompt_len: int, dev, smi: str) -> dict:
           f"decode {stats.decode_ms_per_token:.2f} ms/token through one CUDA graph per step "
           f"(captured in {stats.capture_ms:.1f} ms), {stats.tokens_per_s:.1f} tokens/s; "
           f"{kernel.__name__} launches {launches} == expected {want}, all on {path} (by path "
-          f"{by_path}); peak memory {peak_gb:.1f} GB; {smi}")
+          f"{by_path}); peak memory {peak_gb:.1f} GB; tokens sha256 "
+          f"{hashlib.sha256(tokens.numpy().tobytes()).hexdigest()[:16]}; {smi}")
     return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path}
 
 
@@ -1162,7 +1227,8 @@ def _top(by_name: dict[str, float], n: int = 5) -> str:
                      for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
-def profile_serving(cfg, prompt_len: int, dev, kernel_key: str, steps: int = 4) -> None:
+def profile_serving(cfg, prompt_len: int, n_requests: int, dev, kernel_key: str,
+                    steps: int = 4) -> None:
     """One prefill and ``steps`` decode steps of the full-width ``cfg`` (the
     serving shapes, fresh weights from seed 0) under ``torch.profiler``:
     the device kernel time against the wall of the same span, the kernels
@@ -1174,15 +1240,15 @@ def profile_serving(cfg, prompt_len: int, dev, kernel_key: str, steps: int = 4) 
     from repro_torch.configs.registry import make_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
-    from repro_torch.models.params import cast_params, init_params
+    from repro_torch.models.params import init_params
 
     ctx = Ctx(dtype=torch.bfloat16)
-    B, S = SERVE["n_requests"], prompt_len
+    B, S = n_requests, prompt_len
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     spans = {}
     with torch.inference_mode():
         gen = torch.Generator(dev).manual_seed(0)
-        params = cast_params(init_params(T.model_param_specs(cfg), gen), ctx.dtype)
+        params = init_params(T.model_param_specs(cfg), gen, ctx.dtype)
         batch = make_batch(cfg, S, B, train=False, generator=gen)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -1208,9 +1274,71 @@ def profile_serving(cfg, prompt_len: int, dev, kernel_key: str, steps: int = 4) 
               f"({mine / busy:.1%} of the device time); top: {_top(by_name)}")
 
 
-def decode_graph(cfg, prompt_len: int, dev, smi: str) -> None:
-    """``[decode-graph]``: the full-width ``cfg`` (8 prompts of ``prompt_len``
-    positions, bf16,
+def prefill_split(cfg, prompt_len: int, n_requests: int, dev, smi: str) -> None:
+    """``[prefill-split]``: where one prefill of the full-width ``cfg`` (a
+    decoder-only stack; fresh weights from seed 0) goes.  One whole prefill
+    is timed after a warm-up one; then each layer's mixer and FFN (each
+    after its norm, on the previous layer's output, as in the prefill),
+    summed by kind; then, for a Mamba model, the recurrence alone
+    (``ssm.scan`` on f32 inputs of the served shape).  Host clock, each span
+    ended by a device synchronise: the Mamba scan's small launches are paced
+    by the host, so device time alone would miss its cost."""
+    from repro_torch.configs.registry import make_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+
+    ctx = Ctx(dtype=torch.bfloat16)
+    B, S = n_requests, prompt_len
+    spans: dict[str, list[float]] = {}
+
+    def timed(kind, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        spans.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.inference_mode():
+        gen = torch.Generator(dev).manual_seed(0)
+        params = init_params(T.model_param_specs(cfg), gen, ctx.dtype)
+        batch = make_batch(cfg, S, B, train=False, generator=gen)
+        T.prefill(params, batch, cfg, ctx)
+        timed("prefill", lambda: T.prefill(params, batch, cfg, ctx))
+        x = T.embed_tokens(params, batch["tokens"], cfg, ctx)
+        positions = torch.arange(S, device=dev)
+        for u in range(cfg.n_units):
+            unit_p = T._unit(params["unit"], u)
+            for i, spec in enumerate(cfg.unit):
+                p = unit_p[f"l{i}"]
+                x = x + timed(f"{spec.mixer} mixer", lambda: T._mixer_full(
+                    spec, p, L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps), cfg, ctx,
+                    positions, True)[0])
+                x = x + timed(f"{spec.ffn} ffn", lambda: T._ffn(
+                    spec, p, L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps), cfg, ctx)[0])
+        del x
+        if any(spec.mixer == "mamba" for spec in cfg.unit):
+            di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+            xf, dt = (torch.randn(B, S, di, device=dev, generator=gen) for _ in range(2))
+            b, c = (torch.randn(B, S, ds, device=dev, generator=gen) for _ in range(2))
+            A = -torch.ones(di, ds, device=dev)
+            dt = torch.nn.functional.softplus(dt)
+            ssm.scan(xf, dt, b, c, A, ctx)
+            timed("mamba scan alone", lambda: ssm.scan(xf, dt, b, c, A, ctx))
+    total = spans.pop("prefill")[0]
+    parts = "; ".join(f"{kind} x{len(t)} {sum(t):.1f} ms ({sum(t) / total:.1%})"
+                      for kind, t in sorted(spans.items(), key=lambda kv: -sum(kv[1])))
+    print(f"[prefill-split] {cfg.name} full width, {cfg.n_layers} layers, {B} requests x "
+          f"{S} positions, bf16: prefill {total:.1f} ms; {parts} (the scan alone is one "
+          f"layer's, inside its mamba mixer); {smi}")
+
+
+def decode_graph(cfg, prompt_len: int, n_requests: int, dev, smi: str) -> None:
+    """``[decode-graph]``: the full-width ``cfg`` (``n_requests`` prompts of
+    ``prompt_len`` positions, bf16,
     weights from seed 0) prefilled once, then 32 greedy decode steps from the
     same cache twice, timed back to back: the eager loop (``T.decode_step``
     called once per token, as ``profile_serving`` calls it) and
@@ -1226,14 +1354,14 @@ def decode_graph(cfg, prompt_len: int, dev, smi: str) -> None:
     from repro_torch.launch.serve import DecodeGraph
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
-    from repro_torch.models.params import cast_params, init_params, tree_leaves, tree_map
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
 
     arch = cfg.name
     ctx = Ctx(dtype=torch.bfloat16)
-    B, S, n = SERVE["n_requests"], prompt_len, SERVE["decode_len"]
+    B, S, n = n_requests, prompt_len, SERVE["decode_len"]
     with torch.inference_mode():
         gen = torch.Generator(dev).manual_seed(0)
-        params = cast_params(init_params(T.model_param_specs(cfg), gen), ctx.dtype)
+        params = init_params(T.model_param_specs(cfg), gen, ctx.dtype)
         batch = make_batch(cfg, S, B, train=False, generator=gen)
         cache, logits = T.prefill(params, batch, cfg, ctx, cache_len=S + n)
         tok0 = logits.argmax(-1)
@@ -1700,7 +1828,8 @@ CLI_MODES = (
     ["--arch", "granite_3_2b", "--smoke", "--requests", "8", "--decode-len", "16"],
     *(["--arch", arch, "--smoke", "--requests", "2", "--decode-len", "4"]
       for arch in ("granite_moe_3b_a800m", "minicpm3_4b", "whisper_large_v3",
-                   "llava_next_mistral_7b", "deepseek_moe_16b")),
+                   "llava_next_mistral_7b", "deepseek_moe_16b", "jamba_1_5_large_398b",
+                   "command_r_35b")),
 )
 
 
@@ -1927,6 +2056,7 @@ def main() -> int:
     k3_ms = {}
     for label, shape, causal, sq in (("minitron_4b", K3_MINITRON, True, None),
                                      ("minicpm3_4b", K3_MINICPM3, True, None),
+                                     ("command_r_35b", K3_COMMAND_R, True, None),
                                      ("whisper_large_v3", K3_WHISPER, False, None),
                                      ("whisper decode", K3_WHISPER, False, 1)):
         t, bnd = time_flash(flash_attention, ref, gen, peaks, shape, causal, sq)
@@ -2057,10 +2187,15 @@ def main() -> int:
     # the prefill kernel's time at each model's own prefill shape, where it
     # was timed above
     serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
-                       "minitron_4b": k3_ms["minitron_4b"], "minicpm3_4b": k3_ms["minicpm3_4b"]}
-    for arch, kname, prompt_len, cut in SERVED:
+                       "minitron_4b": k3_ms["minitron_4b"], "minicpm3_4b": k3_ms["minicpm3_4b"],
+                       "command_r_35b": k3_ms["command_r_35b"]}
+    for arch, kname, prompt_len, cut, n_requests in SERVED:
         cfg = served_config(arch, cut)
-        run = serve_full_width(cfg, kname, prompt_len, dev, smi)
+        if arch in INIT_CHECKED:
+            init_in_dtype(cfg, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        run = serve_full_width(cfg, kname, prompt_len, n_requests, dev, smi)
         launches[kname] = launches.get(kname, 0) + run["launches"]
         if run["by_path"] is not None:
             by_path[kname] = {p: n + by_path.get(kname, {}).get(p, 0)
@@ -2072,13 +2207,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         if arch in PROFILED:
-            profile_serving(cfg, prompt_len, dev, PROFILE_KEY[kname])
+            profile_serving(cfg, prompt_len, n_requests, dev, PROFILE_KEY[kname])
+            gc.collect()
+            torch.cuda.empty_cache()
+        if arch in PREFILL_SPLIT:
+            prefill_split(cfg, prompt_len, n_requests, dev, smi)
             gc.collect()
             torch.cuda.empty_cache()
 
     # 12. decode as one CUDA graph per step against the eager loop, same call
-    for arch, _, prompt_len, cut in SERVED:
-        decode_graph(served_config(arch, cut), prompt_len, dev, smi)
+    for arch, _, prompt_len, cut, n_requests in SERVED:
+        decode_graph(served_config(arch, cut), prompt_len, n_requests, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
 

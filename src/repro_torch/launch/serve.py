@@ -30,11 +30,15 @@ writes the metrics to ``--bench-out`` (the schema
       --replicas 3 --router all --drain-step 2
 
 ``--smoke`` serves a model: a batch of prompts prefilled, then greedy
-decode, for every architecture but jamba's Mamba (granite-3-2b, rwkv6-3b,
+decode, for every architecture of the repo (granite-3-2b, rwkv6-3b,
 granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3, llava-next-mistral-7b,
-deepseek-moe-16b, ...).  Prefill attention is the CUDA flash-attention kernel (K3)
-and the RWKV-6 recurrence the CUDA WKV6 kernel (K4); on the card each
-decode step is one replay of a captured CUDA graph (:class:`DecodeGraph`).
+deepseek-moe-16b, jamba-1.5-large-398b, command-r-35b, ...), each at its
+reduced width.  Prefill attention is the CUDA flash-attention kernel (K3),
+the RWKV-6 recurrence the CUDA WKV6 kernel (K4), and Jamba's Mamba
+recurrence plain tensor code, as in the reference, which has no kernel for
+it; on the card each decode step is one replay of a captured CUDA graph
+(:class:`DecodeGraph`).  At full width on one 80 GB card jamba is served
+cut to the first five layers of its unit (``chip_smoke.py``).
 Without ``--arena`` the request DAG is then simulated under ``--scheduler``
 (``incremental-gp`` by default), or only that when ``--smoke`` is not given:
 
@@ -126,8 +130,8 @@ class DecodeGraph:
     cache tensors (``decode_step`` writes them in place; an encoder-decoder's
     nested cross-attention K/V it only reads), and ``params``.
     The warm-up before the capture executes the step, which would advance
-    every RWKV state by one token, so the tensors the step writes (all but
-    the cross-attention K/V) are restored from a snapshot after the
+    every RWKV and Mamba state by one token, so the tensors the step writes
+    (all but the cross-attention K/V) are restored from a snapshot after the
     capture.  A capture or a replay that fails raises: there is no eager
     fallback."""
 
@@ -172,12 +176,12 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
     """Prefill a batch of prompts, decode greedily.
 
     ``params`` (the f32 tree of :func:`T.model_param_specs`) default to
-    ``init_params`` from ``seed`` on ``device``, and ``batch`` to
-    ``make_batch`` from ``seed``; the weights are cast to the activation
-    dtype once, here.  ``device`` defaults to ``cuda:0``.  On a CUDA device
-    the decode step is captured once into one CUDA graph
-    (:class:`DecodeGraph`) and replayed per token; on the CPU it runs
-    eagerly.  Returns the greedy tokens ``(n_requests, decode_len + 1)`` on
+    ``init_params`` from ``seed`` on ``device``, each leaf cast to the
+    activation dtype as it is drawn, and ``batch`` to ``make_batch`` from
+    ``seed``; given ``params`` are cast once, here.  ``device`` defaults to
+    ``cuda:0``.  On a CUDA device the decode step is captured once into one
+    CUDA graph (:class:`DecodeGraph`) and replayed per token; on the CPU it
+    runs eagerly.  Returns the greedy tokens ``(n_requests, decode_len + 1)`` on
     the host (the prefill's, then one per decode step) and a
     :class:`ServeStats`.
 
@@ -194,8 +198,9 @@ def serve_smoke(cfg, *, n_requests: int, prompt_len: int, decode_len: int,
     with torch.inference_mode():
         if params is None:
             gen = torch.Generator(device).manual_seed(seed)
-            params = init_params(T.model_param_specs(cfg), gen)
-        params = cast_params(params, ctx.dtype)
+            params = init_params(T.model_param_specs(cfg), gen, ctx.dtype)
+        else:
+            params = cast_params(params, ctx.dtype)
         if batch is None:
             gen = torch.Generator(device).manual_seed(seed)
             batch = make_batch(cfg, prompt_len, n_requests, train=False, generator=gen)

@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .params import P
@@ -47,6 +48,17 @@ class Ctx:
     dtype: torch.dtype = torch.bfloat16
     mesh: Any = None
     remat: bool = True
+
+
+def _remat(ctx: Ctx) -> bool:
+    """Rematerialize in the backward: asked for, and a backward can follow."""
+    return ctx.remat and torch.is_grad_enabled()
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward instead
+    of kept (no random numbers are drawn, so no RNG state is saved)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------

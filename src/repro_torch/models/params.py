@@ -65,18 +65,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def init_params(tree, generator: torch.Generator):
+def init_params(tree, generator: torch.Generator, dtype: torch.dtype | None = None):
     """Materialize a spec tree into real tensors on ``generator.device``,
     leaf by leaf in the reference's order (deterministic in the generator's
-    seed; the values differ from ``jax.random``'s)."""
+    seed; the values differ from ``jax.random``'s).
 
-    def walk(t):
+    With ``dtype``, each leaf that :func:`cast_params` would cast is cast as
+    soon as it is drawn: the same bits as ``cast_params(init_params(tree,
+    generator), dtype)``, while the tree never exists in f32 (at most one
+    f32 leaf beside the cast ones).  On a CUDA device the allocator's cache
+    is then emptied: the block that held the largest f32 leaf, split later
+    by small tensors, would leave no room for a large one."""
+
+    def walk(t, name=None):
         if not isinstance(t, dict):
-            return init_array(t, generator)
-        made = {k: walk(t[k]) for k in sorted(t)}
+            leaf = init_array(t, generator)
+            return leaf if dtype is None else _cast(name, leaf, dtype)
+        made = {k: walk(t[k], k) for k in sorted(t)}
         return {k: made[k] for k in t}
 
-    return walk(tree)
+    params = walk(tree)
+    if dtype is not None and generator.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return params
 
 
 def params_from_numpy(tree, device) -> dict:
@@ -97,9 +108,17 @@ def params_from_numpy(tree, device) -> dict:
 
 
 # parameters the model reads in float32 wherever it uses them (norm scales,
-# the RWKV decay and bonus, the RWKV output group norm); every other floating
-# parameter is cast to the activation dtype at each use
-F32_PARAMS = frozenset({"scale", "w0", "w_b", "u", "ln_out_scale", "ln_out_bias"})
+# the RWKV decay and bonus, the RWKV output group norm, Mamba's A_log, D and
+# dt_bias); every other floating parameter is cast to the activation dtype at
+# each use
+F32_PARAMS = frozenset({"scale", "w0", "w_b", "u", "ln_out_scale", "ln_out_bias",
+                        "A_log", "D", "dt_bias"})
+
+
+def _cast(name, leaf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if name in F32_PARAMS or not leaf.is_floating_point():
+        return leaf
+    return leaf.to(dtype)
 
 
 def cast_params(tree, dtype: torch.dtype) -> dict:
@@ -109,13 +128,10 @@ def cast_params(tree, dtype: torch.dtype) -> dict:
     :data:`F32_PARAMS` keep their dtype."""
 
     def walk(t):
-        return {k: (walk(v) if isinstance(v, dict)
-                    else v if k in F32_PARAMS or not v.is_floating_point()
-                    else v.to(dtype))
+        return {k: walk(v) if isinstance(v, dict) else _cast(k, v, dtype)
                 for k, v in t.items()}
 
     return walk(tree)
-
 
 
 def count_params(tree) -> int:

@@ -2,8 +2,8 @@
 ``repro/models/transformer.py``, one device: serving and training).
 
 A model is {embedding -> [prefix layers] -> repeating *units* of layers ->
-final norm -> LM head}, each layer = {mixer in attn|mla|rwkv6} + {ffn in
-dense|moe}, plus the optional encoder (Whisper, with cross-attention in
+final norm -> LM head}, each layer = {mixer in attn|mla|mamba|rwkv6} + {ffn
+in dense|moe}, plus the optional encoder (Whisper, with cross-attention in
 every decoder layer) and the patch-embedding prefix (LLaVA).  The unit
 parameters keep the reference's stacked leading axis (``params["unit"]``
 holds one ``(n_units, ...)`` tensor per leaf), and the forward loops over
@@ -12,8 +12,8 @@ Training (:func:`lm_loss`) rematerializes each unit, each encoder layer and
 each chunk of the LM head's cross-entropy when ``ctx.remat``, as the
 reference's ``jax.checkpoint`` does.
 
-Mamba and attention logit caps raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+An attention logit cap raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -22,32 +22,22 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers as L
 from . import moe as M
-from . import rwkv
-from .layers import Ctx
+from . import rwkv, ssm
+from .layers import Ctx, _checkpoint, _remat
 from .params import P, tree_map
 
-_WAITING = {
-    "mamba": "Mamba, models/ssm.py (ROADMAP queue 1, item 6)",
-    "softcap": "an attention logit cap (no config sets one; ROADMAP queue 1, item 6)",
-}
+NO_SOFTCAP = ("an attention logit cap (no config sets one; ROADMAP queue 1, item 6b) "
+              "is not ported yet")
 _ENCODER = LayerSpec("attn", "dense")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{_WAITING[what]} is not ported yet")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.attn_logit_softcap:
-        raise _not_ported("softcap")
-    for spec in cfg.layer_specs():
-        if spec.mixer == "mamba":
-            raise _not_ported("mamba")
+        raise NotImplementedError(NO_SOFTCAP)
 
 
 # ---------------------------------------------------------------------------
@@ -61,10 +51,12 @@ def layer_param_specs(spec: LayerSpec, cfg: ModelConfig, cross: bool = False) ->
         p["mixer"] = L.attn_params(cfg)
     elif spec.mixer == "mla":
         p["mixer"] = L.mla_params(cfg)
+    elif spec.mixer == "mamba":
+        p["mixer"] = ssm.mamba_params(cfg)
     elif spec.mixer == "rwkv6":
         p["mixer"] = rwkv.rwkv_params(cfg)
     else:
-        raise _not_ported(spec.mixer)
+        raise ValueError(spec.mixer)
     if cross:
         p["cross_norm"] = L.rmsnorm_params(d)
         p["cross"] = L.attn_params(cfg)
@@ -117,17 +109,6 @@ def _units(tree, n: int) -> list:
     return [tree_map(lambda t: t[u], parts) for u in range(n)]
 
 
-def _remat(ctx: Ctx) -> bool:
-    """Rematerialize in the backward: asked for, and a backward can follow."""
-    return ctx.remat and torch.is_grad_enabled()
-
-
-def _checkpoint(fn, *args):
-    """``fn(*args)`` with its activations recomputed in the backward instead
-    of kept (no random numbers are drawn, so no RNG state is saved)."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-
-
 def _stack_trees(trees: list):
     """Stack same-shaped trees of tensors on a new leading axis, as the
     reference's scan stacks each unit's caches."""
@@ -148,9 +129,11 @@ def _mixer_full(spec, p, h, cfg, ctx, positions, causal):
     if spec.mixer == "mla":
         out, (lat, kr) = L.mla_block(p["mixer"], h, cfg, ctx, positions=positions)
         return out, {"latent": lat, "k_rope": kr}
+    if spec.mixer == "mamba":
+        return ssm.mamba_block(p["mixer"], h, cfg, ctx)
     if spec.mixer == "rwkv6":
         return rwkv.rwkv6_block(p["mixer"], h, cfg, ctx)
-    raise _not_ported(spec.mixer)
+    raise ValueError(spec.mixer)
 
 
 def _cross_kv(p, enc_out, cfg, ctx):
@@ -205,11 +188,14 @@ def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torc
         out, nc = L.attn_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache, pos=pos)
     elif spec.mixer == "mla":
         out, nc = L.mla_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache, pos=pos)
+    elif spec.mixer == "mamba":
+        out, nc = ssm.mamba_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache,
+                                         pos=pos)
     elif spec.mixer == "rwkv6":
         out, nc = rwkv.rwkv6_decode_block(p["mixer"], h, cfg, ctx, cache=self_cache,
                                           pos=pos)
     else:
-        raise _not_ported(spec.mixer)
+        raise ValueError(spec.mixer)
     x = x + out
     if "cross" in p:
         h = L.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
@@ -377,7 +363,9 @@ def prefill(params, batch, cfg, ctx: Ctx, *, cache_len: int | None = None):
 def _grow_caches(caches, extra: int):
     """Zero-pad the sequence axis of every sequence-indexed cache buffer by
     ``extra`` (fresh tensors: decode writes into them in place).  The
-    cross-attention caches (the fixed encoder length) are left untouched."""
+    cross-attention caches (the fixed encoder length) and the recurrent
+    states (RWKV-6's ``S`` and ``x_last``, Mamba's ``h`` and ``conv``) are
+    left untouched."""
 
     def walk(tree):
         out = {}
@@ -445,6 +433,7 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
     """Spec tree (P) for a decode cache of capacity S."""
     _check_ported(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     H6, N6 = cfg.rwkv_n_heads, cfg.rwkv_head_size
     bf16 = torch.bfloat16
 
@@ -455,9 +444,14 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
         elif spec.mixer == "mla":
             c = {"latent": P((B, S, cfg.kv_lora_rank), bf16, "zeros"),
                  "k_rope": P((B, S, cfg.qk_rope_dim), bf16, "zeros")}
-        else:
+        elif spec.mixer == "mamba":
+            c = {"h": P((B, di, ds), torch.float32, "zeros"),
+                 "conv": P((B, cfg.mamba_d_conv - 1, di), bf16, "zeros")}
+        elif spec.mixer == "rwkv6":
             c = {"S": P((B, H6, N6, N6), torch.float32, "zeros"),
                  "x_last": P((B, cfg.d_model), bf16, "zeros")}
+        else:
+            raise ValueError(spec.mixer)
         if cfg.enc_dec:
             c = {"self": c,
                  "cross": {"k": P((B, cfg.encoder_seq, K, hd), bf16, "zeros"),

@@ -280,11 +280,12 @@ def test_forward_aux_loss_matches_the_reference(arch):
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", NEW + ["granite_3_2b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", NEW + ["granite_3_2b", "rwkv6_3b", "jamba_1_5_large_398b"])
 def test_cache_specs_equal_the_reference(arch):
     """Shapes and dtypes of every decode cache leaf, in the reference's order:
     MLA's latent cache, the nested self/cross caches of the encoder-decoder,
-    the prefix layers' unstacked caches."""
+    the prefix layers' unstacked caches, Mamba's f32 state and bf16 conv
+    window."""
     jcfg, tcfg = _cfgs(arch)
     jspecs = jax.tree.leaves(jT.cache_specs(jcfg, 3, 20), is_leaf=lambda x: hasattr(x, "axes"))
     tspecs = tree_leaves(tT.cache_specs(tcfg, 3, 20))
