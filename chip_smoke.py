@@ -10,9 +10,9 @@ prints no result):
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
-   ``wgmma``s; a K1 ``wgmma``, K3, K3b or K4 specialisation that spills, or
-   one missing, or a bf16 K3b kernel whose ``wgmma``s ``ptxas`` serialised,
-   fails the run;
+   ``wgmma``s; a K1 ``wgmma``, K3, K3b, K4 or K4b specialisation that
+   spills, or one missing, or a bf16 K3b kernel whose ``wgmma``s ``ptxas``
+   serialised, fails the run;
 2. K1 (matmul) against its plain PyTorch version on the card, each case
    with the path the wrapper chose (``wgmma`` or ``fma``): 2048^3 f32 with a
    row-major B (the MM DAG's layout) and with the serving ``prefill``
@@ -53,14 +53,21 @@ prints no result):
    the model's (B, S, H, N) views, and at S = 257 on contiguous (B, H, S, N)
    tensors; on the ``copy`` path a view with n-stride 2, a base 4 bytes off
    the 16-byte granule and unequal strides; on the ``pad`` path N = 4, 8 and
-   16;
+   16; then ``[K4b]``: the CUDA WKV6 backward's dr, dk, dv, dw and du against
+   its plain version (``ref.wkv6_bwd``), each case with its path
+   (``direct``, ``copy`` for a view with n-stride 2 or a base 4 bytes off
+   the granule, ``pad`` for N = 4 and 16): N = 32 and 64, S = 33, 257 and
+   2048, rwkv6-3b's training shape on the model's views, decays near 0 and
+   near 1, with and without a final-state gradient, within 1e-4 x max|plain|
+   each; a second launch on the same inputs must give the same bits;
 6. each kernel's time at its main path's shape (median over batches
    bracketed by CUDA events) beside its plain version's, one PyTorch call's
    where one computes the same function, and the card's bound; K3 also at
    minitron-4b's, minicpm3-4b's, command-r-35b's (64 query heads over 8 of
    128) and whisper-large-v3's encoder and decode cross-attention shapes;
    K3 with its LSE and K3b at granite-3-2b's training shape, K3b beside the
-   backward of SDPA and its five- and seven-product bounds;
+   backward of SDPA and its five- and seven-product bounds; K4b at
+   rwkv6-3b's training shape beside its plain version and its bound;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -128,21 +135,22 @@ prints no result):
    command-r-35b), each a process of its own,
    all started together; each must exit 0;
 15. training: ``[train-vs-cpu]``, one ``make_train_step`` step of a 2-layer,
-   full-width cut of granite-3-2b, minicpm3-4b and whisper-large-v3 (and 2
-   encoder layers) in f32 at batch 2 x 128 on the card and on the CPU from
-   the same parameters (loss, ``grad_norm``, updated parameters and
-   moments), and rwkv6 training on the card raising for want of a K4
-   backward; ``[train]``, granite-3-2b at full width and depth (f32
+   full-width cut of granite-3-2b, minicpm3-4b, whisper-large-v3 (and 2
+   encoder layers) and rwkv6-3b in f32 at batch 2 x 128 on the card and on
+   the CPU from the same parameters (loss, ``grad_norm``, updated
+   parameters and moments; rwkv6-3b's card step 4 K4 and 2 K4b launches);
+   ``[train]``, granite-3-2b and then rwkv6-3b at full width and depth (f32
    parameters and AdamW state, bf16 activations, remat), 6 steps of 8 x
-   2048 synthetic tokens through ``launch.train.train``, the counters set
-   to 0 just before: K3 80 and K3b 40 launches a step, all on ``tma``
-   (printed by path), losses finite,
-   every parameter moved, ms a step, tokens/s, peak memory, and one step
-   under ``torch.profiler``; ``[train-restart]``, 2 full-width layers, a
-   failure injected at step 7 and a restart from the step-5 checkpoint,
-   the losses after it against an uninterrupted run's; ``[train-cli]``,
-   ``python -m repro_torch.launch.train --arch granite_3_2b --smoke
-   --steps 4``, which must exit 0.
+   2048 synthetic tokens each through ``launch.train.train``, the counters
+   set to 0 just before: granite's K3 80 and K3b 40 launches a step, all on
+   ``tma``, rwkv6's K4 64 on ``ring`` and K4b 32 on ``direct`` (printed by
+   path), losses finite, every parameter moved, ms a step, tokens/s, peak
+   memory, and one step under ``torch.profiler`` with the kernels' share;
+   ``[train-restart]``, 2 full-width layers, a failure injected at step 7
+   and a restart from the step-5 checkpoint, the losses after it against
+   an uninterrupted run's; ``[train-cli]``, ``python -m
+   repro_torch.launch.train --arch granite_3_2b --smoke --steps 4`` and the
+   same with ``--arch rwkv6_3b``, which must exit 0.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound; the last line is
@@ -190,6 +198,9 @@ REPLACES = {
     # not a Pallas kernel: the reference's fusedkernel_flash_bwd region, the
     # backward of its flash attention's custom_vjp
     "flash_attention_bwd": "src/repro/models/layers.py:278",
+    # not a Pallas kernel: the reference's autodiff of its checkpointed
+    # chunked scan of the RWKV-6 recurrence
+    "wkv6_bwd": "src/repro/models/rwkv.py:152",
 }
 # the main paths' shapes: granite-3-2b prefill attention (8 requests x 2048
 # tokens, 32 query heads over 8 KV heads of 64), minitron-4b's (24 over 8 of
@@ -766,6 +777,104 @@ def check_wkv6(wkv6, ref, gen) -> float:
         if main_err is None:
             main_err = err
     return main_err
+
+
+def wkv6_bwd_inputs(B, H, S, N, gen, layout: str, decay: str, with_dstate: bool):
+    """K4's inputs (:func:`wkv6_inputs`), the outputs' gradient ``do`` in the
+    same layout and, where asked, a final-state gradient, all unit normal;
+    w sigmoid(normal), or exp(-exp(normal + 2)) near 0 or exp(-exp(normal -
+    8)) near 1 (the model's form, as ``tests/test_torch_wkv6_bwd.py``)."""
+    r, k, v, w, u = wkv6_inputs(B, H, S, N, gen, layout)
+    do, x = wkv6_inputs(B, H, S, N, gen, layout)[:2]
+    if decay != "sigmoid":
+        w = torch.exp(-torch.exp(x + (2.0 if decay == "near0" else -8.0)))
+    dstate = (torch.randn((B, H, N, N), device="cuda", generator=gen) if with_dstate
+              else None)
+    return r, k, v, w, u, do, dstate
+
+
+def check_wkv6_bwd(gen) -> float:
+    """``[K4b]``: dr, dk, dv, dw and du of the CUDA WKV6 backward against
+    the plain version's (``ref.wkv6_bwd``), each case on the path it names
+    (``direct``, ``copy`` for a view the 16-byte loads cannot address,
+    ``pad`` for a head size that is not built); a second launch on the same
+    inputs must give the same bits (no atomics).  -> the largest error at
+    rwkv6-3b's training shape.  Tolerance, on each gradient, max |kernel -
+    plain| <= 1e-4 x max |plain| (K3b's f32 rule: sums over N and over S
+    taken in another order)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6_bwd import wkv6_bwd
+
+    cases = [  # B, H, S, N, layout, decay, with a final-state gradient, path
+        (*K4_SHAPE, "bshn", "sigmoid", False, "direct"),   # rwkv6-3b's training shape
+        (*K4_SHAPE, "bshn", "near1", True, "direct"),
+        (2, 4, 33, 32, "bshn", "sigmoid", True, "direct"),
+        (2, 4, 33, 64, "bshn", "sigmoid", False, "direct"),
+        (2, 4, 257, 32, "bhsn", "near0", True, "direct"),
+        (2, 4, 257, 64, "bhsn", "near1", False, "direct"),
+        (2, 4, 257, 64, "bshn", "near0", False, "direct"),
+        (2, 4, 257, 32, "bshn", "near1", True, "direct"),
+        (2, 4, 2048, 32, "bshn", "sigmoid", True, "direct"),
+        (2, 4, 2048, 64, "bshn", "near0", True, "direct"),
+        (2, 4, 257, 64, "n-stride 2", "sigmoid", True, "copy"),
+        (2, 4, 257, 32, "offset", "sigmoid", False, "copy"),
+        (2, 4, 257, 4, "bshn", "sigmoid", True, "pad"),
+        (2, 4, 257, 16, "bhsn", "near0", False, "pad"),
+        (2, 4, 33, 16, "bshn", "near1", True, "pad"),
+    ]
+    main_err = None
+    for B, H, S, N, layout, decay, with_dstate, want_path in cases:
+        ins = wkv6_bwd_inputs(B, H, S, N, gen, layout, decay, with_dstate)
+        got, taken = paths_taken(wkv6_bwd, lambda: wkv6_bwd(*ins))
+        again = wkv6_bwd(*ins)
+        want = ref.wkv6_bwd(*ins)
+        torch.cuda.synchronize()
+        label = (f"B{B} H{H} S{S} N{N} {layout} w {decay} "
+                 f"{'with' if with_dstate else 'without'} dstate")
+        if taken != [want_path]:
+            raise AssertionError(f"wkv6_bwd {label}: paths {taken}, want {want_path}")
+        errs, worst = [], 0.0
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            if g.shape != w.shape:
+                raise AssertionError(f"wkv6_bwd {name}: {g.shape}, want {w.shape}")
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            if not (torch.isfinite(g).all() and err <= 1e-4 * scale):
+                raise AssertionError(f"wkv6_bwd {label}: {name} max_abs_err {err} > 1e-4 x "
+                                     f"max|plain| {scale}")
+            errs.append(f"{name} {err:.3e} (max|plain| {scale:.3e})")
+            worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"wkv6_bwd {label}: two launches on the same inputs differ")
+        if main_err is None:
+            main_err = worst
+        print(f"[K4b] wkv6_bwd {label} path={taken[0]} max_abs_err " + ", ".join(errs)
+              + " (<= 1e-4 x max|plain|); a second launch bit-equal ok")
+        del ins, got, again, want
+        torch.cuda.empty_cache()
+    return main_err
+
+
+def time_wkv6_bwd(gen, peaks) -> tuple[tuple, tuple]:
+    """-> ((K4b ms, plain ms, None), bound) at rwkv6-3b's training shape on
+    the model's views, without a final-state gradient (the model's case).
+    The bound counts 14 f32 operations per state element and step (S
+    recomputed: 3, G stepped: 3, dr, dk, dv and dw: 2 each) against the f32
+    peak, over r, k, v, w, do and u read once and dr, dk, dv, dw and du
+    written once.  No single PyTorch call computes the function."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6_bwd import wkv6_bwd
+
+    B, H, S, N = K4_SHAPE
+    ins = wkv6_bwd_inputs(B, H, S, N, gen, "bshn", "sigmoid", False)
+    f32 = 4
+    nbytes = (9 * B * H * S * N + 2 * H * N) * f32
+    bnd = bound(14.0 * B * H * S * N * N, nbytes, peaks["f32"], peaks["bytes"])
+    ms = time_ms(lambda: wkv6_bwd(*ins), batches=5, per_batch=5)
+    plain = time_ms(lambda: ref.wkv6_bwd(*ins), batches=3, per_batch=1)
+    del ins
+    torch.cuda.empty_cache()
+    return (ms, plain, None), bnd
 
 
 def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | None = None
@@ -1457,26 +1566,38 @@ class _CountedReplica:
         return self.inner.drain_kv()
 
 
-TRAIN_ARCH = "granite_3_2b"
-TRAIN_BATCH = (8, 2048)    # sequences x positions of the full-depth [train] run
+TRAIN_ARCH = "granite_3_2b"  # [train-restart]'s
+# the full-depth [train] runs: (arch, sequences x positions)
+TRAIN_RUNS = (("granite_3_2b", (8, 2048)), ("rwkv6_3b", (8, 2048)))
 TRAIN_STEPS = 6
-TRAIN_VS_CPU = ("granite_3_2b", "minicpm3_4b", "whisper_large_v3")
+TRAIN_VS_CPU = ("granite_3_2b", "minicpm3_4b", "whisper_large_v3", "rwkv6_3b")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd")
 
 
 def _counts() -> dict:
-    """K3's and K3b's launch counts by path."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    """K3's, K3b's, K4's and K4b's launch counts by path."""
+    from repro_torch.kernels import ops
 
-    return {"flash_attention": dict(flash_attention.launches_by_path),
-            "flash_attention_bwd": dict(flash_attention_bwd.launches_by_path)}
+    return {k: dict(ops.KERNELS[k].launches_by_path) for k in TRAIN_KERNELS}
 
 
 def _reset_counts() -> None:
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, wkv6, wkv6_bwd
 
-    flash_attention.reset_launches()
-    flash_attention_bwd.reset_launches()
+    for module in (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd):
+        module.reset_launches()
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """{kernel: (its path, launches)} of ``steps`` training steps of ``cfg``
+    under remat: per attention layer K3 twice (the forward and the
+    recompute) and K3b once, per RWKV-6 layer K4 twice and K4b once."""
+    n_attn = cfg.attn_layer_count() + (cfg.n_layers + cfg.n_encoder_layers if cfg.enc_dec
+                                       else 0)
+    n_rwkv = sum(1 for spec in cfg.layer_specs() if spec.mixer == "rwkv6")
+    return {"flash_attention": ("tma", 2 * n_attn * steps),
+            "flash_attention_bwd": ("tma", n_attn * steps),
+            "wkv6": ("ring", 2 * n_rwkv * steps), "wkv6_bwd": ("direct", n_rwkv * steps)}
 
 
 def train_vs_cpu(arch: str, dev) -> None:
@@ -1485,7 +1606,8 @@ def train_vs_cpu(arch: str, dev) -> None:
     encoder-decoder), batch 2 x 128, on the card and on the CPU from the
     same parameters (drawn on the CPU) and batch.  The card's step must
     launch K3 twice per attention (the forward and the remat recompute) and
-    K3b once.  Tolerance: the loss and ``grad_norm`` at 1e-4 relative (f32
+    K3b once, K4 twice per RWKV-6 layer and K4b once.  Tolerance: the loss
+    and ``grad_norm`` at 1e-4 relative (f32
     sums taken in another order on each side); the updated parameters at
     1e-4 x the largest parameter, and the first moments (0.1 x the clipped
     gradient) at 1e-4 x the largest of them: scales of the whole tree, as
@@ -1510,11 +1632,11 @@ def train_vs_cpu(arch: str, dev) -> None:
     torch.cuda.synchronize()
     counts = _counts()
     p_cpu, o_cpu, m_cpu = step(params, opt, batch)
-    n_attn = cfg.attn_layer_count() + (cfg.n_layers + cfg.n_encoder_layers if cfg.enc_dec else 0)
-    k3, k3b = sum(counts["flash_attention"].values()), sum(counts["flash_attention_bwd"].values())
-    if (k3, k3b) != (2 * n_attn, n_attn):
-        raise AssertionError(f"[train-vs-cpu] {cfg.name}: K3/K3b launched {k3}/{k3b} times "
-                             f"{counts}, want {2 * n_attn}/{n_attn}")
+    want_launches = {k: n for k, (_, n) in _train_launches(cfg, 1).items()}
+    got_launches = {k: sum(by.values()) for k, by in counts.items()}
+    if got_launches != want_launches:
+        raise AssertionError(f"[train-vs-cpu] {cfg.name}: launched {counts}, want "
+                             f"{want_launches}")
     for key in ("loss", "grad_norm"):
         got, want = float(m_card[key]), float(m_cpu[key])
         if not abs(got - want) <= 1e-4 * abs(want):
@@ -1537,7 +1659,8 @@ def train_vs_cpu(arch: str, dev) -> None:
           f"{float(m_card['grad_norm']):.6f} CPU {float(m_cpu['grad_norm']):.6f} (rtol 1e-4); "
           f"updated params and first moments max_err / their largest "
           f"{worst['params']:.3e}, {worst['m']:.3e} (< 1e-4); K3 {counts['flash_attention']}, "
-          f"K3b {counts['flash_attention_bwd']} ok")
+          f"K3b {counts['flash_attention_bwd']}, K4 {counts['wkv6']}, K4b {counts['wkv6_bwd']} "
+          f"ok")
 
 
 def _mv(moments) -> list:
@@ -1547,34 +1670,16 @@ def _mv(moments) -> list:
     return [mv for k in sorted(moments) for mv in _mv(moments[k])]
 
 
-def rwkv6_training_raises(dev) -> None:
-    """rwkv6 training on the card raises (K4 has no backward yet) instead of
-    running a plain version."""
-    from repro_torch.configs.registry import get_config, make_batch
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.params import init_params
-
-    cfg = dataclasses.replace(get_config("rwkv6_3b").smoke(), activation_dtype="float32")
-    step, p_specs, o_specs, _ = make_train_step(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    args = (init_params(p_specs, gen), init_params(o_specs, gen),
-            make_batch(cfg, 32, 2, train=True, generator=gen))
-    try:
-        step(*args)
-    except NotImplementedError as e:
-        print(f"[train-vs-cpu] rwkv6 training on the card raises: {e} ok")
-        return
-    raise AssertionError("rwkv6 training on the card ran without a K4 backward")
-
-
-def train_full(dev, smi: str) -> dict:
-    """``[train]``: granite-3-2b at full width and depth (f32 parameters and
+def train_full(arch: str, batch: tuple[int, int], dev, smi: str) -> dict:
+    """``[train]``: ``arch`` at full width and depth (f32 parameters and
     AdamW state, bf16 activations, remat on), synthetic data, TRAIN_STEPS
-    steps of TRAIN_BATCH through ``repro_torch.launch.train.train``, the
-    counters set to 0 just before: K3 must have run twice per layer and step
-    (the forward and the remat recompute) and K3b once, every loss finite
-    and every parameter moved.  Then one more step under ``torch.profiler``.
-    -> {"k3": launches, "k3b": launches, "step_ms": median}."""
+    steps of ``batch`` through ``repro_torch.launch.train.train``, the
+    counters set to 0 just before: per layer and step, K3 (attention) or K4
+    (RWKV-6) must have run twice (the forward and the remat recompute), on
+    ``tma`` or ``ring``, and K3b or K4b once, on ``tma`` or ``direct``; every
+    loss finite and every parameter moved.  Then one more step under
+    ``torch.profiler``.  -> {"counts": {kernel: launches by path},
+    "step_ms": median}."""
     import contextlib
     import io
     import re
@@ -1587,8 +1692,8 @@ def train_full(dev, smi: str) -> dict:
     from repro_torch.launch.train import train
     from repro_torch.models.params import count_params, init_params, tree_leaves
 
-    cfg = get_config(TRAIN_ARCH)
-    B, S = TRAIN_BATCH
+    cfg = get_config(arch)
+    B, S = batch
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     log = io.StringIO()
@@ -1602,58 +1707,64 @@ def train_full(dev, smi: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(log.getvalue(), end="")
     step_ms = [float(m) for m in re.findall(r"\((\d+) ms/step\)", log.getvalue())]
-    n = cfg.attn_layer_count()
-    want = {"flash_attention": ("tma", 2 * n * TRAIN_STEPS),
-            "flash_attention_bwd": ("tma", n * TRAIN_STEPS)}
+    want = _train_launches(cfg, TRAIN_STEPS)
     for k, (path, count) in want.items():
         if sum(counts[k].values()) != count or counts[k][path] != count:
-            raise AssertionError(f"[train] {k} launched {counts[k]}, want {count} on {path} "
-                                 f"({count // TRAIN_STEPS} a step)")
+            raise AssertionError(f"[train] {cfg.name}: {k} launched {counts[k]}, want {count} "
+                                 f"on {path} ({count // TRAIN_STEPS} a step)")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[train] losses {losses}")
+        raise AssertionError(f"[train] {cfg.name}: losses {losses}")
     init = init_params(make_train_step(cfg)[1], torch.Generator(device=dev).manual_seed(0))
     still = [tuple(a.shape) for a, b in zip(tree_leaves(params), tree_leaves(init))
              if torch.equal(a, b)]
     del init
     if still:
-        raise AssertionError(f"[train] parameters that did not move: {still}")
+        raise AssertionError(f"[train] {cfg.name}: parameters that did not move: {still}")
     tokens = B * S
     steady = statistics.median(step_ms[1:])
     n_params = count_params(make_train_step(cfg)[1])
     ratio = 6 * n_params * tokens / (steady / 1e3) / 989e12
+    # the kernels of this model's mixer: (forward, backward) as named in the JSON line
+    fwd, bwd = ("wkv6", "wkv6_bwd") if want["wkv6"][1] else ("flash_attention",
+                                                             "flash_attention_bwd")
+    short = {"flash_attention": "K3", "flash_attention_bwd": "K3b", "wkv6": "K4",
+             "wkv6_bwd": "K4b"}
+    n = want[bwd][1] // TRAIN_STEPS
     print(f"[train] {cfg.name} full width and depth ({cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f}B params), f32 params and AdamW state, bf16 activations, "
           f"remat on, batch {B} x {S}, {TRAIN_STEPS} steps in {wall:.1f} s: losses "
           f"{[round(x, 4) for x in losses]}, ms/step {step_ms} (median of steps 2-"
           f"{TRAIN_STEPS} {steady:.0f}), {tokens / (steady / 1e3):.0f} tokens/s, "
           f"6 N tokens / step time / 989 TFLOP/s = {ratio:.3f} (a ratio, not a claim), "
-          f"peak {peak_gb:.1f} GB; K3 {counts['flash_attention']} = 2 x {n} a step, "
-          f"K3b by path {counts['flash_attention_bwd']} = {n} a step; {smi}")
+          f"peak {peak_gb:.1f} GB; {short[fwd]} {counts[fwd]} = 2 x {n} a step, "
+          f"{short[bwd]} by path {counts[bwd]} = {n} a step; {smi}")
 
     # one more step under the profiler: the device's busy share and top kernels
     step, *_ = make_train_step(cfg)
     it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev,
                  start_step=TRAIN_STEPS)
-    batch = next(it)
+    batch_ = next(it)
     it.close()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, batch)
+        step(params, opt, batch_)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launched = _kernel_ms(prof)
     busy = sum(by_name.values())
-    k3b_ms = sum(t for name, t in by_name.items()
-                 if any(k in name for k in ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "bwd_delta")))
-    k3_ms = sum(t for name, t in by_name.items() if "flash_fwd<" in name)
-    print(f"[train] profiled step: device {busy:.1f} of {wall_ms:.1f} ms wall "
-          f"({busy / wall_ms:.1%} busy), {launched} kernels; K3b {k3b_ms:.1f} ms "
-          f"({k3b_ms / busy:.1%}), K3 {k3_ms:.1f} ms ({k3_ms / busy:.1%}); top: "
+    keys = {"flash_attention_bwd": ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "bwd_delta"),
+            "flash_attention": ("flash_fwd<",), "wkv6_bwd": ("wkv6_bwd",),
+            "wkv6": ("wkv6_ring",)}
+    shares = []
+    for k in (bwd, fwd):
+        ms = sum(t for name, t in by_name.items() if any(key in name for key in keys[k]))
+        shares.append(f"{short[k]} {ms:.1f} ms ({ms / busy:.1%})")
+    print(f"[train] {cfg.name} profiled step: device {busy:.1f} of {wall_ms:.1f} ms wall "
+          f"({busy / wall_ms:.1%} busy), {launched} kernels; {', '.join(shares)}; top: "
           f"{_top(by_name, 6)}; {smi}")
-    return {"k3": sum(counts["flash_attention"].values()),
-            "k3b": sum(counts["flash_attention_bwd"].values()),
-            "k3b_by_path": counts["flash_attention_bwd"], "step_ms": steady}
+    del params, opt
+    return {"counts": counts, "step_ms": steady}
 
 
 def train_restart(dev) -> None:
@@ -1716,18 +1827,29 @@ def train_restart(dev) -> None:
 
 
 def train_cli() -> None:
-    """``[train-cli]``: ``python -m repro_torch.launch.train --arch
-    granite_3_2b --smoke --steps 4`` in a process of its own, on the card's
-    default device; it must exit 0."""
+    """``[train-cli]``: ``python -m repro_torch.launch.train --arch ARCH
+    --smoke --steps 4`` for granite-3-2b and rwkv6-3b, each in a process of
+    its own, both started together, on the card's default device; each must
+    exit 0."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    args = ["--arch", "granite_3_2b", "--smoke", "--steps", "4"]
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    print(f"[train-cli] {' '.join(args)}: rc {proc.returncode}; "
-          + (" | ".join(lines[-2:]) if lines else "no output"))
-    if proc.returncode != 0 or "step     4 loss" not in proc.stdout:
-        raise AssertionError(f"[train-cli] failed: {proc.stderr[-2000:]}")
+    runs = [["--arch", arch, "--smoke", "--steps", "4"] for arch in ("granite_3_2b", "rwkv6_3b")]
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args in runs]
+    failed = []
+    for args, proc in zip(runs, procs):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        print(f"[train-cli] {' '.join(args)}: rc {proc.returncode}; "
+              + (" | ".join(lines[-2:]) if lines else "no output"))
+        if proc.returncode != 0 or "step     4 loss" not in out:
+            failed.append(f"{' '.join(args)}: {err[-2000:]}")
+    if failed:
+        raise AssertionError(f"[train-cli] failed: {failed}")
 
 
 def executed_fleet(device):
@@ -1863,11 +1985,12 @@ def cli_phase() -> None:
 
 def build_report(build) -> None:
     """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
-    static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3
-    and K3b set, and whether ``ptxas`` serialised the kernel's ``wgmma``s
-    (its C7510-C7520 notes, which name the function).  Raises when a K1
-    ``wgmma``, K3, K3b or K4 specialisation spills or is missing, or when
-    ``ptxas`` serialised the ``wgmma``s of a bf16 K3b kernel."""
+    static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3,
+    K3b and K4b's main pass set, and whether ``ptxas`` serialised the
+    kernel's ``wgmma``s (its C7510-C7520 notes, which name the function).
+    Raises when a K1 ``wgmma``, K3, K3b, K4 or K4b specialisation spills or
+    is missing, or when ``ptxas`` serialised the ``wgmma``s of a bf16 K3b
+    kernel."""
     import re
 
     lib = build.library()
@@ -1893,12 +2016,22 @@ def build_report(build) -> None:
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
         elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
             cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
-    k1, k3, k4, k3b = {}, {}, {}, {}
+    k1, k3, k4, k3b, k4b = {}, {}, {}, {}, {}
     for kern in kernels:
         label = kern["name"]
         if m := re.search(r"wkv6_ringILi(\d+)E", kern["name"]):
             k4[int(m.group(1))] = kern
             label = f"wkv6_ring<N {m.group(1)}>"
+        elif m := re.search(r"wkv6_bwd_(ckpt|main)ILi(\d+)E", kern["name"]):
+            which, n = m.group(1), int(m.group(2))
+            k4b[(which, n)] = kern
+            label = f"wkv6_bwd_{which}<N {n}>"
+            if which == "main":
+                kern["smem"] = (f"{kern['smem']} bytes static + "
+                                f"{lib.repro_wkv6_bwd_smem(n)} dynamic")
+        elif "wkv6_bwd_du" in kern["name"]:
+            k4b[("du", 0)] = kern
+            label = "wkv6_bwd_du"
         elif kern["k3"]:
             dtype, hd = kern["k3"]
             k3[kern["k3"]] = kern
@@ -1943,9 +2076,13 @@ def build_report(build) -> None:
             for hd in (32, 64, 128)}
     if set(k3b) != want:
         raise AssertionError(f"K3b specialisations built {sorted(k3b)}, want {sorted(want)}")
-    spilled = [key for key, kern in {**k1, **k3, **k4, **k3b}.items() if any(kern["spill"])]
+    want = {(w, n) for w in ("ckpt", "main") for n in (32, 64)} | {("du", 0)}
+    if set(k4b) != want:
+        raise AssertionError(f"K4b kernels built {sorted(k4b)}, want {sorted(want)}")
+    spilled = [key for key, kern in {**k1, **k3, **k4, **k3b, **k4b}.items()
+               if any(kern["spill"])]
     if spilled:
-        raise AssertionError(f"K1 wgmma, K3, K3b or K4 specialisations spill: {spilled}")
+        raise AssertionError(f"K1 wgmma, K3, K3b, K4 or K4b specialisations spill: {spilled}")
     serial = [key for key, kern in k3b.items() if key[1] == "bf16" and kern["name"] in serialised]
     if serial:
         raise AssertionError(f"ptxas serialised the wgmmas of K3b's bf16 kernels {serial}")
@@ -2006,6 +2143,7 @@ def main() -> int:
             "wkv6": check_wkv6(wkv6, ref, gen)}
     check_flash_lse(gen)
     errs["flash_attention_bwd"] = check_flash_bwd(gen)
+    errs["wkv6_bwd"] = check_wkv6_bwd(gen)
 
     # 6. times at the main paths' shapes: prefill = x @ x.T, decode = x + x,
     # granite-3-2b prefill attention, rwkv6-3b prefill recurrence
@@ -2042,12 +2180,16 @@ def main() -> int:
     bounds.update(more_bounds)
     times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3b_bound7, k3_lse_ms, \
         k3b_split = time_flash_bwd(gen, peaks)
+    times["wkv6_bwd"], bounds["wkv6_bwd"] = time_wkv6_bwd(gen, peaks)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
               "flash_attention_bwd": "B{} H{}/K{} S{} hd{} bf16 causal (granite-3-2b's training "
                                      "shape; the bound counts 10 hd operations a kept pair)"
-                                     .format(*K3_SHAPE)}
+                                     .format(*K3_SHAPE),
+              "wkv6_bwd": "B{} H{} S{} N{} f32 (rwkv6-3b's training shape, no final-state "
+                          "gradient; the bound counts 14 operations a state element and step; "
+                          "the plain version is a Python loop)".format(*K4_SHAPE)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
     # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
@@ -2237,16 +2379,18 @@ def main() -> int:
     for arch in TRAIN_VS_CPU:
         train_vs_cpu(arch, dev)
         gc.collect()
-    rwkv6_training_raises(dev)
-    gc.collect()
     torch.cuda.empty_cache()
-    run = train_full(dev, smi)
-    launches["flash_attention"] += run["k3"]
-    launches["flash_attention_bwd"] = run["k3b"]
-    by_path["flash_attention"]["tma"] += run["k3"]
-    by_path["flash_attention_bwd"] = run["k3b_by_path"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    for k in ("flash_attention_bwd", "wkv6_bwd"):  # their main path is training's
+        launches[k] = 0
+        by_path[k] = dict.fromkeys(ops.KERNELS[k].launches_by_path, 0)
+    for arch, batch in TRAIN_RUNS:
+        run = train_full(arch, batch, dev, smi)
+        for k, counts in run["counts"].items():
+            launches[k] += sum(counts.values())
+            by_path[k] = {p: n + by_path[k].get(p, 0) for p, n in counts.items()}
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
     train_restart(dev)
     gc.collect()
     torch.cuda.empty_cache()

@@ -64,6 +64,11 @@ SIGNATURES = {
     "repro_flash_attention_bwd_smem": (_I, _I, _I),
     # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LP, _P),
+    # r, k, v, w, u, dout, dstate (or NULL), ckpt, dr, dk, dv, dw, du_part, du, B, H, S, N,
+    # strides[24], stream
+    "repro_wkv6_bwd": (*(_P,) * 14, _I, _I, _I, _I, _LP, _P),
+    # N -> bytes of dynamic shared memory of the main pass
+    "repro_wkv6_bwd_smem": (_I,),
 }
 
 _lib: ctypes.CDLL | None = None

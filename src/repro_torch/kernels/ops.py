@@ -3,8 +3,9 @@ runs or raises), a CPU tensor to the plain PyTorch version.  There is no
 switch that sends CUDA tensors anywhere else.
 
 Attention under autograd goes through :class:`FlashAttention`, whose
-forward is K3 writing the log-sum-exp rows and whose backward is K3b (on
-the CPU, the plain versions of both)."""
+forward is K3 writing the log-sum-exp rows and whose backward is K3b; the
+RWKV-6 recurrence through :class:`WKV6`, whose forward is K4 and whose
+backward is K4b (on the CPU, the plain versions of all four)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from .matadd import matadd as _matadd_kernel
 from .matmul import matmul as _matmul_kernel
 from .wkv6 import HEAD_SIZES as WKV6_HEAD_SIZES
 from .wkv6 import wkv6 as _wkv6_kernel
+from .wkv6_bwd import wkv6_bwd as _wkv6_bwd_kernel
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,15 +76,44 @@ class FlashAttention(torch.autograd.Function):
 
 
 def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
-    """RWKV-6 recurrence -> (o ``(B, H, S, N)``, final state ``(B, H, N, N)``)."""
-    if any(t.is_cuda for t in (r, k, v, w, u)):
-        return _wkv6_kernel(r, k, v, w, u)
-    return _ref.wkv6(r, k, v, w, u)
+    """RWKV-6 recurrence -> (o ``(B, H, S, N)``, final state ``(B, H, N, N)``).
+    With grad enabled and an input that requires it, through :class:`WKV6`;
+    otherwise the serving call."""
+    ts = (r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return WKV6.apply(*ts)
+    if any(t.is_cuda for t in ts):
+        return _wkv6_kernel(*ts)
+    return _ref.wkv6(*ts)
+
+
+class WKV6(torch.autograd.Function):
+    """The RWKV-6 recurrence with the gradient of the reference's scan: the
+    forward saves r, k, v, w and u, the backward recomputes the states.  On
+    CUDA tensors the forward is K4 and the backward K4b; on CPU tensors
+    their plain versions.  The final state's gradient may be ``None`` (0)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        if any(t.is_cuda for t in (r, k, v, w, u)):
+            return _wkv6_kernel(r, k, v, w, u)
+        return _ref.wkv6(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        r, k, v, w, u = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        if r.is_cuda:
+            return _wkv6_bwd_kernel(r, k, v, w, u, do, dstate)
+        return _ref.wkv6_bwd(r, k, v, w, u, do, dstate)
 
 
 KERNELS = {"matmul": _matmul_kernel, "matadd": _matadd_kernel,
            "flash_attention": _flash_kernel, "wkv6": _wkv6_kernel,
-           "flash_attention_bwd": _flash_bwd_kernel}
+           "flash_attention_bwd": _flash_bwd_kernel, "wkv6_bwd": _wkv6_bwd_kernel}
 _warm: set[torch.device] = set()  # devices warm_up has run on
 
 
@@ -109,7 +140,8 @@ def warm_up(device) -> None:
     ``copy``; K3 in each dtype at each built head dim (``tma``, ``fp32``),
     on a bf16 view TMA cannot address (``copy``) and at a head dim that is
     padded (``pad``); K4 at each built head size (``ring``), with unequal
-    strides (``copy``) and at a padded head size (``pad``).  So the one-time
+    strides (``copy``) and at a padded head size (``pad``); K4b likewise
+    (``direct``, ``copy`` of an n-stride 2 view, ``pad``).  So the one-time
     costs (the ``nvcc`` build, loading the library and each kernel's module,
     the shared-memory settings of ``cudaFuncSetAttribute``) stay out of a
     timed run and out of a CUDA graph capture.  A no-op for a CPU device."""
@@ -140,6 +172,11 @@ def warm_up(device) -> None:
     r = torch.zeros(1, 1, 8, 32, device=device)
     k = torch.zeros(1, 8, 1, 32, device=device).transpose(1, 2)  # other strides: copy
     _wkv6_kernel(r, k, r, r, torch.zeros(1, 32, device=device))
+    for n in (*WKV6_HEAD_SIZES, 4):  # 4 is padded up to 32
+        x = torch.zeros(1, 1, 8, n, device=device)
+        _wkv6_bwd_kernel(x, x, x, x, torch.zeros(1, n, device=device), x)
+    do = torch.zeros(1, 1, 8, 64, device=device)[..., ::2]  # n-stride 2: copy
+    _wkv6_bwd_kernel(r, r, r, r, torch.zeros(1, 32, device=device), do)
     torch.cuda.synchronize(device)
     _warm.add(device)
 

@@ -138,3 +138,43 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         state = w[:, :, t, :, None] * state + kv
     o = torch.stack(outs, dim=2) if outs else torch.empty_like(r)
     return o.to(r.dtype), state
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, do: torch.Tensor, dstate: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, ...]:
+    """The gradients ``(dr, dk, dv, dw, du)`` of :func:`wkv6` given the
+    outputs' gradient ``do (B, H, S, N)`` and the final state's ``dstate (B,
+    H, N, N)`` (``None``: 0), all f32.  With ``G_t`` the gradient of the
+    state after step t (``dstate`` at the last step), backwards in time::
+
+        dr_t = (S_{t-1} + (u * k_t) v_t^T) do_t
+        dk_t = G_t v_t + u * r_t (v_t . do_t)
+        dv_t = G_t^T k_t + do_t (sum_i r_ti u_i k_ti)
+        dw_t = rowsum(S_{t-1} * G_t)
+        du   = sum over b, t of r_t * k_t (v_t . do_t)
+        G_{t-1} = diag(w_t) G_t + r_t do_t^T
+
+    The forward states are kept (no division by w: decays reach 0)."""
+    B, H, S, N = r.shape
+    r, k, v, w, u, do = (t.float() for t in (r, k, v, w, u, do))
+    states = [torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)]
+    for t in range(S - 1):  # S_{t-1} for every step t
+        states.append(w[:, :, t, :, None] * states[-1]
+                      + k[:, :, t, :, None] * v[:, :, t, None, :])
+    g = (torch.zeros_like(states[0]) if dstate is None else dstate.float().clone())
+    grads = [torch.empty((B, H, S, N), dtype=torch.float32, device=r.device) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((H, N), dtype=torch.float32, device=r.device)
+    for t in reversed(range(S)):
+        s_prev = states.pop()
+        rt, kt, vt, wt, dot = (x[:, :, t] for x in (r, k, v, w, do))
+        vdo = (vt * dot).sum(-1, keepdim=True)                  # (B, H, 1)
+        bonus = (rt * u * kt).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", s_prev, dot) + u * kt * vdo
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", g, vt) + u * rt * vdo
+        dv[:, :, t] = torch.einsum("bhij,bhi->bhj", g, kt) + dot * bonus
+        dw[:, :, t] = (s_prev * g).sum(-1)
+        du += (rt * kt * vdo).sum(0)
+        g = wt[..., :, None] * g + rt[..., :, None] * dot[..., None, :]
+    return dr, dk, dv, dw, du

@@ -4,8 +4,10 @@ checkpoint/restart, failure injection and heartbeat monitoring (the port of
 
 The loop runs on the card unless the CPU is asked for: attention's forward
 is the CUDA flash attention (K3, writing its log-sum-exp rows) and its
-backward the CUDA flash-attention backward (K3b); on the CPU their plain
-versions run.
+backward the CUDA flash-attention backward (K3b); RWKV-6's recurrence is
+the CUDA WKV6 kernel (K4) and its backward the CUDA WKV6 backward (K4b), so
+``--arch rwkv6_3b`` trains on the card as the attention models do; on the
+CPU their plain versions run.
 
   # the reduced config, f32 activations, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b --smoke \\
@@ -14,6 +16,9 @@ versions run.
   # on the card, with a checkpoint every 25 steps (a rerun resumes from it)
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b --smoke \\
       --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 25
+
+  # RWKV-6 on the card (K4 forward, K4b backward)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_3b --smoke --steps 4
 """
 
 from __future__ import annotations

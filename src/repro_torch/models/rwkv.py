@@ -8,13 +8,13 @@ with w_t in (0,1) data-dependent and u a learned per-channel bonus.
 Receptance/key/value/gate/decay come from a data-dependent token shift
 (ddlerp with a low-rank adapter).
 
-* ``rwkv6_block`` (prefill) runs the whole recurrence as ONE K4 call
-  (:func:`repro_torch.kernels.ops.wkv6`), which also returns the final
-  state; the reference's chunked scan pads S to a multiple of 32 with decay
-  1, which the kernel does not need.  K4 has no backward yet: training
-  through it on the card raises (:data:`NO_K4_BACKWARD`); on the CPU the
-  plain recurrence trains as it is, as the reference differentiates its
-  plain scan.
+* ``rwkv6_block`` (prefill, and training) runs the whole recurrence as ONE
+  K4 call (:func:`repro_torch.kernels.ops.wkv6`), which also returns the
+  final state; the reference's chunked scan pads S to a multiple of 32 with
+  decay 1, which the kernel does not need.  Under grad the call goes
+  through :class:`repro_torch.kernels.ops.WKV6`, whose backward is K4b (the
+  gradient of the reference's checkpointed scan; on the CPU, its plain
+  version).
 * ``rwkv6_decode_block``: a single recurrence step against the cached state,
   plain tensor code.
 """
@@ -28,8 +28,6 @@ from ..kernels import ops
 from .layers import Ctx, _out, _proj
 from .params import P
 
-NO_K4_BACKWARD = ("rwkv6 training on the card needs a K4 backward, which is not ported yet "
-                  "(ROADMAP queue 1, item 10)")
 LORA_DIM = 32          # TIME_MIX_EXTRA_DIM in the reference implementation
 DECAY_LORA_DIM = 64
 
@@ -115,11 +113,7 @@ def rwkv6_block(p, x, cfg, ctx: Ctx):
     r, k, v, g, w = _rkvgw(p, x, x_prev, cfg, ctx)
     # four contiguous (B, S, H, N) f32 tensors, handed to K4 as (B, H, S, N) views
     rf, kf, vf, wf = (t.float().contiguous().transpose(1, 2) for t in (r, k, v, w))
-    u = p["u"].float()
-    if x.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (rf, kf, vf, wf, u)):
-        raise NotImplementedError(NO_K4_BACKWARD)
-    o, state = ops.wkv6(rf, kf, vf, wf, u)
+    o, state = ops.wkv6(rf, kf, vf, wf, p["u"].float())
     o = o.transpose(1, 2).reshape(B, S, H * N)
     o = _group_norm(p, o, H).to(x.dtype) * g
     out = _out(o.view(B, S, H, N), p["wo"], x.dtype)

@@ -182,7 +182,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
         ):
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert {s.name for s in _build.sources()} == {
-        "matmul.cu", "matadd.cu", "flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu"}
+        "matmul.cu", "matadd.cu", "flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu",
+        "wkv6_bwd.cu"}
     assert {n: len(a) for n, a in _build.SIGNATURES.items()} == found
 
 

@@ -153,11 +153,12 @@ def test_train_step_matches_reference(family):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "whisper_large_v3", "jamba_1_5_large_398b"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "whisper_large_v3", "jamba_1_5_large_398b",
+                                  "rwkv6_3b"])
 def test_remat_on_and_off_are_bit_equal(arch):
     """Rematerializing each unit, encoder layer, Mamba chunk and CE chunk
     recomputes the same values: the loss and every gradient bit-equal on the
-    CPU."""
+    CPU (rwkv6's through ``ops.WKV6`` and its plain backward)."""
     _, tcfg = _cfgs(arch)
     step, p_specs, _, _ = tsteps.make_train_step(tcfg)
     from repro_torch.models.params import init_params
