@@ -816,6 +816,9 @@ def check_wkv6_bwd(gen) -> float:
         (2, 4, 257, 32, "bshn", "near1", True, "direct"),
         (2, 4, 2048, 32, "bshn", "sigmoid", True, "direct"),
         (2, 4, 2048, 64, "bshn", "near0", True, "direct"),
+        (2, 4, 65, 64, "bshn", "sigmoid", True, "direct"),     # one step past a segment
+        (2, 4, 130, 64, "bshn", "near1", False, "direct"),     # two segments and two steps
+        (2, 4, 130, 32, "bhsn", "near0", True, "direct"),
         (2, 4, 257, 64, "n-stride 2", "sigmoid", True, "copy"),
         (2, 4, 257, 32, "offset", "sigmoid", False, "copy"),
         (2, 4, 257, 4, "bshn", "sigmoid", True, "pad"),
@@ -855,15 +858,21 @@ def check_wkv6_bwd(gen) -> float:
     return main_err
 
 
-def time_wkv6_bwd(gen, peaks) -> tuple[tuple, tuple]:
-    """-> ((K4b ms, plain ms, None), bound) at rwkv6-3b's training shape on
-    the model's views, without a final-state gradient (the model's case).
-    The bound counts 14 f32 operations per state element and step (S
-    recomputed: 3, G stepped: 3, dr, dk, dv and dw: 2 each) against the f32
-    peak, over r, k, v, w, do and u read once and dr, dk, dv, dw and du
+def time_wkv6_bwd(gen, peaks) -> tuple[tuple, tuple, dict, int]:
+    """-> ((K4b ms, plain ms, None), bound, {K4b's pass: device ms a
+    launch}, checkpoint scratch bytes) at rwkv6-3b's training shape on the
+    model's views, without a final-state gradient (the model's case); the
+    split by pass (its three launches) from ``torch.profiler`` over 5
+    calls, each pass's mean over the launches it recorded.  The bound counts 14 f32 operations per state element and step
+    (S recomputed: 3, G stepped: 3, dr, dk, dv and dw: 2 each) against the
+    f32 peak, over r, k, v, w, do and u read once and dr, dk, dv, dw and du
     written once.  No single PyTorch call computes the function."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv6_bwd import wkv6_bwd
+    from repro_torch.kernels.wkv6_bwd import checkpoint_bytes, wkv6_bwd
 
     B, H, S, N = K4_SHAPE
     ins = wkv6_bwd_inputs(B, H, S, N, gen, "bshn", "sigmoid", False)
@@ -872,9 +881,23 @@ def time_wkv6_bwd(gen, peaks) -> tuple[tuple, tuple]:
     bnd = bound(14.0 * B * H * S * N * N, nbytes, peaks["f32"], peaks["bytes"])
     ms = time_ms(lambda: wkv6_bwd(*ins), batches=5, per_batch=5)
     plain = time_ms(lambda: ref.wkv6_bwd(*ins), batches=3, per_batch=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            wkv6_bwd(*ins)
+        torch.cuda.synchronize()
+    # each pass's mean over the launches the profiler recorded (a process
+    # that profiles more than once may not record all of them)
+    total, seen = {}, {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and (m := re.search(r"wkv6_bwd_(ckpt|main|du)", e.name))):
+            total[m.group(1)] = total.get(m.group(1), 0.0) + e.time_range.elapsed_us() / 1e3
+            seen[m.group(1)] = seen.get(m.group(1), 0) + 1
+    split = {k: t / seen[k] for k, t in total.items()}
     del ins
     torch.cuda.empty_cache()
-    return (ms, plain, None), bnd
+    return (ms, plain, None), bnd, split, checkpoint_bytes(B, H, S, N)
 
 
 def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | None = None
@@ -1986,11 +2009,14 @@ def cli_phase() -> None:
 def build_report(build) -> None:
     """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
     static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3,
-    K3b and K4b's main pass set, and whether ``ptxas`` serialised the
-    kernel's ``wgmma``s (its C7510-C7520 notes, which name the function).
-    Raises when a K1 ``wgmma``, K3, K3b, K4 or K4b specialisation spills or
-    is missing, or when ``ptxas`` serialised the ``wgmma``s of a bf16 K3b
-    kernel."""
+    K3b and K4b's main pass set, for K4b's passes their resident warps an
+    SM (the occupancy calculator's), and whether
+    ``ptxas`` serialised the kernel's ``wgmma``s (its C7510-C7520 notes,
+    which name the function).  Raises when a K1 ``wgmma``, K3, K3b, K4 or
+    K4b specialisation spills or is missing, when K4b's main pass at N 64
+    keeps fewer than 12 warps an SM, or when ``ptxas`` serialised the
+    ``wgmma``s of a bf16 K3b kernel."""
+    import ctypes
     import re
 
     lib = build.library()
@@ -2026,9 +2052,15 @@ def build_report(build) -> None:
             which, n = m.group(1), int(m.group(2))
             k4b[(which, n)] = kern
             label = f"wkv6_bwd_{which}<N {n}>"
-            if which == "main":
-                kern["smem"] = (f"{kern['smem']} bytes static + "
-                                f"{lib.repro_wkv6_bwd_smem(n)} dynamic")
+            out = (ctypes.c_int * 3)()
+            err = lib.repro_wkv6_bwd_info(n, int(which == "main"), out)
+            if err:
+                raise AssertionError(f"repro_wkv6_bwd_info({n}, {which}): CUDA error {err}")
+            dynamic, threads, blocks = out
+            kern["warps"] = blocks * threads // 32
+            kern["smem"] = (f"{kern['smem']} bytes static + {dynamic} dynamic, {blocks} "
+                            f"blocks of {threads // 32} warps = {kern['warps']} resident warps "
+                            f"an SM")
         elif "wkv6_bwd_du" in kern["name"]:
             k4b[("du", 0)] = kern
             label = "wkv6_bwd_du"
@@ -2079,6 +2111,9 @@ def build_report(build) -> None:
     want = {(w, n) for w in ("ckpt", "main") for n in (32, 64)} | {("du", 0)}
     if set(k4b) != want:
         raise AssertionError(f"K4b kernels built {sorted(k4b)}, want {sorted(want)}")
+    if k4b[("main", 64)]["warps"] < 12:  # the design's occupancy at the training shape
+        raise AssertionError(f"K4b's main pass at N 64: {k4b[('main', 64)]['warps']} resident "
+                             f"warps an SM, want at least 12")
     spilled = [key for key, kern in {**k1, **k3, **k4, **k3b, **k4b}.items()
                if any(kern["spill"])]
     if spilled:
@@ -2180,7 +2215,7 @@ def main() -> int:
     bounds.update(more_bounds)
     times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3b_bound7, k3_lse_ms, \
         k3b_split = time_flash_bwd(gen, peaks)
-    times["wkv6_bwd"], bounds["wkv6_bwd"] = time_wkv6_bwd(gen, peaks)
+    times["wkv6_bwd"], bounds["wkv6_bwd"], k4b_split, k4b_scratch = time_wkv6_bwd(gen, peaks)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
@@ -2229,6 +2264,10 @@ def main() -> int:
           f"scaled_dot_product_attention(is_causal=True), the backward alone; by kernel "
           f"(torch.profiler, ms a launch): "
           + ", ".join(f"{k} {t:.4f}" for k, t in sorted(k3b_split.items())) + f"; {smi}")
+    print("[time] wkv6_bwd by pass (torch.profiler, ms a launch): "
+          + ", ".join(f"{k} {k4b_split.get(k, 0.0):.4f}" for k in ("ckpt", "main", "du"))
+          + f"; checkpoint scratch {k4b_scratch} bytes at " + "B{} H{} S{} N{}".format(*K4_SHAPE)
+          + f"; {smi}")
 
     # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,

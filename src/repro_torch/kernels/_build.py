@@ -67,8 +67,9 @@ SIGNATURES = {
     # r, k, v, w, u, dout, dstate (or NULL), ckpt, dr, dk, dv, dw, du_part, du, B, H, S, N,
     # strides[24], stream
     "repro_wkv6_bwd": (*(_P,) * 14, _I, _I, _I, _I, _LP, _P),
-    # N -> bytes of dynamic shared memory of the main pass
-    "repro_wkv6_bwd_smem": (_I,),
+    # N, 0 = the checkpoint pass or 1 = the main pass, out[3] -> dynamic shared memory,
+    # threads a block, resident blocks an SM
+    "repro_wkv6_bwd_info": (_I, _I, ctypes.POINTER(_I)),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -11,14 +11,15 @@ dr, dk, dv and dw are allocated in the model's ``(B, S, H, N)`` layout and
 returned as their ``(B, H, S, N)`` views; du is ``(H, N)``.
 
 The kernel is built for head sizes 32 and 64 (K4's) and reads r, k, v, w and
-do by 16-byte loads, each through its own strides.  What the wrapper hands
-it is decided from the head size and the layout alone (:func:`prepare`) and
-counted by path:
+do by TMA, each through its own strides; it takes a scratch of one state a
+(b, h) every :data:`SEGMENT` steps (:func:`checkpoint_bytes`).  What the
+wrapper hands it is decided from the head size and the layout alone
+(:func:`prepare`) and counted by path:
 
 * ``direct``: the caller's tensors read in place (n-stride 1, every other
   stride and every base on the 16-byte granule, as TMA takes them: the
   model's views, and the gradient autograd hands back for ``o``, are);
-* ``copy``: a tensor that those loads cannot address, first copied into a
+* ``copy``: a tensor that TMA cannot address, first copied into a
   fresh ``(B, S, H, N)`` buffer;
 * ``pad``: a head size that is not built, zero-padded up to the next built
   one in that layout (u and dstate too), the gradients cropped.  Padding is
@@ -38,9 +39,17 @@ from .layout import copy_bshd
 from .wkv6 import built_head_size
 
 PATHS = ("direct", "copy", "pad")
-CHUNK = 8  # the kernel's checkpoint spacing in steps (csrc/wkv6_bwd.cu, T)
+SEGMENT = 64  # the kernel's checkpoint spacing in steps (csrc/wkv6_bwd.cu, SEG)
 _INT_MAX = 2**31 - 1
-_GRID_Y_MAX = 2**16 - 1  # B is the grid's y dimension
+_GRID_YZ_MAX = 2**16 - 1  # H and B are the grid's y and z dimensions
+
+
+def checkpoint_bytes(B: int, H: int, S: int, N: int) -> int:
+    """Bytes of the kernel's checkpoint scratch: an f32 N x N state a (b,
+    h) before every segment of :data:`SEGMENT` steps, at the built head
+    size."""
+    built = built_head_size(N)
+    return B * H * -(-S // SEGMENT) * built * built * 4
 
 
 def prepare(r, k, v, w, u, do, dstate=None) -> tuple[str, tuple]:
@@ -86,8 +95,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"wkv6_bwd kernel needs its inputs on one CUDA device, "
                          f"got {[str(t.device) for t in ts]}")
     built = built_head_size(N)
-    if B > _GRID_Y_MAX or max(H * built, S) > _INT_MAX:
-        raise ValueError(f"wkv6_bwd kernel needs B <= {_GRID_Y_MAX} and int32 sizes: "
+    if max(B, H) > _GRID_YZ_MAX or max(H * built, S) > _INT_MAX:
+        raise ValueError(f"wkv6_bwd kernel needs B, H <= {_GRID_YZ_MAX} and int32 sizes: "
                          f"{(B, H, S, N)}")
     grads = [torch.empty((B, S, H, built), dtype=torch.float32, device=r.device).transpose(1, 2)
              for _ in range(4)]
@@ -96,8 +105,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         du.zero_()
         return (*(g[..., :N].zero_() for g in grads), du[:, :N])
     lib = _build.library()
-    nch = -(-S // CHUNK)
-    ckpt = torch.empty(B * H * nch * built * built, dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(checkpoint_bytes(B, H, S, N) // 4, dtype=torch.float32, device=r.device)
     du_part = torch.empty(B * H * built, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         path, (r, k, v, w, u, do, dstate) = prepare(r, k, v, w, u, do, dstate)

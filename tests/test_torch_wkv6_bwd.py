@@ -11,11 +11,14 @@ chunked scan, padded with decay 1) against ``torch.autograd`` through the
 port's, at 1e-4 (the training parity of ``tests/test_torch_train.py``).
 The CUDA kernel runs only on the card (``chip_smoke.py`` ``[K4b]``); here
 ``_k4b_emulation`` transcribes its order of arithmetic into plain PyTorch
-(checkpoints every 8 steps, the chunk's states recomputed, the partial sums
-over column segments and row groups added in a fixed order, the shuffle
-reductions' trees) and is held to the plain version at S values the chunk
-does not divide; the wrapper's ``prepare`` (paths, copies, padding) is fed
-to the plain version, and the wrapper is held to its refusals.
+(checkpoints every 64 steps and sub-checkpoints every 8, the chunk's states
+recomputed, each thread's FMA chains over 8 columns, the column segments'
+partials added in order, dv's shuffle tree over a warp's 32 rows and the
+row groups in order, the warp sums of v.do and the bonus) and is held to
+the plain version at S values that cross segment boundaries and that the
+chunk does not divide;
+the wrapper's ``prepare`` (paths, copies, padding) is fed to the plain
+version, and the wrapper is held to its refusals.
 """
 
 import pytest
@@ -123,8 +126,8 @@ def _fma(a, b, c):
 
 
 def _halve(x, dim):
-    """Sum over ``dim`` as a warp's shuffle rounds do: the lane with bit M
-    adds its partner's value, M from half the lanes down to 1."""
+    """Sum over ``dim`` as a shuffle tree does: the lane with bit M adds its
+    partner's value, M from half the lanes down to 1."""
     x = x.movedim(dim, -1)
     while x.shape[-1] > 1:
         half = x.shape[-1] // 2
@@ -163,75 +166,85 @@ def _in_order(parts, dim):
     return total
 
 
-def _k4b_emulation(r, k, v, w, u, do, dstate=None, T=8, C=16):
+def _k4b_emulation(r, k, v, w, u, do, dstate=None, T=8, SEG=64, C=8):
     """A plain-PyTorch transcription of ``csrc/wkv6_bwd.cu``, in its order
     of f32 arithmetic (float32 CPU tensors in, (dr, dk, dv, dw, du) out).
 
-    Pass 1 re-runs the forward from 0, S_ij = fma(w_i, S_ij, k_i v_j), and
-    keeps the state before every chunk of T steps.  Pass 2 walks the chunks
-    in reverse: the chunk's states recomputed from its checkpoint, the per
-    step sums v.do and sum_i r_i u_i k_i (lane j mod 32 by FMAs, then the
-    shuffle tree), then backwards over the chunk, per row i and segment of
-    C columns, FMA chains for dr (S do), dk (G v) and dw (S G) and the
-    products G_ij k_i, summed over the warp's 32 rows by the reduce-scatter
-    (lane 2q ends with column q's sum: the shuffle tree over the rows in
-    the order m xor 2q), G_ij = fma(w_i, G_ij, r_i do_j); after the chunk the
-    segments' and row groups' partials are added in order, and dr = fma(u_i
-    k_i, v.do, .), dk = fma(u_i r_i, v.do, .), dv = fma(do_j, bonus, .).
-    du: an FMA chain of r_i k_i and v.do over t in reverse per (b, h), then
-    the (b, h) partials added over b in order."""
+    Two levels of checkpoints: pass 1 re-runs the forward from 0, S_ij =
+    fma(w_i, S_ij, k_i v_j), and keeps the state before every segment of SEG
+    steps; pass 2 walks the segments in reverse, re-runs each forward from
+    its checkpoint keeping the state before every chunk of T steps, and
+    walks its chunks in reverse, the chunk's states recomputed from its
+    sub-checkpoint (the same FMAs, so the same bits on every level).  The
+    per-step sums v.do and sum_i r_i u_i k_i: lane j mod 32 by FMAs, then
+    the shuffle tree.  Then backwards over the chunk, per row i and segment
+    of C columns, FMA chains for dr (S do), dk (G v) and dw (S G), the
+    segments' partials added in order; per column, the products G_ij k_i
+    summed over each warp's 32 rows by a shuffle tree and the row groups
+    added in order; G_ij = fma(w_i, G_ij, r_i do_j).  dr = fma(u_i k_i,
+    v.do, .), dk = fma(u_i r_i, v.do, .), dv = fma(do_j, bonus, .).  du: an
+    FMA chain of r_i k_i and v.do over t in reverse per (b, h), then the
+    (b, h) partials added over b in order."""
     B, H, S, N = r.shape
-    nrg = N // 32
-    nch = -(-S // T)
-    # the reduce-scatter's order: column c's rows m ^ 2 (c mod C) of each row group
-    order = (torch.arange(32)[:, None] ^ (2 * (torch.arange(N) % C))[None, :])
-    order = order.expand(B, H, nrg, 32, N)
+    nseg = -(-S // SEG)
+
+    def fwd(state, t):
+        return _fma(w[:, :, t, :, None], state, k[:, :, t, :, None] * v[:, :, t, None, :])
 
     state = torch.zeros((B, H, N, N))
-    ckpts = []
-    for c in range(nch):
-        ckpts.append(state)
-        for t in range(c * T, min(c * T + T, S)):
-            state = _fma(w[:, :, t, :, None], state, k[:, :, t, :, None] * v[:, :, t, None, :])
+    ckpts = [state]
+    for t in range((nseg - 1) * SEG):
+        state = fwd(state, t)
+        if (t + 1) % SEG == 0:
+            ckpts.append(state)
 
     g = torch.zeros((B, H, N, N)) if dstate is None else dstate.clone()
     grads = [torch.empty((B, H, S, N)) for _ in range(4)]
     dr, dk, dv, dw = grads
     du_acc = torch.zeros((B, H, N))
-    for c in reversed(range(nch)):
-        t0, nt = c * T, min(T, S - c * T)
-        hist, s = [], ckpts[c]
-        for d in range(nt):
-            hist.append(s)
-            t = t0 + d
-            s = _fma(w[:, :, t, :, None], s, k[:, :, t, :, None] * v[:, :, t, None, :])
-        for d in reversed(range(nt)):
-            t = t0 + d
-            rt, kt, vt, wt, dot = (x[:, :, t] for x in (r, k, v, w, do))
-            vdo = _lane_dot(vt, dot)[..., None]
-            bonus = _lane_dot(rt, u * kt)[..., None]
-            pr = _segment_dot(hist[d], dot[:, :, None, :], C)
-            pk = _segment_dot(g, vt[:, :, None, :], C)
-            pw = _segment_dot(hist[d], g, C)
-            prod = (g * kt[..., :, None]).reshape(B, H, nrg, 32, N)
-            dvp = _halve(torch.gather(prod, 3, order), dim=3)      # (B, H, nrg, N)
-            dr[:, :, t] = _fma(u * kt, vdo, _in_order(pr, -1))
-            dk[:, :, t] = _fma(u * rt, vdo, _in_order(pk, -1))
-            dw[:, :, t] = _in_order(pw, -1)
-            dv[:, :, t] = _fma(dot, bonus, _in_order(dvp, 2))
-            du_acc = _fma(rt * kt, vdo, du_acc)
-            g = _fma(wt[..., :, None], g, rt[..., :, None] * dot[..., None, :])
+    for s in reversed(range(nseg)):
+        t_seg = s * SEG
+        nch = -(-min(SEG, S - t_seg) // T)
+        subs = [ckpts[s]]
+        for c in range(nch - 1):
+            st = subs[-1]
+            for t in range(t_seg + c * T, t_seg + c * T + T):
+                st = fwd(st, t)
+            subs.append(st)
+        for c in reversed(range(nch)):
+            t0 = t_seg + c * T
+            nt = min(T, S - t0)
+            hist = [subs[c]]
+            for d in range(1, nt):
+                hist.append(fwd(hist[-1], t0 + d - 1))
+            for d in reversed(range(nt)):
+                t = t0 + d
+                rt, kt, vt, wt, dot = (x[:, :, t] for x in (r, k, v, w, do))
+                vdo = _lane_dot(vt, dot)[..., None]
+                bonus = _lane_dot(rt, u * kt)[..., None]
+                pr = _in_order(_segment_dot(hist[d], dot[:, :, None, :], C), -1)
+                pk = _in_order(_segment_dot(g, vt[:, :, None, :], C), -1)
+                pw = _in_order(_segment_dot(hist[d], g, C), -1)
+                groups = (g * kt[..., :, None]).reshape(B, H, N // 32, 32, N)
+                dr[:, :, t] = _fma(u * kt, vdo, pr)
+                dk[:, :, t] = _fma(u * rt, vdo, pk)
+                dw[:, :, t] = pw
+                dv[:, :, t] = _fma(dot, bonus, _in_order(_halve(groups, 3), 2))
+                du_acc = _fma(rt * kt, vdo, du_acc)
+                g = _fma(wt[..., :, None], g, rt[..., :, None] * dot[..., None, :])
     return dr, dk, dv, dw, _in_order(du_acc, 0)
 
 
 @pytest.mark.parametrize("with_dstate", [True, False])
 @pytest.mark.parametrize("decay", ["sigmoid", "near0", "near1"])
-@pytest.mark.parametrize("S", [33, 257])
+@pytest.mark.parametrize("S", [33, 65, 130, 257])
 @pytest.mark.parametrize("N", [32, 64])
 def test_kernel_order_matches_plain_and_jax(N, S, decay, with_dstate):
-    """K4b's checkpoints every 8 steps (S = 33 and 257 leave a ragged last
-    chunk), recomputed states and fixed-order sums hold the plain version
-    and ``jax.vjp`` at rtol 1e-5 and atol 1e-5 x max |grad|."""
+    """K4b's two-level checkpoints (segments of 64 steps, chunks of 8: S =
+    33 leaves a ragged chunk in one segment, 65 and 130 one step or two
+    past a segment boundary, 257 a ragged last segment) and fixed-order
+    sums hold the plain version and ``jax.vjp`` at rtol 1e-5 and atol 1e-5
+    x max |grad|."""
     case = _case(2, 2, S, N, decay, seed=N + S, with_dstate=with_dstate)
     ts = [None if x is None else _t(x) for x in case]
     got = [g.numpy() for g in _k4b_emulation(*ts)]
