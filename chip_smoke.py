@@ -10,7 +10,9 @@ prints no result):
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, started
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
-   ``wgmma``s; a K1 ``wgmma``, K3, K3b, K4 or K4b specialisation that
+   ``wgmma``s; K3 and K3b are built uncapped and with a logit cap (a
+   template flag); a K1 ``wgmma``, K3, K3b or K4 specialisation, capped or
+   not, or a K4b kernel that
    spills, or one missing, or a bf16 K3b kernel whose ``wgmma``s ``ptxas``
    serialised, fails the run;
 2. K1 (matmul) against its plain PyTorch version on the card, each case
@@ -33,18 +35,23 @@ prints no result):
    1500 x 1500 (its encoder), not causal; head dims 4, 16 and 96
    zero-padded (``pad``) in both dtypes, 96 also at minicpm3-4b's MLA
    prefill shape (40 heads over 40); a bf16 view whose last dimension is
-   strided, copied (``copy``); then ``[K3-lse]``: the log-sum-exp rows K3
+   strided, copied (``copy``); and capped (cap 5 over q and k 3 times unit
+   normal, so the logits reach ~15) on every path: granite-3-2b's prefill
+   shape, GQA 32/8, causal and not, ``kv_len`` < Sk and 0, Sq != Sk, head
+   dims 32, 64, 128 and 96; then ``[K3-lse]``: the log-sum-exp rows K3
    writes for training (``flash_attention_fwd``) against the plain
-   version's on the ``tma``, ``fp32`` and ``pad`` paths, the output
-   bit-identical to a launch without them; and ``[K3b]``: the CUDA
+   version's on the ``tma``, ``fp32`` and ``pad`` paths, uncapped and
+   capped, the output bit-identical to a launch without them; and
+   ``[K3b]``: the CUDA
    flash-attention backward's dq, dk and dv against its plain version, each
    case with its path (``tma``, ``fp32``, ``copy``, ``pad``): head dims 32,
    64, 128 and padded 16 and 96, causal and not, GQA 32/8, Sq != Sk both
    ways, ragged S = 33 and 130, one query row, ``kv_len`` < Sk and 0,
    granite-3-2b's training shape, minicpm3-4b's MLA at 96, whisper-large-v3's
    416 x 1500, a bf16 dout with a strided last dimension and a q whose base
-   is 4 bytes off the 16-byte granule (``copy``); a second launch on the
-   same inputs must give the same bits;
+   is 4 bytes off the 16-byte granule (``copy``), and capped on every path
+   (the plain capped backward carries the cap's derivative); a second
+   launch on the same inputs must give the same bits;
 5. K4 (WKV6) against its plain version, output and final state, each case
    with the path the wrapper took (``ring``, ``copy`` where TMA cannot
    address the inputs or their strides differ and the wrapper copies them
@@ -66,7 +73,11 @@ prints no result):
    minitron-4b's, minicpm3-4b's, command-r-35b's (64 query heads over 8 of
    128) and whisper-large-v3's encoder and decode cross-attention shapes;
    K3 with its LSE and K3b at granite-3-2b's training shape, K3b beside the
-   backward of SDPA and its five- and seven-product bounds; K4b at
+   backward of SDPA and its five- and seven-product bounds; K3 and K3b
+   capped at granite's shapes beside their plain versions, the larger of
+   the tensor bound and the special-function floor (3 operations a kept
+   pair at 16 a clock per SM) and ``flex_attention`` with the cap as its
+   ``score_mod`` (forward, and ``torch.autograd.grad`` through it); K4b at
    rwkv6-3b's training shape beside its plain version and its bound;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
@@ -91,12 +102,18 @@ prints no result):
    granite-moe-3b-a800m, minicpm3-4b, whisper-large-v3 (and 2 encoder
    layers over its 1500 frames), llava-next-mistral-7b, command-r-35b and
    jamba-1.5-large (layers 0 and 4 of its unit: a Mamba and the attention
-   layer, each with a dense FFN), run on the card and on the CPU from the
-   same parameters: prefill and decode logits compared;
+   layer, each with a dense FFN) and the capped granite-3-2b (below; in
+   the cut at caps of 0.5 with its queries and keys x4, so that the
+   attention cap binds, which a run of the same cut without it on the
+   card must show), run on the card and on the CPU from the same
+   parameters: prefill and decode logits compared;
 11. full-width serving through ``serve_smoke``, 32 greedy decode tokens,
    bf16 activations, 8 requests: granite-3-2b, rwkv6-3b, minitron-4b,
-   granite-moe-3b-a800m, minicpm3-4b, llava-next-mistral-7b and
-   command-r-35b (all 40 layers) at 2048-token prompts (llava's are 576
+   granite-moe-3b-a800m, minicpm3-4b, llava-next-mistral-7b,
+   command-r-35b (all 40 layers) and ``granite_3_2b+softcap``
+   (granite-3-2b with its attention logits capped at 50 and its final
+   logits at 30, the pair of Gemma 2's published configs: K3's capped
+   specialisation) at 2048-token prompts (llava's are 576
    patches and 1472 text tokens), whisper-large-v3 at 416-token prompts
    over 1500 encoder frames, and deepseek-moe-16b cut to 4 layers (its
    dense prefix layer and three MoE layers); 4 requests of 2048 tokens:
@@ -116,7 +133,7 @@ prints no result):
    and ``[prefill-split]``, jamba's prefill timed layer by layer (Mamba
    mixers, MoE and dense FFNs, the attention layer) and its Mamba
    recurrence alone;
-12. ``[decode-graph]``: each of the ten models prefilled, then 32 decode
+12. ``[decode-graph]``: each of the eleven models prefilled, then 32 decode
    steps from the same cache eagerly and through ``DecodeGraph`` (one CUDA
    graph per step), timed back to back: greedy tokens equal, the logits'
    largest difference, the capture's ms, ms per token of both, and the
@@ -136,15 +153,18 @@ prints no result):
    all started together; each must exit 0;
 15. training: ``[train-vs-cpu]``, one ``make_train_step`` step of a 2-layer,
    full-width cut of granite-3-2b, minicpm3-4b, whisper-large-v3 (and 2
-   encoder layers) and rwkv6-3b in f32 at batch 2 x 128 on the card and on
+   encoder layers), rwkv6-3b and the capped granite-3-2b (cut as in 10.)
+   in f32 at batch 2 x 128 on the card and on
    the CPU from the same parameters (loss, ``grad_norm``, updated
    parameters and moments; rwkv6-3b's card step 4 K4 and 2 K4b launches);
    ``[train]``, granite-3-2b and then rwkv6-3b at full width and depth (f32
    parameters and AdamW state, bf16 activations, remat), 6 steps of 8 x
-   2048 synthetic tokens each through ``launch.train.train``, the counters
+   2048 synthetic tokens each through ``launch.train.train``, then the
+   capped granite-3-2b for 3 steps, the counters
    set to 0 just before: granite's K3 80 and K3b 40 launches a step, all on
-   ``tma``, rwkv6's K4 64 on ``ring`` and K4b 32 on ``direct`` (printed by
-   path), losses finite, every parameter moved, ms a step, tokens/s, peak
+   ``tma`` (the capped granite's on the capped kernels), rwkv6's K4 64 on
+   ``ring`` and K4b 32 on ``direct`` (printed by
+   path), losses finite and falling, every parameter moved, ms a step, tokens/s, peak
    memory, and one step under ``torch.profiler`` with the kernels' share;
    ``[train-restart]``, 2 full-width layers, a failure injected at step 7
    and a restart from the step-5 checkpoint, the losses after it against
@@ -153,8 +173,12 @@ prints no result):
    same with ``--arch rwkv6_3b``, which must exit 0.
 
 The line before the last is a JSON object listing each kernel with its
-launches on its main path, error, times and bound; the last line is
-``{"ok": true, "device": {...}}``.
+launches on its main path, error, times and bound, and the capped K3 and
+K3b (``flash_attention+cap``, ``flash_attention_bwd+cap``: the launches
+their wrappers counted as capped on the main paths, the capped granite's,
+which the kernel's own total also counts); a ``[phase]`` line gives the
+seconds elapsed after each phase; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -213,8 +237,9 @@ K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not cau
 K3_COMMAND_R = (8, 64, 8, 2048, 128)
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
 # every served model: (arch, the kernel its prefill runs, its prompt length,
-# the config's one cut, its requests).  whisper-large-v3's decoder prompt is
-# 416 tokens, so 416 + 32 stays inside its published 448-token text context
+# the config's one cut, its requests); "arch+variant" is the published config
+# with the fields of the registry's VARIANTS[variant].  whisper-large-v3's
+# decoder prompt is 416 tokens, so 416 + 32 stays inside its published 448-token text context
 # (beside its 1500 encoder frames); llava-next-mistral-7b's 2048 positions
 # are 576 patches and 1472 text tokens; deepseek-moe-16b keeps its dense
 # prefix layer and three MoE units at full width (all 28 layers would hold
@@ -224,6 +249,7 @@ K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
 # and 4 requests, as its MoE computes every expert for every token, (16, T,
 # 24576) products of about 2.6 MB a token
 SERVED = (("granite_3_2b", "flash_attention", 2048, {}, 8), ("rwkv6_3b", "wkv6", 2048, {}, 8),
+          ("granite_3_2b+softcap", "flash_attention", 2048, {}, 8),
           ("minitron_4b", "flash_attention", 2048, {}, 8),
           ("granite_moe_3b_a800m", "flash_attention", 2048, {}, 8),
           ("minicpm3_4b", "flash_attention", 2048, {}, 8),
@@ -235,7 +261,16 @@ SERVED = (("granite_3_2b", "flash_attention", 2048, {}, 8), ("rwkv6_3b", "wkv6",
            {"n_layers": 5, "unit": slice(5)}, 4))
 CARD_VS_CPU = ("granite_3_2b", "rwkv6_3b", "granite_moe_3b_a800m", "minicpm3_4b",
                "whisper_large_v3", "llava_next_mistral_7b", "command_r_35b",
-               "jamba_1_5_large_398b")
+               "jamba_1_5_large_398b", "granite_3_2b+softcap")
+# [K3], [K3-lse] and [K3b]'s capped cases: a cap of 5 over q and k drawn 3
+# times unit normal, so the scaled logits reach ~15 and the tanh saturates
+CHECK_CAP, CHECK_CAP_INPUTS = 5.0, 3.0
+# [card-vs-cpu] and [train-vs-cpu] cut an "arch+variant" config with the
+# variant's caps at a cut's values (0.5) and its query and key projections
+# scaled by this: its scaled attention logits, ~1 at init, grow 16-fold, so
+# the attention cap binds hard (without it granite's 2-layer prefill logits
+# move by ~1, against ~7e-4 at the weights as drawn)
+CUT_QK_GAIN = 4.0
 # [card-vs-cpu]'s 2 layers of a model whose unit is longer: which layers of
 # the unit (jamba: a Mamba and the attention layer, each with a dense FFN)
 CARD_VS_CPU_UNIT = {"jamba_1_5_large_398b": (0, 4)}
@@ -249,6 +284,8 @@ INIT_CHECKED = ("granite_3_2b", "rwkv6_3b", "minitron_4b", "granite_moe_3b_a800m
 # served models whose prefill is also timed layer by layer (``[prefill-split]``)
 PREFILL_SPLIT = ("jamba_1_5_large_398b",)
 PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
+# special-function (MUFU) operations an SM issues a clock (Hopper)
+MUFU_PER_SM_CLOCK = 16
 
 
 def bound(flops: float, nbytes: float, flop_rate: float, byte_rate: float
@@ -392,11 +429,12 @@ def check_matadd(matadd, ref, gen) -> float:
     return worst
 
 
-def _strided(shape_bshd, dtype, gen):
-    """A (B, S, H, d) tensor on the card, returned as its (B, H, S, d) view:
-    the layout the model hands to K3 and K4."""
-    x = torch.randn(shape_bshd, device="cuda", generator=gen).to(dtype)
-    return x.transpose(1, 2)
+def _strided(shape_bshd, dtype, gen, scale: float = 1.0):
+    """A (B, S, H, d) tensor on the card, ``scale`` times unit normal,
+    returned as its (B, H, S, d) view: the layout the model hands to K3 and
+    K4."""
+    x = torch.randn(shape_bshd, device="cuda", generator=gen)
+    return (x * scale if scale != 1.0 else x).to(dtype).transpose(1, 2)
 
 
 def _row_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -405,16 +443,18 @@ def _row_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
 
 
-def check_flash(flash, ref, gen) -> float:
-    """-> max |error| at the main path's shape.  Tolerances: the test
+def check_flash(flash, ref, gen) -> tuple[float, float]:
+    """-> max |error| at the main path's shape, uncapped and capped.  Tolerances: the test
     suite's elementwise 2e-5 in f32 and 2e-2 in bf16 (rtol = atol), and per
     query row |got - plain| / |plain| (2-norms over hd) below 1e-4 in f32
     and 1e-2 in bf16.  A causal row averages up to S values of unit-normal
     V, so its entries shrink to ~0.05 at S = 2048; the elementwise bf16
     tolerance alone would pass errors of half their size, the per-row one
     holds each row to a few bf16 roundings of its own norm (for rows of
-    fewer than 32 values, see below)."""
-    main_err = None
+    fewer than 32 values, see below).  The capped cases (cap 5 over q and k
+    3 times unit normal) are held to the plain capped version at the same
+    tolerances."""
+    main_err = capped_err = None
     B0, H0, K0, S0, hd0 = K3_SHAPE
     Bm, Hm, Km, Sm, hdm = K3_MINITRON
     cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
@@ -471,17 +511,40 @@ def check_flash(flash, ref, gen) -> float:
             cases.append((2, 4, 2, 130, 130, hd, dt, True, None))
     cases.append((2, 4, 2, 130, 130, 96, torch.bfloat16, False, 77))
     cases.append((1, 4, 4, 128, 128, 64, torch.bfloat16, True, "strided"))
-    for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
+    cases = [(*c, 0.0) for c in cases]
+    # capped (a model's attn_logit_softcap) on every path: granite-3-2b's
+    # prefill shape, GQA 32/8, causal and not, kv_len < Sk and 0, Sq != Sk
+    # both ways, head dims 32, 64, 128 and 96 (pad), a strided view (copy)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases += [(*c, CHECK_CAP) for c in (
+        (B0, H0, K0, S0, S0, hd0, bf16, True, None),
+        (2, 32, 8, 512, 512, 64, f32, True, None),
+        (2, 4, 4, 256, 256, 64, f32, False, None),
+        (2, 4, 2, 256, 256, 32, bf16, False, None),
+        (1, 4, 4, 128, 128, 64, f32, True, 77),
+        (1, 4, 4, 128, 128, 128, bf16, False, 77),
+        (1, 4, 2, 96, 160, 64, f32, True, 0),
+        (1, 4, 2, 96, 160, 128, bf16, False, 0),
+        (2, 24, 8, 77, 77, 128, bf16, True, None),
+        (2, 24, 8, 77, 77, 128, f32, True, None),
+        (2, 4, 4, 64, 192, 32, f32, True, None),
+        (2, 4, 4, 192, 64, 128, bf16, True, None),
+        (2, 40, 40, 512, 512, 96, bf16, True, None),
+        (2, 4, 2, 130, 130, 96, f32, True, None),
+        (1, 4, 4, 128, 128, 64, bf16, True, "strided"))]
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len, cap in cases:
+        x = CHECK_CAP_INPUTS if cap else 1.0
         if kv_len == "strided":  # a strided last dimension: the copy path
             kv_len = None
-            q, k, v = (_strided((B, S, heads, 2 * hd), dt, gen)[..., ::2]
-                       for S, heads in ((Sq, H), (Sk, K), (Sk, K)))
+            q, k, v = (_strided((B, S, heads, 2 * hd), dt, gen, sc)[..., ::2]
+                       for S, heads, sc in ((Sq, H, x), (Sk, K, x), (Sk, K, 1.0)))
         else:
-            q = _strided((B, Sq, H, hd), dt, gen)
-            k = _strided((B, Sk, K, hd), dt, gen)
+            q = _strided((B, Sq, H, hd), dt, gen, x)
+            k = _strided((B, Sk, K, hd), dt, gen, x)
             v = _strided((B, Sk, K, hd), dt, gen)
-        got, taken = paths_taken(flash, lambda: flash(q, k, v, causal=causal, kv_len=kv_len))
-        want = ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        got, taken = paths_taken(flash, lambda: flash(q, k, v, causal=causal, kv_len=kv_len,
+                                                      cap=cap))
+        want = ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
         want_path = ("pad" if hd not in (32, 64, 128) else "fp32" if dt == torch.float32
                      else "copy" if q.stride(-1) != 1 else "tma")
         if taken != [want_path]:
@@ -499,26 +562,31 @@ def check_flash(flash, ref, gen) -> float:
             # error against the f32 product of the same inputs, where that
             # is above 1e-2
             exact = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal,
-                                        kv_len=kv_len)
+                                        kv_len=kv_len, cap=cap)
             row_tol = max(row_tol, 2 * _row_err(want, exact))
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         if not row_err < row_tol:
-            raise AssertionError(f"flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {dt}: "
-                                 f"row relative error {row_err} >= {row_tol}")
+            raise AssertionError(f"flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {dt} "
+                                 f"cap {cap:g}: row relative error {row_err} >= {row_tol}")
         print(f"[K3] flash_attention B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
-              f"causal={causal} kv_len={kv_len} last-dim stride {q.stride(-1)} "
+              f"causal={causal} kv_len={kv_len}"
+              + (f" cap={cap:g} (q, k x{x:g})" if cap else "")
+              + f" last-dim stride {q.stride(-1)} "
               f"path={taken[0]} max_abs_err={err} (rtol=atol={tol:g}) "
               f"max_row_rel_err={row_err:.3e} (< {row_tol:g}) ok")
         if main_err is None:
             main_err = err
-    return main_err
+        if cap and capped_err is None:
+            capped_err = err
+    return main_err, capped_err
 
 
 def check_flash_lse(gen) -> None:
     """``[K3-lse]``: K3's log-sum-exp rows (``flash_attention_fwd``) against
     the plain version's, on the ``tma``, ``fp32`` and ``pad`` paths, causal
-    or not, GQA, ``kv_len`` < Sk; the output bit-identical to a launch
-    without the LSE.  Tolerance rtol = atol = 1e-5 in f32 and 1e-4 in bf16:
+    or not, GQA, ``kv_len`` < Sk, uncapped and capped (cap 5 over q and k 3
+    times unit normal: the LSE of the capped logits); the output
+    bit-identical to a launch without the LSE.  Tolerance rtol = atol = 1e-5 in f32 and 1e-4 in bf16:
     the logits of bf16 inputs are exact f32 products in both versions, but
     the bf16 kernel sums ``ex2.approx`` terms (relative error ~2^-22 each)
     and takes its log in base 2."""
@@ -535,14 +603,23 @@ def check_flash_lse(gen) -> None:
         (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "pad"),
         (2, 8, 2, 130, 130, 16, torch.float32, True, None, "pad"),
     ]
-    for B, H, K, Sq, Sk, hd, dt, causal, kv_len, want_path in cases:
-        q = _strided((B, Sq, H, hd), dt, gen)
-        k = _strided((B, Sk, K, hd), dt, gen)
+    cases = [(*c, 0.0) for c in cases] + [(*c, CHECK_CAP) for c in (
+        (2, 32, 8, 2048, 2048, 64, torch.bfloat16, True, None, "tma"),
+        (2, 8, 2, 130, 130, 128, torch.bfloat16, False, 77, "tma"),
+        (2, 8, 2, 130, 130, 32, torch.bfloat16, True, 0, "tma"),
+        (2, 32, 8, 512, 512, 64, torch.float32, True, None, "fp32"),
+        (2, 8, 2, 130, 190, 128, torch.float32, False, 77, "fp32"),
+        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "pad"))]
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len, want_path, cap in cases:
+        x = CHECK_CAP_INPUTS if cap else 1.0
+        q = _strided((B, Sq, H, hd), dt, gen, x)
+        k = _strided((B, Sk, K, hd), dt, gen, x)
         v = _strided((B, Sk, K, hd), dt, gen)
-        (o, lse), taken = paths_taken(
-            flash_attention, lambda: flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len))
-        plain = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
-        want_o, want_lse = ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+        kw = dict(causal=causal, kv_len=kv_len, cap=cap)
+        (o, lse), taken = paths_taken(flash_attention,
+                                      lambda: flash_attention_fwd(q, k, v, **kw))
+        plain = flash_attention(q, k, v, **kw)
+        want_o, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         if taken != [want_path]:
             raise AssertionError(f"flash_attention_fwd hd{hd} {dt}: paths {taken}, "
@@ -556,18 +633,22 @@ def check_flash_lse(gen) -> None:
         torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
         err = (lse - want_lse).abs().max().item()
         print(f"[K3-lse] B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} causal={causal} "
-              f"kv_len={kv_len} path={taken[0]} lse max_abs_err={err:.3e} (rtol=atol={tol:g}); "
+              f"kv_len={kv_len}" + (f" cap={cap:g} (q, k x{x:g})" if cap else "")
+              + f" path={taken[0]} lse max_abs_err={err:.3e} (rtol=atol={tol:g}); "
               f"output bit-identical to the launch without the LSE ok")
 
 
-def check_flash_bwd(gen) -> float:
+def check_flash_bwd(gen) -> tuple[float, float]:
     """``[K3b]``: dq, dk and dv of the CUDA backward against the plain
     version's (``ref.flash_attention_bwd``), both fed the same q, k, v, o,
     LSE (K3's forward) and dout, each case on the path it names (``tma``,
     ``fp32``, ``copy`` for a bf16 dout with a strided last dimension and a q
     whose base is 4 bytes off the 16-byte granule, or ``pad``); a second
-    launch on the same inputs must give the same bits (no atomics).  -> the
-    largest error at granite-3-2b's training shape.
+    launch on the same inputs must give the same bits (no atomics).  The
+    capped cases (cap 5 over q and k 3 times unit normal) run the capped
+    kernels, held to the plain capped backward (which carries the cap's
+    derivative) at the same tolerances.  -> the largest error at
+    granite-3-2b's training shape, uncapped and capped.
 
     Tolerance, on each gradient, max |kernel - plain| <= tol x max |plain|:
     1e-4 in f32 (sums of up to Sq x G terms taken in another order) and
@@ -610,26 +691,46 @@ def check_flash_bwd(gen) -> float:
         (2, 32, 8, 512, 512, 64, bf16, True, "strided dout"),
         (2, 4, 2, 130, 200, 128, bf16, False, "offset q"),
     ]
-    main_err = None
-    for B, H, K, Sq, Sk, hd, dt, causal, kv_len in cases:
+    cases = [(*c, 0.0) for c in cases] + [(*c, CHECK_CAP) for c in (
+        (B0, H0, K0, S0, S0, hd0, bf16, True, None),  # granite-3-2b's training shape
+        (2, 32, 8, 512, 512, 64, f32, True, None),    # GQA 32/8
+        (2, 32, 8, 512, 512, 64, bf16, False, None),
+        (2, 4, 4, 256, 256, 32, f32, False, None),
+        (2, 4, 4, 256, 256, 32, bf16, True, None),
+        (2, 4, 2, 256, 256, 128, f32, True, None),
+        (2, 4, 2, 256, 256, 128, bf16, True, None),
+        (2, 4, 4, 192, 64, 64, bf16, True, None),     # Sq > Sk
+        (2, 4, 4, 64, 192, 128, f32, True, None),     # Sq < Sk
+        (2, 4, 2, 130, 130, 64, bf16, True, None),    # ragged
+        (1, 4, 4, 128, 160, 64, f32, True, 77),       # kv_len < Sk
+        (1, 4, 4, 128, 160, 128, bf16, False, 77),
+        (1, 4, 4, 128, 160, 64, bf16, True, 0),       # kv_len 0
+        (2, 8, 8, 256, 256, 96, bf16, True, None),    # pad
+        (2, 8, 8, 256, 256, 96, f32, False, 200),
+        (2, 32, 8, 512, 512, 64, bf16, True, "strided dout"),  # copy
+        (2, 4, 2, 130, 200, 128, bf16, False, "offset q"))]
+    main_err = capped_err = None
+    for B, H, K, Sq, Sk, hd, dt, causal, kv_len, cap in cases:
         layout = kv_len if isinstance(kv_len, str) else None
         kv_len = None if layout else kv_len
+        x = CHECK_CAP_INPUTS if cap else 1.0
         if layout == "offset q":  # the base 4 bytes past an allocation's
-            buf = torch.randn(B * Sq * H * hd + 2, device="cuda", generator=gen).to(dt)
-            q = buf[2:].view(B, Sq, H, hd).transpose(1, 2)
+            buf = torch.randn(B * Sq * H * hd + 2, device="cuda", generator=gen)
+            q = (buf * x if cap else buf).to(dt)[2:].view(B, Sq, H, hd).transpose(1, 2)
         else:
-            q = _strided((B, Sq, H, hd), dt, gen)
-        k = _strided((B, Sk, K, hd), dt, gen)
+            q = _strided((B, Sq, H, hd), dt, gen, x)
+        k = _strided((B, Sk, K, hd), dt, gen, x)
         v = _strided((B, Sk, K, hd), dt, gen)
         if layout == "strided dout":
             dout = _strided((B, Sq, H, 2 * hd), dt, gen)[..., ::2]
         else:
             dout = _strided((B, Sq, H, hd), dt, gen)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
-        got, taken = paths_taken(flash_attention_bwd, lambda: flash_attention_bwd(
-            q, k, v, o, lse, dout, causal=causal, kv_len=kv_len))
-        again = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len)
-        want = ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal, kv_len=kv_len)
+        kw = dict(causal=causal, kv_len=kv_len, cap=cap)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        got, taken = paths_taken(flash_attention_bwd,
+                                 lambda: flash_attention_bwd(q, k, v, o, lse, dout, **kw))
+        again = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        want = ref.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
         torch.cuda.synchronize()
         want_path = ("pad" if hd not in (32, 64, 128) else "fp32" if dt == f32
                      else "copy" if layout else "tma")
@@ -646,8 +747,8 @@ def check_flash_bwd(gen) -> float:
             err = (g.float() - w.float()).abs().max().item()
             if not (torch.isfinite(g).all() and err <= tol * scale):
                 raise AssertionError(f"flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} "
-                                     f"{dt} causal={causal} kv_len={kv_len}: {name} max_abs_err "
-                                     f"{err} > {tol:g} x max|plain| {scale}")
+                                     f"{dt} causal={causal} kv_len={kv_len} cap={cap:g}: {name} "
+                                     f"max_abs_err {err} > {tol:g} x max|plain| {scale}")
             errs.append(f"{name} {err:.3e} (max|plain| {scale:.3e})")
             worst = max(worst, err)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -655,27 +756,70 @@ def check_flash_bwd(gen) -> float:
                                  f"two launches on the same inputs differ")
         if main_err is None:
             main_err = worst
+        if cap and capped_err is None:
+            capped_err = worst
         print(f"[K3b] flash_attention_bwd B{B} H{H}/K{K} Sq{Sq} Sk{Sk} hd{hd} {str(dt)[6:]} "
-              f"causal={causal} kv_len={kv_len}{f' ({layout})' if layout else ''} "
-              f"path={taken[0]} max_abs_err " + ", ".join(errs)
+              f"causal={causal} kv_len={kv_len}{f' ({layout})' if layout else ''}"
+              + (f" cap={cap:g} (q, k x{x:g})" if cap else "")
+              + f" path={taken[0]} max_abs_err " + ", ".join(errs)
               + f" (<= {tol:g} x max|plain|); a second launch bit-equal ok")
         del q, k, v, dout, o, lse, got, again, want
-    return main_err
+    return main_err, capped_err
 
 
-def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, tuple, float, dict]:
-    """-> ((K3b ms, plain ms, SDPA backward ms), bound, seven-product bound,
+def flex_capped(q, k, v, cap: float, causal: bool = True):
+    """-> (fn, (q, k, v) as contiguous copies): ``fn(q, k, v)`` is attention
+    capped at ``cap`` by ``torch.nn.attention.flex_attention`` on (B, H, S,
+    hd) tensors, K and V with fewer heads (``enable_gqa``): a ``score_mod``
+    of ``cap * tanh(s / cap)`` on the scaled logits and, causal, a
+    ``BlockMask`` of ``q_idx >= kv_idx``.  The library call that computes
+    the capped K3 and K3b's function (the port never calls it), compiled by
+    ``torch.compile`` at its first call, in one thread, with its caches
+    under the kernels' build directory; its backward kept for a second
+    ``torch.autograd.grad`` (no donated buffers)."""
+    from repro_torch.kernels._build import BUILD_DIR
+
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import torch._functorch.config
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    torch._inductor.config.compile_threads = 1
+    torch._functorch.config.donated_buffer = False
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    mask = (create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None,
+                              q.shape[2], k.shape[2], device=q.device) if causal else None)
+    compiled = torch.compile(flex_attention, dynamic=False)
+    gqa = q.shape[1] != k.shape[1]
+    return ((lambda q, k, v: compiled(q, k, v, score_mod=softcap, block_mask=mask,
+                                      enable_gqa=gqa)),
+            tuple(t.contiguous() for t in (q, k, v)))
+
+
+def time_flash_bwd(gen, peaks, cap: float = 0.0) -> tuple[tuple, tuple, tuple, float, dict]:
+    """-> ((K3b ms, plain ms, library backward ms), bound, the design's bound,
     K3-with-LSE ms, {K3b's kernel: device ms a launch}) in bf16 at
-    granite-3-2b's training shape, on the model's strided views; the split
+    granite-3-2b's training shape, on the model's strided views, with a
+    logit cap where ``cap > 0``; the split
     by kernel (its three launches) from ``torch.profiler`` over 5 calls.
     The bound counts the five products of a backward that recomputes P, 10
     hd operations per (query, key) pair the causal mask keeps, against the
     bf16 tensor peak, over q, k, v, o, dout and the LSE read once and dq,
-    dk, dv written once; the seven-product bound the 14 hd of K3b's two
-    kernels, which both compute S and dP.  The library call:
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention(
-    is_causal=True)`` (K and V expanded to the query heads outside the
-    timed call), the backward alone."""
+    dk, dv written once; the design's bound the seven products of K3b's two
+    kernels (14 hd a pair), which both compute S and dP.  Capped, the bound
+    is the larger of the five-product bound and the function's
+    special-function floor, 3 MUFU operations a kept pair (the tanh's ex2
+    and rcp, P's ex2) at ``peaks["mufu"]``; the design's the larger of the
+    seven-product bound and 6 operations a pair, as both kernels recompute
+    the tanh and P.  The library call: ``torch.autograd.grad`` (the backward
+    alone) through ``scaled_dot_product_attention(is_causal=True)``, K and
+    V expanded to the query heads outside the timed call; capped, through
+    :func:`flex_capped`, its gradients first held against K3b's at K3b's
+    tolerance."""
     import re
 
     import torch.nn.functional as F
@@ -690,26 +834,43 @@ def time_flash_bwd(gen, peaks) -> tuple[tuple, tuple, tuple, float, dict]:
     k = _strided((B, S, K, hd), torch.bfloat16, gen)
     v = _strided((B, S, K, hd), torch.bfloat16, gen)
     dout = _strided((B, S, H, hd), torch.bfloat16, gen)
-    o, lse = flash_attention_fwd(q, k, v)
+    o, lse = flash_attention_fwd(q, k, v, cap=cap)
     pairs = B * H * S * (S + 1) / 2
     nbytes = (4 * B * H * S * hd + 4 * B * K * S * hd) * 2 + B * H * S * 4
     bnd = bound(10.0 * pairs * hd, nbytes, peaks["bf16"], peaks["bytes"])
     bnd7 = bound(14.0 * pairs * hd, nbytes, peaks["bf16"], peaks["bytes"])
-    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout), batches=5, per_batch=5)
-    plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout), batches=3,
+    if cap:
+        bnd = max(bnd, (3.0 * pairs / peaks["mufu"] * 1e3, "operations"))
+        bnd7 = max(bnd7, (6.0 * pairs / peaks["mufu"] * 1e3, "operations"))
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, cap=cap), batches=5,
+                 per_batch=5)
+    plain = time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout, cap=cap), batches=3,
                     per_batch=1)
-    qs, ks, vs = (t.detach().requires_grad_() for t in
-                  (q, k.repeat_interleave(H // K, dim=1), v.repeat_interleave(H // K, dim=1)))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    if cap:
+        fn, args = flex_capped(q, k, v, cap)
+        qs, ks, vs = (t.requires_grad_() for t in args)
+        out = fn(qs, ks, vs)
+        grads = flash_attention_bwd(q, k, v, o, lse, dout, cap=cap)
+        for name, got, want in zip(("dq", "dk", "dv"), grads,
+                                   torch.autograd.grad(out, (qs, ks, vs), dout)):
+            err, scale = (got.float() - want.float()).abs().max().item(), want.abs().max().item()
+            if not err <= 1e-2 * scale:
+                raise AssertionError(f"flex_attention's capped {name} off K3b's by {err} "
+                                     f"(largest {scale})")
+        out = fn(qs, ks, vs)
+    else:
+        qs, ks, vs = (t.detach().requires_grad_() for t in
+                      (q, k.repeat_interleave(H // K, dim=1), v.repeat_interleave(H // K, dim=1)))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     lib = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))
-    fwd_lse = time_ms(lambda: flash_attention_fwd(q, k, v))
+    fwd_lse = time_ms(lambda: flash_attention_fwd(q, k, v, cap=cap))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            flash_attention_bwd(q, k, v, o, lse, dout)
+            flash_attention_bwd(q, k, v, o, lse, dout, cap=cap)
         torch.cuda.synchronize()
     split = {m.group(1): t / 5 for name, t in _kernel_ms(prof)[0].items()
-             if (m := re.search(r"(bwd_\w+(?:<\d+>)?)", name))}
+             if (m := re.search(r"(bwd_\w+(?:<[^>]*>)?)", name))}
     return (ms, plain, lib), bnd, bnd7, fwd_lse, split
 
 
@@ -900,11 +1061,16 @@ def time_wkv6_bwd(gen, peaks) -> tuple[tuple, tuple, dict, int]:
     return (ms, plain, None), bnd, split, checkpoint_bytes(B, H, S, N)
 
 
-def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | None = None
-               ) -> tuple[tuple, tuple]:
+def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | None = None,
+               cap: float = 0.0) -> tuple[tuple, tuple]:
     """-> ((ms, plain ms, SDPA ms), bound) of K3 in bf16 at ``shape`` (B, H,
     K, S, hd) on the model's strided views: ``sq`` queries (default S) over
-    S keys, causal or not."""
+    S keys, causal or not, with a logit cap where ``cap > 0`` (Sq = S).  A
+    capped kernel's bound is the larger of the tensor bound and its
+    special-function floor: 3 MUFU operations a kept pair (ex2 and rcp for
+    a tanh accurate to the checks' tolerances, ex2 for P) at
+    ``peaks["mufu"]``; its library call :func:`flex_capped`, whose output
+    is first held against K3's at K3's bf16 tolerance."""
     import torch.nn.functional as F
 
     B, H, K, S, hd = shape
@@ -912,20 +1078,27 @@ def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | Non
     q = _strided((B, Sq, H, hd), torch.bfloat16, gen)
     k = _strided((B, S, K, hd), torch.bfloat16, gen)
     v = _strided((B, S, K, hd), torch.bfloat16, gen)
-    # the library call: SDPA, where its top-left causal alignment is the
-    # reference's (Sq = Sk, or no mask), K and V expanded to the query heads
-    # outside the timed call
-    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     # (query, key) pairs the mask keeps, each 4 hd operations at the
     # caller's head dim (not the padded one)
     pairs = B * H * Sq * (S + 1) / 2 if causal else B * H * Sq * S
     bf16 = 2
     bnd = bound(4.0 * pairs * hd, (2 * B * H * Sq * hd + 2 * B * K * S * hd) * bf16,
                 peaks["bf16"], peaks["bytes"])
-    return (time_ms(lambda: flash(q, k, v, causal=causal)),
-            time_ms(lambda: ref.flash_attention(q, k, v, causal=causal), batches=3,
-                    per_batch=5),
-            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=causal))), bnd
+    ms = time_ms(lambda: flash(q, k, v, causal=causal, cap=cap))
+    plain = time_ms(lambda: ref.flash_attention(q, k, v, causal=causal, cap=cap), batches=3,
+                    per_batch=5)
+    if cap:
+        bnd = max(bnd, (3.0 * pairs / peaks["mufu"] * 1e3, "operations"))
+        fn, args = flex_capped(q, k, v, cap, causal)
+        torch.testing.assert_close(fn(*args).float(), flash(q, k, v, causal=causal, cap=cap)
+                                   .float(), rtol=2e-2, atol=2e-2)
+        return (ms, plain, time_ms(lambda: fn(*args))), bnd
+    # the library call: SDPA, where its top-left causal alignment is the
+    # reference's (Sq = Sk, or no mask), K and V expanded to the query heads
+    # outside the timed call
+    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
+    return (ms, plain, time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                                      is_causal=causal))), bnd
 
 
 def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
@@ -1202,6 +1375,17 @@ def arena_fused(dev, modules: dict, smi: str) -> tuple[dict, dict]:
     return totals, walls
 
 
+def sharpen_attention(tree: dict, gain: float) -> None:
+    """Scales the query and key projections (``wq``, ``wk``) of every
+    attention in a parameter tree by ``gain``, in place."""
+    if "wq" in tree and "wk" in tree:
+        tree["wq"].mul_(gain)
+        tree["wk"].mul_(gain)
+    for v in tree.values():
+        if isinstance(v, dict):
+            sharpen_attention(v, gain)
+
+
 def card_vs_cpu(arch: str, dev) -> None:
     """2 layers of ``arch`` at full width in f32 (and 2 encoder layers for
     the encoder-decoder; jamba's layers 0 and 4, a Mamba and the attention
@@ -1209,8 +1393,12 @@ def card_vs_cpu(arch: str, dev) -> None:
     patches), 4 decode steps: the same parameters (drawn on the card, where
     drawing is fast, and copied to the CPU) on the card and on the CPU.
     Tolerance: rtol 1e-4 and atol 1e-4 x the largest CPU logit (f32
-    products of K up to 24576 summed in another order on each side)."""
-    from repro_torch.configs.registry import get_config, make_batch
+    products of K up to 24576 summed in another order on each side).  An
+    ``arch+variant`` takes the variant's fields at a cut's values
+    (``split_variant(cut=True)``) and its queries and keys ``CUT_QK_GAIN``
+    times as large, and its card logits must differ from those of the same
+    cut without its attention cap by over 100 times the tolerance."""
+    from repro_torch.configs.registry import get_config, make_batch, split_variant
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import init_params, tree_map
@@ -1218,17 +1406,32 @@ def card_vs_cpu(arch: str, dev) -> None:
     full = get_config(arch)
     unit = tuple(full.unit[i] for i in CARD_VS_CPU_UNIT.get(arch, range(len(full.unit))))
     cfg = dataclasses.replace(full, n_layers=2, unit=unit, activation_dtype="float32",
-                              n_encoder_layers=2 if full.enc_dec else 0)
+                              n_encoder_layers=2 if full.enc_dec else 0,
+                              **split_variant(arch, cut=True)[1])
     ctx = Ctx(dtype=torch.float32)
     B, S, steps = 2, 128 + (cfg.n_patches if cfg.vlm else 0), 4
     with torch.inference_mode():
         params = init_params(T.model_param_specs(cfg), torch.Generator(dev).manual_seed(0))
+        if cfg.attn_logit_softcap:
+            sharpen_attention(params, CUT_QK_GAIN)
         batch = make_batch(cfg, S, B, train=False, generator=torch.Generator().manual_seed(0))
         sides = {"cpu": (tree_map(lambda t: t.cpu(), params), batch),
                  "card": (params, {k: t.to(dev) for k, t in batch.items()})}
         caches, logits = {}, {}
         for side, (p, b) in sides.items():
             caches[side], logits[side] = T.prefill(p, b, cfg, ctx, cache_len=S + steps)
+        moved = ""
+        if cfg.attn_logit_softcap:
+            _, free = T.prefill(*sides["card"], dataclasses.replace(cfg, attn_logit_softcap=0.0),
+                                ctx, cache_len=S + steps)
+            want = logits["cpu"]
+            diff = (free.cpu() - want).abs().max().item()
+            if not diff > 100 * 1e-4 * want.abs().max().item():
+                raise AssertionError(f"[card-vs-cpu] {cfg.name}: the attention cap "
+                                     f"{cfg.attn_logit_softcap:g} moves the logits by {diff} only")
+            moved = (f"; without the attention cap {cfg.attn_logit_softcap:g} the card's prefill "
+                     f"logits move by {diff:.4g} (> 100 x the tolerance)")
+            del free
         errs = []
         for i in range(steps + 1):
             want, got = logits["cpu"], logits["card"].cpu()
@@ -1244,14 +1447,17 @@ def card_vs_cpu(arch: str, dev) -> None:
     layers = ("2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
               + (f" ({', '.join(f'{s.mixer}+{s.ffn}' for s in unit)})"
                  if arch in CARD_VS_CPU_UNIT else ""))
-    print(f"[card-vs-cpu] {cfg.name} {layers} full width f32 B{B} S{S}: prefill logits "
+    caps = (f" (caps {cfg.attn_logit_softcap:g} and {cfg.logits_softcap:g}, a cut's; queries "
+            f"and keys x{CUT_QK_GAIN:g})" if cfg.attn_logit_softcap else "")
+    print(f"[card-vs-cpu] {cfg.name}{caps} {layers} full width f32 B{B} S{S}: prefill logits "
           f"max_abs_err={errs[0]}, decode steps {errs[1:]} (rtol=1e-4, atol=1e-4 x "
-          f"max|logit|) ok")
+          f"max|logit|){moved} ok")
 
 
 def served_config(arch: str, cut: dict):
-    """The published config of ``arch`` with its one listed cut, if any:
-    fewer layers, and for a ``unit`` slice only those layers of the unit."""
+    """The published config of ``arch`` (or of ``arch+variant``) with its one
+    listed cut, if any: fewer layers, and for a ``unit`` slice only those
+    layers of the unit."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
@@ -1306,7 +1512,9 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
     ``n_requests`` requests of ``prompt_len`` positions and 32 decode tokens,
     the counters of the kernel ``kname`` set to 0 just before; -> what the
     run printed.  The launches and their path must be
-    :func:`expected_launches`'."""
+    :func:`expected_launches`', and K3's all capped for a config with an
+    attention logit cap, none otherwise (its prefill launches them all
+    through the wrapper)."""
     from repro_torch.launch.serve import serve_smoke
 
     module = importlib.import_module(f"repro_torch.kernels.{kname}")
@@ -1317,7 +1525,11 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
     tokens, stats = serve_smoke(cfg, **serve, seed=0, device=dev)
     launches = kernel.launches
     by_path = dict(kernel.launches_by_path)
+    capped = getattr(kernel, "launches_capped", 0)
     want, path = expected_launches(cfg, kname, serve["decode_len"])
+    if capped != (launches if cfg.attn_logit_softcap else 0):
+        raise AssertionError(f"{cfg.name}: {capped} of {kname}'s {launches} launches capped, "
+                             f"attn_logit_softcap {cfg.attn_logit_softcap}")
     if not stats.logits_finite:
         raise AssertionError(f"{cfg.name}: non-finite logits")
     if tuple(tokens.shape) != (serve["n_requests"], serve["decode_len"] + 1):
@@ -1337,9 +1549,10 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
           f"decode {stats.decode_ms_per_token:.2f} ms/token through one CUDA graph per step "
           f"(captured in {stats.capture_ms:.1f} ms), {stats.tokens_per_s:.1f} tokens/s; "
           f"{kernel.__name__} launches {launches} == expected {want}, all on {path} (by path "
-          f"{by_path}); peak memory {peak_gb:.1f} GB; tokens sha256 "
+          f"{by_path}), {capped} capped; peak memory {peak_gb:.1f} GB; tokens sha256 "
           f"{hashlib.sha256(tokens.numpy().tobytes()).hexdigest()[:16]}; {smi}")
-    return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path}
+    return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path,
+            "capped": capped}
 
 
 def _kernel_ms(prof) -> tuple[dict[str, float], int]:
@@ -1590,10 +1803,12 @@ class _CountedReplica:
 
 
 TRAIN_ARCH = "granite_3_2b"  # [train-restart]'s
-# the full-depth [train] runs: (arch, sequences x positions)
-TRAIN_RUNS = (("granite_3_2b", (8, 2048)), ("rwkv6_3b", (8, 2048)))
-TRAIN_STEPS = 6
-TRAIN_VS_CPU = ("granite_3_2b", "minicpm3_4b", "whisper_large_v3", "rwkv6_3b")
+# the full-depth [train] runs: (arch, sequences x positions, steps); the
+# capped granite (the registry's VARIANTS) takes 3 steps
+TRAIN_RUNS = (("granite_3_2b", (8, 2048), 6), ("rwkv6_3b", (8, 2048), 6),
+              ("granite_3_2b+softcap", (8, 2048), 3))
+TRAIN_VS_CPU = ("granite_3_2b", "minicpm3_4b", "whisper_large_v3", "rwkv6_3b",
+                "granite_3_2b+softcap")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd")
 
 
@@ -1635,21 +1850,31 @@ def train_vs_cpu(arch: str, dev) -> None:
     1e-4 x the largest parameter, and the first moments (0.1 x the clipped
     gradient) at 1e-4 x the largest of them: scales of the whole tree, as
     some gradients are 0 up to rounding (a key bias shifts every logit of a
-    row alike), and their elements' noise is all a leaf of them holds."""
-    from repro_torch.configs.registry import get_config, make_batch
+    row alike), and their elements' noise is all a leaf of them holds.  An
+    ``arch+variant`` takes the variant's fields at a cut's values and its
+    queries and keys ``CUT_QK_GAIN`` times as large, and its card's first
+    moments must differ from those of a step without its attention cap by
+    over 100 times their tolerance."""
+    from repro_torch.configs.registry import get_config, make_batch, split_variant
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import init_params, tree_leaves, tree_map
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=2, activation_dtype="float32",
-                              n_encoder_layers=2 if full.enc_dec else 0)
+                              n_encoder_layers=2 if full.enc_dec else 0,
+                              **split_variant(arch, cut=True)[1])
     step, p_specs, o_specs, _ = make_train_step(cfg)
     params = init_params(p_specs, torch.Generator().manual_seed(0))
+    if cfg.attn_logit_softcap:
+        sharpen_attention(params, CUT_QK_GAIN)
     opt = init_params(o_specs, torch.Generator().manual_seed(0))
     batch = make_batch(cfg, 128, 2, train=True, generator=torch.Generator().manual_seed(1))
     card = (tree_map(lambda t: t.to(dev, copy=True), params),
             tree_map(lambda t: t.to(dev, copy=True), opt),
             {k: t.to(dev) for k, t in batch.items()})
+    uncapped = (tree_map(lambda t: t.to(dev, copy=True), params),
+                tree_map(lambda t: t.to(dev, copy=True), opt),
+                card[2]) if cfg.attn_logit_softcap else None
     _reset_counts()
     p_card, o_card, m_card = step(*card)
     torch.cuda.synchronize()
@@ -1676,14 +1901,33 @@ def train_vs_cpu(arch: str, dev) -> None:
         worst[name] = err / scale
     if int(o_card["step"]) != 1:
         raise AssertionError(f"[train-vs-cpu] {cfg.name}: step {int(o_card['step'])}")
+    moved = ""
+    if uncapped is not None:
+        free_step = make_train_step(dataclasses.replace(cfg, attn_logit_softcap=0.0))[0]
+        _, o_free, m_free = free_step(*uncapped)
+        want = [mv["m"] for mv in _mv(o_cpu["moments"])]
+        scale = max(w.abs().max().item() for w in want)
+        diff = max((a - b).abs().max().item() for a, b in
+                   zip([mv["m"] for mv in _mv(o_free["moments"])],
+                       [mv["m"] for mv in _mv(o_card["moments"])]))
+        if not diff > 100 * 1e-4 * scale:
+            raise AssertionError(f"[train-vs-cpu] {cfg.name}: the attention cap "
+                                 f"{cfg.attn_logit_softcap:g} moves the first moments by {diff} "
+                                 f"only (largest {scale})")
+        moved = (f"; without the attention cap {cfg.attn_logit_softcap:g} the card's loss is "
+                 f"{float(m_free['loss']):.7f} and its first moments move by "
+                 f"{diff / scale:.3e} of their largest (> 1e-2)")
+        del uncapped, o_free
+    caps = (f" (caps {cfg.attn_logit_softcap:g} and {cfg.logits_softcap:g}, a cut's; queries "
+            f"and keys x{CUT_QK_GAIN:g})" if cfg.attn_logit_softcap else "")
     layers = "2 layers" + (" (and 2 encoder layers)" if cfg.enc_dec else "")
-    print(f"[train-vs-cpu] {cfg.name} {layers} full width f32 B2 S128: loss card "
+    print(f"[train-vs-cpu] {cfg.name}{caps} {layers} full width f32 B2 S128: loss card "
           f"{float(m_card['loss']):.7f} CPU {float(m_cpu['loss']):.7f}, grad_norm card "
           f"{float(m_card['grad_norm']):.6f} CPU {float(m_cpu['grad_norm']):.6f} (rtol 1e-4); "
           f"updated params and first moments max_err / their largest "
           f"{worst['params']:.3e}, {worst['m']:.3e} (< 1e-4); K3 {counts['flash_attention']}, "
-          f"K3b {counts['flash_attention_bwd']}, K4 {counts['wkv6']}, K4b {counts['wkv6_bwd']} "
-          f"ok")
+          f"K3b {counts['flash_attention_bwd']}, K4 {counts['wkv6']}, K4b {counts['wkv6_bwd']}"
+          f"{moved} ok")
 
 
 def _mv(moments) -> list:
@@ -1693,27 +1937,32 @@ def _mv(moments) -> list:
     return [mv for k in sorted(moments) for mv in _mv(moments[k])]
 
 
-def train_full(arch: str, batch: tuple[int, int], dev, smi: str) -> dict:
+def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> dict:
     """``[train]``: ``arch`` at full width and depth (f32 parameters and
-    AdamW state, bf16 activations, remat on), synthetic data, TRAIN_STEPS
+    AdamW state, bf16 activations, remat on), synthetic data, ``steps``
     steps of ``batch`` through ``repro_torch.launch.train.train``, the
     counters set to 0 just before: per layer and step, K3 (attention) or K4
     (RWKV-6) must have run twice (the forward and the remat recompute), on
     ``tma`` or ``ring``, and K3b or K4b once, on ``tma`` or ``direct``; every
-    loss finite and every parameter moved.  Then one more step under
+    loss finite, the last below the first, and every parameter moved.  Then
+    one more step under
     ``torch.profiler``.  -> {"counts": {kernel: launches by path},
-    "step_ms": median}."""
+    "capped": {kernel: capped launches}, "step_ms": median}.  K3's and K3b's
+    launches must all be capped for a config with an attention logit cap,
+    none otherwise."""
     import contextlib
     import io
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models.params import count_params, init_params, tree_leaves
+
+    from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
     B, S = batch
@@ -1722,21 +1971,26 @@ def train_full(arch: str, batch: tuple[int, int], dev, smi: str) -> dict:
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        params, opt, losses = train(cfg, steps=TRAIN_STEPS, global_batch=B, seq_len=S,
+        params, opt, losses = train(cfg, steps=steps, global_batch=B, seq_len=S,
                                     log_every=1, seed=0, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    capped = {k: getattr(ops.KERNELS[k], "launches_capped", 0) for k in TRAIN_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(log.getvalue(), end="")
     step_ms = [float(m) for m in re.findall(r"\((\d+) ms/step\)", log.getvalue())]
-    want = _train_launches(cfg, TRAIN_STEPS)
+    want = _train_launches(cfg, steps)
     for k, (path, count) in want.items():
         if sum(counts[k].values()) != count or counts[k][path] != count:
             raise AssertionError(f"[train] {cfg.name}: {k} launched {counts[k]}, want {count} "
-                                 f"on {path} ({count // TRAIN_STEPS} a step)")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[train] {cfg.name}: losses {losses}")
+                                 f"on {path} ({count // steps} a step)")
+        if capped[k] != (count if cfg.attn_logit_softcap else 0):
+            raise AssertionError(f"[train] {cfg.name}: {capped[k]} of {k}'s {count} launches "
+                                 f"capped, attn_logit_softcap {cfg.attn_logit_softcap}")
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"[train] {cfg.name}: losses {losses}, not finite and falling")
     init = init_params(make_train_step(cfg)[1], torch.Generator(device=dev).manual_seed(0))
     still = [tuple(a.shape) for a, b in zip(tree_leaves(params), tree_leaves(init))
              if torch.equal(a, b)]
@@ -1752,20 +2006,21 @@ def train_full(arch: str, batch: tuple[int, int], dev, smi: str) -> dict:
                                                              "flash_attention_bwd")
     short = {"flash_attention": "K3", "flash_attention_bwd": "K3b", "wkv6": "K4",
              "wkv6_bwd": "K4b"}
-    n = want[bwd][1] // TRAIN_STEPS
+    n = want[bwd][1] // steps
     print(f"[train] {cfg.name} full width and depth ({cfg.n_layers} layers, "
           f"{n_params / 1e9:.3f}B params), f32 params and AdamW state, bf16 activations, "
-          f"remat on, batch {B} x {S}, {TRAIN_STEPS} steps in {wall:.1f} s: losses "
+          f"remat on, batch {B} x {S}, {steps} steps in {wall:.1f} s: losses "
           f"{[round(x, 4) for x in losses]}, ms/step {step_ms} (median of steps 2-"
-          f"{TRAIN_STEPS} {steady:.0f}), {tokens / (steady / 1e3):.0f} tokens/s, "
+          f"{steps} {steady:.0f}), {tokens / (steady / 1e3):.0f} tokens/s, "
           f"6 N tokens / step time / 989 TFLOP/s = {ratio:.3f} (a ratio, not a claim), "
           f"peak {peak_gb:.1f} GB; {short[fwd]} {counts[fwd]} = 2 x {n} a step, "
-          f"{short[bwd]} by path {counts[bwd]} = {n} a step; {smi}")
+          f"{short[bwd]} by path {counts[bwd]} = {n} a step, capped {capped[fwd]} and "
+          f"{capped[bwd]}; {smi}")
 
     # one more step under the profiler: the device's busy share and top kernels
     step, *_ = make_train_step(cfg)
     it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev,
-                 start_step=TRAIN_STEPS)
+                 start_step=steps)
     batch_ = next(it)
     it.close()
     torch.cuda.synchronize()
@@ -1787,7 +2042,7 @@ def train_full(arch: str, batch: tuple[int, int], dev, smi: str) -> dict:
           f"({busy / wall_ms:.1%} busy), {launched} kernels; {', '.join(shares)}; top: "
           f"{_top(by_name, 6)}; {smi}")
     del params, opt
-    return {"counts": counts, "step_ms": steady}
+    return {"counts": counts, "capped": capped, "step_ms": steady}
 
 
 def train_restart(dev) -> None:
@@ -2012,10 +2267,11 @@ def build_report(build) -> None:
     K3b and K4b's main pass set, for K4b's passes their resident warps an
     SM (the occupancy calculator's), and whether
     ``ptxas`` serialised the kernel's ``wgmma``s (its C7510-C7520 notes,
-    which name the function).  Raises when a K1 ``wgmma``, K3, K3b, K4 or
-    K4b specialisation spills or is missing, when K4b's main pass at N 64
-    keeps fewer than 12 warps an SM, or when ``ptxas`` serialised the
-    ``wgmma``s of a bf16 K3b kernel."""
+    which name the function).  K3 and K3b are built uncapped and capped
+    (a logit cap; labelled ``capped``).  Raises when a K1 ``wgmma``, K3,
+    K3b, K4 or K4b specialisation spills or is missing, when K4b's main
+    pass at N 64 keeps fewer than 12 warps an SM, or when ``ptxas``
+    serialised the ``wgmma``s of a bf16 K3b kernel, capped or not."""
     import ctypes
     import re
 
@@ -2029,14 +2285,15 @@ def build_report(build) -> None:
             serialised.add(m.group(1))
         elif m := re.search(r"Compiling entry function '(\w+)'", line):
             name = m.group(1)
-            k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)E", name)
+            k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)ELb([01])E", name)
             k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
-            k3b = re.search(r"(bwd_dq|bwd_dkdv)(_wgmma)?I(f)?Li(\d+)E", name)
-            cur = {"src": src, "name": name, "k3": k3 and (k3.group(1), int(k3.group(2))),
+            k3b = re.search(r"(bwd_dq|bwd_dkdv)(_wgmma)?I(f)?Li(\d+)ELb([01])E", name)
+            cur = {"src": src, "name": name,
+                   "k3": k3 and (k3.group(1), int(k3.group(2)), k3.group(3) == "1"),
                    "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
                                  "KM"[int(k1.group(2))], "KN"[int(k1.group(3))]),
                    "k3b": k3b and (k3b.group(1), "f32" if k3b.group(3) else "bf16",
-                                   int(k3b.group(4)))}
+                                   int(k3b.group(4)), k3b.group(5) == "1")}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -2065,15 +2322,16 @@ def build_report(build) -> None:
             k4b[("du", 0)] = kern
             label = "wkv6_bwd_du"
         elif kern["k3"]:
-            dtype, hd = kern["k3"]
+            dtype, hd, capped = kern["k3"]
             k3[kern["k3"]] = kern
-            label = f"flash_fwd<{dtype}, hd {hd}>"
+            label = f"flash_fwd<{dtype}, hd {hd}{', capped' if capped else ''}>"
             dynamic = lib.repro_flash_attention_smem(int(dtype == "bf16"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif kern["k3b"]:
-            which, dtype, hd = kern["k3b"]
+            which, dtype, hd, capped = kern["k3b"]
             k3b[kern["k3b"]] = kern
-            label = f"{which}<{dtype}, hd {hd}>" + (" (wgmma)" if dtype == "bf16" else "")
+            label = (f"{which}<{dtype}, hd {hd}{', capped' if capped else ''}>"
+                     + (" (wgmma)" if dtype == "bf16" else ""))
             dynamic = lib.repro_flash_attention_bwd_smem(int(dtype == "bf16"),
                                                          int(which == "bwd_dkdv"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
@@ -2095,7 +2353,7 @@ def build_report(build) -> None:
         wgmma = ", wgmma serialised by ptxas" if kern["name"] in serialised else ""
         print(f"[build] {kern['src']} {label}: {kern['regs']} registers, spill stores/loads "
               f"{kern['spill'][0]}/{kern['spill'][1]} bytes, smem {kern['smem']}{wgmma}")
-    want = {(dt, hd) for dt in ("f32", "bf16") for hd in (32, 64, 128)}
+    want = {(dt, hd, c) for dt in ("f32", "bf16") for hd in (32, 64, 128) for c in (False, True)}
     if set(k3) != want:
         raise AssertionError(f"K3 specialisations built {sorted(k3)}, want {sorted(want)}")
     want = {(dt, a, b) for dt in ("f32", "bf16") for a in "KM" for b in "KN"}
@@ -2104,8 +2362,8 @@ def build_report(build) -> None:
     want = {32, 64}
     if set(k4) != want:
         raise AssertionError(f"K4 specialisations built {sorted(k4)}, want {sorted(want)}")
-    want = {(w, dt, hd) for w in ("bwd_dq", "bwd_dkdv") for dt in ("f32", "bf16")
-            for hd in (32, 64, 128)}
+    want = {(w, dt, hd, c) for w in ("bwd_dq", "bwd_dkdv") for dt in ("f32", "bf16")
+            for hd in (32, 64, 128) for c in (False, True)}
     if set(k3b) != want:
         raise AssertionError(f"K3b specialisations built {sorted(k3b)}, want {sorted(want)}")
     want = {(w, n) for w in ("ckpt", "main") for n in (32, 64)} | {("du", 0)}
@@ -2132,6 +2390,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.arena import make_request_stream
     from repro_torch.core.executor import TorchExecutor, attach_request_kernels
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as flash_module
     from repro_torch.kernels import matadd as matadd_module
@@ -2152,15 +2411,26 @@ def main() -> int:
     peaks = next((v for key, v in PEAKS if key in name), None)
     if peaks is None:
         raise ValueError(f"no published peaks on record for {name!r}; add them to PEAKS")
+    # the special-function units' rate: 16 operations a clock on each SM at
+    # the card's highest SM clock
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peaks = dict(peaks, mufu=MUFU_PER_SM_CLOCK * sms * max_mhz * 1e6)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"f32 peak {peaks['f32'] / 1e12:g} TFLOP/s, bf16 tensor peak "
           f"{peaks['bf16'] / 1e12:g} TFLOP/s, tf32 tensor peak {peaks['tf32'] / 1e12:g} "
-          f"TFLOP/s, memory {peaks['bytes'] / 1e12:g} TB/s")
+          f"TFLOP/s, memory {peaks['bytes'] / 1e12:g} TB/s; special-function rate "
+          f"{MUFU_PER_SM_CLOCK} x {sms} SMs x {max_mhz:g} MHz = {peaks['mufu']:.4g} op/s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        print(f"[phase] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # 1. build
     t_build = time.perf_counter()
@@ -2169,16 +2439,18 @@ def main() -> int:
     t_build = time.perf_counter() - t_build
     print(f"[build] {os.path.relpath(lib, ROOT)} in {t_build:.1f} s")
     build_report(_build)
+    mark("build")
 
     # 2-5. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"matmul": check_matmul(matmul, ref, gen),
-            "matadd": check_matadd(matadd, ref, gen),
-            "flash_attention": check_flash(flash_attention, ref, gen),
-            "wkv6": check_wkv6(wkv6, ref, gen)}
+            "matadd": check_matadd(matadd, ref, gen)}
+    errs["flash_attention"], errs["flash_attention+cap"] = check_flash(flash_attention, ref, gen)
+    errs["wkv6"] = check_wkv6(wkv6, ref, gen)
     check_flash_lse(gen)
-    errs["flash_attention_bwd"] = check_flash_bwd(gen)
+    errs["flash_attention_bwd"], errs["flash_attention_bwd+cap"] = check_flash_bwd(gen)
     errs["wkv6_bwd"] = check_wkv6_bwd(gen)
+    mark("kernel checks")
 
     # 6. times at the main paths' shapes: prefill = x @ x.T, decode = x + x,
     # granite-3-2b prefill attention, rwkv6-3b prefill recurrence
@@ -2216,6 +2488,13 @@ def main() -> int:
     times["flash_attention_bwd"], bounds["flash_attention_bwd"], k3b_bound7, k3_lse_ms, \
         k3b_split = time_flash_bwd(gen, peaks)
     times["wkv6_bwd"], bounds["wkv6_bwd"], k4b_split, k4b_scratch = time_wkv6_bwd(gen, peaks)
+    # K3 and K3b with the capped granite's attention cap, at granite's shapes;
+    # the library call is flex_attention with the cap as its score_mod
+    cap = get_config("granite_3_2b+softcap").attn_logit_softcap
+    times["flash_attention+cap"], bounds["flash_attention+cap"] = time_flash(
+        flash_attention, ref, gen, peaks, K3_SHAPE, cap=cap)
+    times["flash_attention_bwd+cap"], bounds["flash_attention_bwd+cap"], k3b_cap_bound6, \
+        k3_lse_cap_ms, k3b_cap_split = time_flash_bwd(gen, peaks, cap)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
@@ -2224,7 +2503,18 @@ def main() -> int:
                                      .format(*K3_SHAPE),
               "wkv6_bwd": "B{} H{} S{} N{} f32 (rwkv6-3b's training shape, no final-state "
                           "gradient; the bound counts 14 operations a state element and step; "
-                          "the plain version is a Python loop)".format(*K4_SHAPE)}
+                          "the plain version is a Python loop)".format(*K4_SHAPE),
+              "flash_attention+cap": "B{} H{}/K{} S{} hd{} bf16 causal, logit cap {:g} (the "
+                                     "capped granite-3-2b's prefill; the bound is the larger of "
+                                     "the tensor bound and 3 special-function operations a kept "
+                                     "pair; library flex_attention with the cap as score_mod)"
+                                     .format(*K3_SHAPE, cap),
+              "flash_attention_bwd+cap": "B{} H{}/K{} S{} hd{} bf16 causal, logit cap {:g} (the "
+                                         "capped granite-3-2b's training shape; the bound is the "
+                                         "larger of the five-product bound and 3 special-"
+                                         "function operations a kept pair; library "
+                                         "torch.autograd.grad through flex_attention)"
+                                         .format(*K3_SHAPE, cap)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
     # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
@@ -2251,6 +2541,14 @@ def main() -> int:
         if k == "flash_attention_bwd":
             b_by += (f"; seven-product bound {k3b_bound7[0]:.4f} ms ({k3b_bound7[1]}, 14 hd a "
                      f"kept pair: S and dP in both kernels)")
+        if k == "flash_attention_bwd+cap":
+            b_by += (f"; the design's bound {k3b_cap_bound6[0]:.4f} ms ({k3b_cap_bound6[1]}: "
+                     f"seven products and 6 special-function operations a kept pair, the tanh "
+                     f"and P in both kernels)")
+        if k == "flash_attention+cap":
+            pairs = math.prod(K3_SHAPE[:2]) * K3_SHAPE[3] * (K3_SHAPE[3] + 1) / 2
+            b_by += (f"; {2.0 * pairs / peaks['mufu'] * 1e3:.4f} ms at 2 special-function "
+                     f"operations a kept pair (tanh.approx.f32, ~2^-11 relative, and ex2)")
         if k == "wkv6":
             b_by += (f"; CUDA-core issue floor {k4_issue_ms[3.0]:.4f} ms (3 FP32 "
                      f"instructions per state element and step at {peaks['f32'] / 2e12:g}e12/s; "
@@ -2260,14 +2558,20 @@ def main() -> int:
     print(f"[time] flash_attention with its LSE (flash_attention_fwd, the training forward) "
           "B{} H{}/K{} S{} hd{} bf16 causal: kernel ".format(*K3_SHAPE)
           + f"{k3_lse_ms:.4f} ms (without: {times['flash_attention'][0]:.4f} ms); {smi}")
+    print(f"[time] flash_attention with its LSE, capped at {cap:g}: kernel {k3_lse_cap_ms:.4f} ms "
+          f"(without: {times['flash_attention+cap'][0]:.4f} ms); {smi}")
     print(f"[time] flash_attention_bwd library = torch.autograd.grad through "
           f"scaled_dot_product_attention(is_causal=True), the backward alone; by kernel "
           f"(torch.profiler, ms a launch): "
-          + ", ".join(f"{k} {t:.4f}" for k, t in sorted(k3b_split.items())) + f"; {smi}")
+          + ", ".join(f"{k} {t:.4f}" for k, t in sorted(k3b_split.items()))
+          + "; capped at {:g}: ".format(cap)
+          + ", ".join(f"{k} {t:.4f}" for k, t in sorted(k3b_cap_split.items())) + f"; {smi}")
     print("[time] wkv6_bwd by pass (torch.profiler, ms a launch): "
           + ", ".join(f"{k} {k4b_split.get(k, 0.0):.4f}" for k in ("ckpt", "main", "du"))
           + f"; checkpoint scratch {k4b_scratch} bytes at " + "B{} H{} S{} N{}".format(*K4_SHAPE)
           + f"; {smi}")
+
+    mark("time")
 
     # 7. one request chain on the card vs the CPU, same host inputs
     g = request_dag(2, 6, prefill_ms_big=1.0, prefill_ms_small=1.0,
@@ -2333,6 +2637,7 @@ def main() -> int:
     del arena
     gc.collect()
     torch.cuda.empty_cache()
+    mark("chain and arena")
 
     # 9. the fused path: CUDA graphs of group-steps, serialized and in async
     # waves; every path of every kernel warmed first, so no build or
@@ -2355,11 +2660,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("fused")
+
     # 10. the model's own context: 2 full-width layers, card against CPU
     for arch in CARD_VS_CPU:
         card_vs_cpu(arch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("card-vs-cpu")
 
     # 11. full-width serving, one model after the other; a kernel's launches
     # in the JSON line are summed over the models it serves (K1's and K2's
@@ -2369,7 +2677,11 @@ def main() -> int:
     # was timed above
     serve_kernel_ms = {"granite_3_2b": times["flash_attention"][0], "rwkv6_3b": times["wkv6"][0],
                        "minitron_4b": k3_ms["minitron_4b"], "minicpm3_4b": k3_ms["minicpm3_4b"],
-                       "command_r_35b": k3_ms["command_r_35b"]}
+                       "command_r_35b": k3_ms["command_r_35b"],
+                       "granite_3_2b+softcap": times["flash_attention+cap"][0]}
+    # the capped kernels' launches: those of the models with an attention cap
+    # (also counted in their kernel's own total)
+    launches["flash_attention+cap"] = launches["flash_attention_bwd+cap"] = 0
     for arch, kname, prompt_len, cut, n_requests in SERVED:
         cfg = served_config(arch, cut)
         if arch in INIT_CHECKED:
@@ -2378,6 +2690,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         run = serve_full_width(cfg, kname, prompt_len, n_requests, dev, smi)
         launches[kname] = launches.get(kname, 0) + run["launches"]
+        if run["capped"]:
+            launches[f"{kname}+cap"] += run["capped"]
         if run["by_path"] is not None:
             by_path[kname] = {p: n + by_path.get(kname, {}).get(p, 0)
                               for p, n in run["by_path"].items()}
@@ -2396,11 +2710,15 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
+    mark("serve")
+
     # 12. decode as one CUDA graph per step against the eager loop, same call
     for arch, _, prompt_len, cut, n_requests in SERVED:
         decode_graph(served_config(arch, cut), prompt_len, n_requests, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
+
+    mark("decode-graph")
 
     # 13. the fleet router: simulated modes, then executed replicas on K1/K2
     fleet, fleet_by_path = router_phase(dev, modules, smi)
@@ -2410,8 +2728,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("router")
+
     # 14. the CLI's new modes, each a process of its own
     cli_phase()
+    mark("cli")
 
     # 15. training: a full-width step on the card against the CPU, then
     # granite-3-2b at full width and depth, a crash and restart, the CLI
@@ -2419,17 +2740,21 @@ def main() -> int:
         train_vs_cpu(arch, dev)
         gc.collect()
     torch.cuda.empty_cache()
+    mark("train-vs-cpu")
     for k in ("flash_attention_bwd", "wkv6_bwd"):  # their main path is training's
         launches[k] = 0
         by_path[k] = dict.fromkeys(ops.KERNELS[k].launches_by_path, 0)
-    for arch, batch in TRAIN_RUNS:
-        run = train_full(arch, batch, dev, smi)
+    for arch, batch, steps in TRAIN_RUNS:
+        run = train_full(arch, batch, steps, dev, smi)
         for k, counts in run["counts"].items():
             launches[k] += sum(counts.values())
             by_path[k] = {p: n + by_path[k].get(p, 0) for p, n in counts.items()}
+            if run["capped"][k]:
+                launches[f"{k}+cap"] += run["capped"][k]
         del run
         gc.collect()
         torch.cuda.empty_cache()
+    mark("train")
     train_restart(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2438,11 +2763,12 @@ def main() -> int:
 
     kernels = []
     for k, (ms, plain, lib_ms) in times.items():
+        base = k.partition("+")[0]  # a capped kernel: its kernel's specialisation
         kernels.append({
             "name": k,
             "route": "cuda",
-            "source": f"src/repro_torch/csrc/{k}.cu",
-            "replaces": REPLACES[k],
+            "source": f"src/repro_torch/csrc/{base}.cu",
+            "replaces": REPLACES[base],
             "launches": launches[k],
             "max_abs_err": errs[k],
             "ms": ms,

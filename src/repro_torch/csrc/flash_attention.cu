@@ -58,6 +58,23 @@
 // Blocks are skipped (causal, or past kv_len) only when kv_len > 0: then
 // every row has a valid key and a skipped key would add exactly 0.  With
 // kv_len == 0 every key is visited, as in the reference.
+//
+// The logit cap (the reference's `logit_cap`, a model's
+// `attn_logit_softcap`): where the caller passes cap > 0, each scaled logit
+// s becomes cap tanh(s / cap) before the mask, as the reference's
+// `_flash_fwd_inner` does, and the row max, the sum and the LSE are those of
+// the capped logits.  The cap is a template flag of every kernel, so the
+// uncapped kernels are the code they were.  f32 takes `tanhf` (a few ulp),
+// since its tolerance is 2e-5.  bf16 forms t = tanh(s scale / cap) in place
+// of the raw dot (hopper::tanh_ex2: 1 - 2 / (2^(2|x| log2 e) + 1), absolute
+// error ~3e-7, where tanh.approx.f32's ~2^-11 relative would move a logit by
+// ~0.025 at cap 50), and the exponent becomes t (cap log2 e) in place of
+// s (scale log2 e): the softmax after it is unchanged.  What that costs: the
+// tanh takes two special-function operations (ex2, rcp) beside the ex2 of P,
+// and an H100 issues 16 of them a clock per SM, 4.18e12 a second, so at the
+// granite-3-2b shape the capped kernel's floor is 3 x 537,133,056 kept
+// pairs / 4.18e12 = 0.385 ms, above its 0.139 ms tensor bound: a capped K3
+// is bound by the special-function unit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,13 +110,13 @@ struct Cfg {
   static constexpr int THREADS = BQ * SPLIT;
 };
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int G, int Sq, int Sk,
-              int kv_len, int causal, float scale, Strides sq, Strides sk, Strides sv,
-              Strides so) {
+              int kv_len, int causal, float scale, float cap, Strides sq, Strides sk,
+              Strides sv, Strides so) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK;
   constexpr int HP = C::HP;
@@ -169,8 +186,10 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS)
         }
         if (C::SPLIT == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         const bool valid = key < kv_len && (!causal || key <= row);
+        float x = dot * scale;
+        if (CAP) x = cap * tanhf(x / cap);
         // a slot past the staged keys does not exist: -inf gives it p = 0
-        s[jj] = j < nj ? (valid ? dot * scale : NEG_INF) : -INFINITY;
+        s[jj] = j < nj ? (valid ? x : NEG_INF) : -INFINITY;
         mx = fmaxf(mx, s[jj]);
       }
       const float m_new = fmaxf(m, mx);
@@ -207,19 +226,19 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS)
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-           int G, int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
-           cudaStream_t stream) {
+           int G, int Sq, int Sk, int kv_len, int causal, float scale, float cap,
+           const long long* st, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
-  flash_fwd<HD><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
+  flash_fwd<HD, CAP><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, G, Sq, Sk, kv_len, causal,
-      scale, sq, sk, sv, so);
+      scale, cap, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,11 +296,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // holds p, m and l (this thread's partial sums) are updated, and corr[i] is
 // the factor by which the O rows (i = 0: row0, 1: row0 + 8) must be scaled.
 // MASK: logits of masked keys become -1e30, of slots past Sk -inf; the
-// others are scaled.
-template <bool MASK, int NS>
+// others are scaled.  CAP: each dot first becomes t = tanh(s tanh_scale),
+// tanh_scale = scale / cap, in place, and `scale_log2` is cap log2(e), so the
+// exponent is the capped logit in base 2.
+template <bool MASK, bool CAP, int NS>
 __device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], float scale_log2, int row0,
-                                             int key0, int Sk, int kv_len, int causal) {
+                                             float (&corr)[2], float scale_log2,
+                                             float tanh_scale, int row0, int key0, int Sk,
+                                             int kv_len, int causal) {
+  if (CAP) {
+#pragma unroll
+    for (int e = 0; e < NS; ++e) s[e] = tanh_ex2(s[e] * tanh_scale);
+  }
   float sl = scale_log2;
   if (MASK) {
 #pragma unroll
@@ -318,12 +344,12 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2], floa
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
               float* __restrict__ lse, int H, int G, int Sq, int Sk, int kv_len, int causal,
-              float scale_log2, Strides so) {
+              float scale_log2, float tanh_scale, Strides so) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -452,8 +478,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<1>();  // S done; P V of tile i - 1 may still run
     reg_fence(sacc);
     float corr[2];
-    softmax_step<decltype(mask)::value>(sacc, m, l, corr, scale_log2, row0, i * BK + col0, Sk,
-                                        kv_len, causal);
+    softmax_step<decltype(mask)::value, CAP>(sacc, m, l, corr, scale_log2, tanh_scale, row0,
+                                             i * BK + col0, Sk, kv_len, causal);
     wgmma_wait<0>();  // P V of tile i - 1 is done: its stage and pa are free
     reg_fence(acc);
 #pragma unroll
@@ -474,9 +500,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   {
     float corr[2];
     if (n_plain > 0)
-      softmax_step<false>(sacc, m, l, corr, scale_log2, row0, col0, Sk, kv_len, causal);
+      softmax_step<false, CAP>(sacc, m, l, corr, scale_log2, tanh_scale, row0, col0, Sk,
+                               kv_len, causal);
     else
-      softmax_step<true>(sacc, m, l, corr, scale_log2, row0, col0, Sk, kv_len, causal);
+      softmax_step<true, CAP>(sacc, m, l, corr, scale_log2, tanh_scale, row0, col0, Sk, kv_len,
+                              causal);
     rescale_and_pack(corr);
   }
   for (int i = 1; i < n_plain; ++i) pipelined(i, std::false_type());
@@ -500,7 +528,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
             __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
-      // m is in log2 units of the scaled logits, but a row whose keys are all
+      // m is in log2 units of the scaled (capped) logits, but a row whose keys are all
       // masked keeps the unscaled -1e30 (the reference's -1e30 + log l)
       if (lse != nullptr && t % 4 == 0)
         lse[((long long)b * H + h) * Sq + row] =
@@ -528,9 +556,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S, int hea
   return r == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int G,
-           int Sq, int Sk, int kv_len, int causal, float scale, const long long* st,
+           int Sq, int Sk, int kv_len, int causal, float scale, float cap, const long long* st,
            cudaStream_t stream) {
   using C = Cfg<HD>;
   const EncodeTiled enc = tensor_map_encoder();
@@ -540,29 +568,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
       !make_map<HD>(enc, &km, k, Sk, H / G, B, st + 4, C::BK) ||
       !make_map<HD>(enc, &vm, v, Sk, H / G, B, st + 8, C::BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the dynamic shared memory above 48 KB, set once on each device
+  // the dynamic shared memory above 48 KB, set once on each device for each
+  // specialisation (each template instance has its own flags)
   static unsigned long long attr_set = 0;
   int dev = 0;
   cudaGetDevice(&dev);
   if (!(attr_set >> dev & 1ull)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        flash_fwd<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set |= 1ull << dev;
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const Strides so{st[12], st[13], st[14], st[15]};
-  const float scale_log2 = LOG2E * scale;
-  flash_fwd<HD><<<grid, THREADS, C::SMEM, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
-                                                   lse, H, G, Sq, Sk, kv_len, causal, scale_log2,
-                                                   so);
+  // capped, the exponent is tanh(s scale / cap) times cap log2(e)
+  const float scale_log2 = LOG2E * (CAP ? cap : scale);
+  const float tanh_scale = CAP ? scale / cap : 0.0f;
+  flash_fwd<HD, CAP><<<grid, THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, G, Sq, Sk, kv_len, causal, scale_log2,
+      tanh_scale, so);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bf16
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
-                         int, int, int, int, float, const long long*, cudaStream_t);
+                         int, int, int, int, float, float, const long long*, cudaStream_t);
 
 int dynamic_smem(int dtype, int hd) {
   if (dtype != 1) return 0;
@@ -578,15 +609,16 @@ int dynamic_smem(int dtype, int hd) {
   }
 }
 
+template <bool CAP>
 LaunchFn pick(int dtype, int hd) {
   const bool f = dtype == 0;
   switch (hd) {
     case 32:
-      return f ? f32::launch<32> : bf16::launch<32>;
+      return f ? f32::launch<32, CAP> : bf16::launch<32, CAP>;
     case 64:
-      return f ? f32::launch<64> : bf16::launch<64>;
+      return f ? f32::launch<64, CAP> : bf16::launch<64, CAP>;
     case 128:
-      return f ? f32::launch<128> : bf16::launch<128>;
+      return f ? f32::launch<128, CAP> : bf16::launch<128, CAP>;
     default:
       return nullptr;
   }
@@ -600,19 +632,24 @@ LaunchFn pick(int dtype, int hd) {
 // the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 128};
 // 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536.
 // Logits are scaled by `scale`: 1/sqrt(hd) of the caller's head dim, which is
-// smaller than hd when the caller zero-padded q, k and v up to a built size.
-// `lse`: nullptr, or a contiguous (B, H, Sq) float32 buffer that receives
-// each row's log-sum-exp of its scaled logits (natural log).
+// smaller than hd when the caller zero-padded q, k and v up to a built size;
+// where cap > 0 each scaled logit s becomes cap tanh(s / cap) (cap <= 0: no
+// cap).  `lse`: nullptr, or a contiguous (B, H, Sq) float32 buffer that
+// receives each row's log-sum-exp of its scaled (capped) logits (natural
+// log).
 // Launches on `stream` and returns a cudaError_t (0 when the launch was
 // accepted).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* o, float* lse, int B, int H, int G, int Sq, int Sk,
-                                     int hd, int kv_len, int causal, float scale,
+                                     int hd, int kv_len, int causal, float scale, float cap,
                                      const long long* strides, void* stream) {
-  const LaunchFn fn = (dtype == 0 || dtype == 1) ? pick(dtype, hd) : nullptr;
+  const bool capped = cap > 0.0f;
+  const LaunchFn fn = !(dtype == 0 || dtype == 1) ? nullptr
+                      : capped                     ? pick<true>(dtype, hd)
+                                                   : pick<false>(dtype, hd);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, lse, B, H, G, Sq, Sk, kv_len, causal, scale, strides,
-            static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, lse, B, H, G, Sq, Sk, kv_len, causal, scale, capped ? cap : 0.0f,
+            strides, static_cast<cudaStream_t>(stream));
 }
 
 // bytes of dynamic shared memory a block of the (dtype, hd) kernel takes

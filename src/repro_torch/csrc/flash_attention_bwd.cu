@@ -90,6 +90,30 @@
 // accumulates 4 rows by hd / 16 columns of dq (or of dk and dv) in
 // registers.  Reads go through the callers' strides, so any layout is read
 // in place.  A delta pass (one warp a row) runs first.
+//
+// The logit cap (K3's, a model's `attn_logit_softcap`): where the caller
+// passes cap > 0, the kernels recompute t = tanh(s scale / cap) from each
+// pair's dot, P = exp(cap t - lse), and carry the cap's derivative in dS:
+//   dS = P (dP - delta) (1 - t^2) scale
+// which is the gradient of the capped forward.  The reference's
+// `fusedkernel_flash_bwd` leaves 1 - t^2 out (ROADMAP section 3, fault 7), so
+// its capped gradients are wrong wherever its flash branch runs; the port's
+// agree with autodiff of the capped forward.  t is formed from the unmasked
+// dot of every pair (a masked pair still has P = 0, except in a row whose
+// keys are all masked, where every key has P = 1 / Sk as in the forward).
+// The cap is a template flag, so the uncapped kernels are the code they were
+// and no branch runs while a wgmma is in flight.  t comes from `tanhf` in
+// f32 and from hopper::tanh_ex2 in bf16 (two special-function operations,
+// absolute error ~3e-7; tanh.approx.f32 errs by ~2^-11 relative), formed in
+// place of the raw dot in the same element loop as P and dS, so no array
+// lives across the loop and the registers stay those of the uncapped
+// kernels plus a few scalars.  Each kernel recomputes t (ex2 and rcp) and P
+// (ex2), so a capped pair costs six special-function operations, three in
+// the dq kernel and three in the dk/dv kernel; an H100 issues 16 a clock per
+// SM, 4.18e12 a second, so at granite-3-2b's training shape the floor is
+// 6 x 537,133,056 kept pairs / 4.18e12 = 0.771 ms, above the 0.348 ms
+// five-product tensor bound.  The row-statistics pass does not depend on
+// the cap.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -231,11 +255,13 @@ struct Args {
   const float *lse, *delta;
   void *dq, *dk, *dv;
   int H, G, Sq, Sk, kv_len, causal;
-  float scale;
+  float scale, cap;
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
 };
 
-// P and dS of pair (row, key) from the raw dots s and dp
+// P and dS of pair (row, key) from the raw dots s and dp; CAP: the logit
+// capped to cap tanh(s scale / cap) and dS times 1 - tanh^2
+template <bool CAP>
 __device__ __forceinline__ void pair_grads(float s, float dp, int row, int key, float lse,
                                            float delta, const Args& a, float& p, float& ds) {
   if (row >= a.Sq || key >= a.Sk) {  // a slot past the staged rows or keys
@@ -244,11 +270,17 @@ __device__ __forceinline__ void pair_grads(float s, float dp, int row, int key, 
     return;
   }
   const bool valid = key < a.kv_len && (!a.causal || key <= row);
-  p = expf((valid ? s * a.scale : NEG_INF) - lse);
-  ds = p * (dp - delta) * a.scale;
+  if (CAP) {
+    const float t = tanhf(s * a.scale / a.cap);
+    p = expf((valid ? a.cap * t : NEG_INF) - lse);
+    ds = p * (dp - delta) * (1.0f - t * t) * a.scale;
+  } else {
+    p = expf((valid ? s * a.scale : NEG_INF) - lse);
+    ds = p * (dp - delta) * a.scale;
+  }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1) bwd_dq(const Args a) {
   constexpr int LD = HD + PAD;
   constexpr int CW = HD / 16;
@@ -303,8 +335,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_dq(const Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float p, ds;
-        pair_grads(s[i][j], dp[i][j], q0 + ty + 16 * i, k0 + tx + 16 * j, lse[i], delta[i], a,
-                   p, ds);
+        pair_grads<CAP>(s[i][j], dp[i][j], q0 + ty + 16 * i, k0 + tx + 16 * j, lse[i],
+                        delta[i], a, p, ds);
         dSt[(tx + 16 * j) * LDT + ty + 16 * i] = round_to<T>(ds);
       }
     }
@@ -324,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_dq(const Args a) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1) bwd_dkdv(const Args a) {
   constexpr int LD = HD + PAD;
   constexpr int CW = HD / 16;
@@ -384,8 +416,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_dkdv(const Args a) {
         for (int j = 0; j < 4; ++j) {
           const int r = tx + 16 * j;
           float p, ds;
-          pair_grads(s[i][j], dp[i][j], q0 + r, k0 + ty + 16 * i, lse_s[r], delta_s[r], a, p,
-                     ds);
+          pair_grads<CAP>(s[i][j], dp[i][j], q0 + r, k0 + ty + 16 * i, lse_s[r], delta_s[r], a,
+                          p, ds);
           Ps[r * LDT + ty + 16 * i] = round_to<T>(p);
           dSs[r * LDT + ty + 16 * i] = round_to<T>(ds);
         }
@@ -412,30 +444,34 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_dkdv(const Args a) {
   }
 }
 
-// the dynamic shared memory above 48 KB, set once on each device for each
-// kernel (bit `slot` of a per-device mask)
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int slot) {
-  static unsigned long long set[64] = {};
+// the dynamic shared memory above 48 KB of a dq and a dk/dv kernel, set
+// once on each device: bit dev of `set`, a static of the caller's template
+// instance, so each specialisation has flags of its own
+template <typename DQ, typename DKDV>
+cudaError_t allow_smem(unsigned long long& set, DQ dq, int dq_bytes, DKDV dkdv, int dkdv_bytes) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64) return cudaErrorInvalidDevice;
-  if (set[dev] >> slot & 1ull) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) set[dev] |= 1ull << slot;
+  if (set >> dev & 1ull) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
+  if (err == cudaSuccess) set |= 1ull << dev;
   return err;
 }
 
-template <typename T, int HD>
-int launch(const Args& a, int B, int slot, cudaStream_t stream) {
-  cudaError_t err = allow_smem(bwd_dq<T, HD>, smem_dq<HD>(), 2 * slot);
-  if (err == cudaSuccess) err = allow_smem(bwd_dkdv<T, HD>, smem_dkdv<HD>(), 2 * slot + 1);
+template <typename T, int HD, bool CAP>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(smem_set, bwd_dq<T, HD, CAP>, smem_dq<HD>(),
+                               bwd_dkdv<T, HD, CAP>, smem_dkdv<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq<T, HD><<<dim3(B * a.H, (a.Sq + BR - 1) / BR), THREADS, smem_dq<HD>(), stream>>>(a);
+  bwd_dq<T, HD, CAP>
+      <<<dim3(B * a.H, (a.Sq + BR - 1) / BR), THREADS, smem_dq<HD>(), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv<T, HD>
+  bwd_dkdv<T, HD, CAP>
       <<<dim3(B * (a.H / a.G), (a.Sk + BR - 1) / BR), THREADS, smem_dkdv<HD>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -540,33 +576,41 @@ __device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&
 
 // dq's tile: s holds S (raw dots, rows x keys), dp dP; afterwards s holds dS.
 // lse2 = lse log2(e) and delta of this thread's rows row0 and row0 + 8.
-// MASK: logits of masked keys become -1e30 (scaled).
-template <bool MASK, int NS>
+// MASK: logits of masked keys become -1e30 (scaled).  CAP: t = tanh(s
+// tanh_scale) (tanh_scale = scale / cap) in place of the dot, `scale_log2` is
+// cap log2(e), and dS carries 1 - t^2.
+template <bool MASK, bool CAP, int NS>
 __device__ __forceinline__ void dq_grads(float (&s)[NS], const float (&dp)[NS],
                                          const float (&lse2)[2], const float (&delta)[2],
-                                         float scale_log2, float scale, float neg2, int row0,
-                                         int key0, int kv_len, int causal) {
+                                         float scale_log2, float tanh_scale, float scale,
+                                         float neg2, int row0, int key0, int kv_len,
+                                         int causal) {
 #pragma unroll
   for (int e = 0; e < NS; ++e) {
     const int i = (e >> 1) & 1;
-    float x = fmaf(s[e], scale_log2, -lse2[i]);
+    const float t = CAP ? tanh_ex2(s[e] * tanh_scale) : s[e];
+    float x = fmaf(t, scale_log2, -lse2[i]);
     if (MASK) {
       const int row = row0 + 8 * i;
       const int key = key0 + 8 * (e >> 2) + (e & 1);
       const bool valid = key < kv_len && (!causal || key <= row);
       x = valid ? x : neg2 - lse2[i];
     }
-    s[e] = ex2(x) * (dp[e] - delta[i]) * scale;
+    if (CAP)
+      s[e] = ex2(x) * (dp[e] - delta[i]) * fmaf(-t, t, 1.0f) * scale;
+    else
+      s[e] = ex2(x) * (dp[e] - delta[i]) * scale;
   }
 }
 
 // dk/dv's tile: s holds S^T (keys x query rows), dp dP^T; afterwards s holds
 // P^T and dp dS^T.  `rs` points at this thread's first column of the tile's
-// lse2 row, the tile's delta row BQT floats later.
-template <bool MASK, int NS>
+// lse2 row, the tile's delta row BQT floats later.  CAP as in dq_grads.
+template <bool MASK, bool CAP, int NS>
 __device__ __forceinline__ void dkdv_grads(float (&s)[NS], float (&dp)[NS], const float* rs,
-                                           float scale_log2, float scale, float neg2, int key0,
-                                           int row0, int kv_len, int causal) {
+                                           float scale_log2, float tanh_scale, float scale,
+                                           float neg2, int key0, int row0, int kv_len,
+                                           int causal) {
   constexpr int BQT = 2 * NS;
 #pragma unroll
   for (int n = 0; n < NS / 4; ++n) {
@@ -578,7 +622,8 @@ __device__ __forceinline__ void dkdv_grads(float (&s)[NS], float (&dp)[NS], cons
       for (int j = 0; j < 2; ++j) {
         const int e = 4 * n + 2 * i + j;
         const float lse2 = j ? l2.y : l2.x;
-        float x = fmaf(s[e], scale_log2, -lse2);
+        const float t = CAP ? tanh_ex2(s[e] * tanh_scale) : s[e];
+        float x = fmaf(t, scale_log2, -lse2);
         if (MASK) {
           const int key = key0 + 8 * i;
           const int row = row0 + 8 * n + j;
@@ -586,7 +631,10 @@ __device__ __forceinline__ void dkdv_grads(float (&s)[NS], float (&dp)[NS], cons
           x = valid ? x : neg2 - lse2;
         }
         const float p = ex2(x);
-        dp[e] = p * (dp[e] - (j ? dl.y : dl.x)) * scale;
+        if (CAP)
+          dp[e] = p * (dp[e] - (j ? dl.y : dl.x)) * fmaf(-t, t, 1.0f) * scale;
+        else
+          dp[e] = p * (dp[e] - (j ? dl.y : dl.x)) * scale;
         s[e] = p;
       }
     }
@@ -643,7 +691,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap dmap,
@@ -651,7 +699,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse2,
                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int G,
                  int Sq, int Sk, int Sq_pad, int kv_len, int causal, float scale,
-                 float scale_log2, Strides sdq) {
+                 float scale_log2, float tanh_scale, Strides sdq) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK;
   constexpr int ST = DQ_STAGES;
@@ -755,8 +803,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_wait<1>();  // S and dP done; dq's product of tile i - 1 may still run
     reg_fence(sacc);
     reg_fence(dpacc);
-    dq_grads<decltype(mask)::value>(sacc, dpacc, l2, dl, scale_log2, scale, neg2, row0,
-                                    i * BK + col0, kv_len, causal);
+    dq_grads<decltype(mask)::value, CAP>(sacc, dpacc, l2, dl, scale_log2, tanh_scale, scale,
+                                         neg2, row0, i * BK + col0, kv_len, causal);
     wgmma_wait<0>();  // tile i - 1 is done: its stage and frag are free
     reg_fence(acc);
 #pragma unroll
@@ -776,9 +824,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   reg_fence(sacc);
   reg_fence(dpacc);
   if (n_plain > 0)
-    dq_grads<false>(sacc, dpacc, l2, dl, scale_log2, scale, neg2, row0, col0, kv_len, causal);
+    dq_grads<false, CAP>(sacc, dpacc, l2, dl, scale_log2, tanh_scale, scale, neg2, row0, col0,
+                         kv_len, causal);
   else
-    dq_grads<true>(sacc, dpacc, l2, dl, scale_log2, scale, neg2, row0, col0, kv_len, causal);
+    dq_grads<true, CAP>(sacc, dpacc, l2, dl, scale_log2, tanh_scale, scale, neg2, row0, col0,
+                        kv_len, causal);
   to_a_fragment(frag, sacc);
   for (int i = 1; i < n_plain; ++i) pipelined(i, std::false_type());
   for (int i = max(1, n_plain); i < n_tiles; ++i) pipelined(i, std::true_type());
@@ -800,7 +850,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap dmap,
@@ -808,8 +858,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse2,
                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int H, int G, int Sq, int Sk, int Sq_pad,
-                   int kv_len, int causal, float scale, float scale_log2, Strides sdk,
-                   Strides sdv) {
+                   int kv_len, int causal, float scale, float scale_log2, float tanh_scale,
+                   Strides sdk, Strides sdv) {
   using C = Cfg<HD>;
   constexpr int BQT = C::BQT;
   constexpr int ST = DKDV_STAGES;
@@ -924,9 +974,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     auto grads = [&](int i, auto mask) {
       const int j = first + i % n_per;
-      dkdv_grads<decltype(mask)::value>(sacc, dpacc, rs_base + (i % ST) * (C::RS_TILE / 4),
-                                        scale_log2, scale, neg2, key0, j * BQT + col0, kv_len,
-                                        causal);
+      dkdv_grads<decltype(mask)::value, CAP>(sacc, dpacc,
+                                             rs_base + (i % ST) * (C::RS_TILE / 4), scale_log2,
+                                             tanh_scale, scale, neg2, key0, j * BQT + col0,
+                                             kv_len, causal);
     };
     auto pack = [&]() {
       to_a_fragment(pf, sacc);
@@ -1013,10 +1064,10 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int S, int hea
 
 // the three launches; `scratch` holds lse2 and then delta, B H Sq_pad floats
 // each.  st: the 32 strides of the C entry point.
-template <int HD>
+template <int HD, bool CAP>
 int run(const void* q, const void* k, const void* v, const void* o, const void* dout,
         const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H, int G,
-        int Sq, int Sk, int kv_len, int causal, float scale, const long long* st, int slot,
+        int Sq, int Sk, int kv_len, int causal, float scale, float cap, const long long* st,
         cudaStream_t stream) {
   using C = Cfg<HD>;
   const EncodeTiled enc = tensor_map_encoder();
@@ -1032,8 +1083,9 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
       !make_map<HD>(enc, &k_kv, k, Sk, KV, B, st + 4, BKV) ||
       !make_map<HD>(enc, &v_kv, v, Sk, KV, B, st + 8, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(bwd_dq_wgmma<HD>, C::SMEM_DQ, 2 * slot);
-  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_wgmma<HD>, C::SMEM_DKDV, 2 * slot + 1);
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(smem_set, bwd_dq_wgmma<HD, CAP>, C::SMEM_DQ,
+                               bwd_dkdv_wgmma<HD, CAP>, C::SMEM_DKDV);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int Sq_pad = (Sq + BQ - 1) / BQ * BQ;
@@ -1053,23 +1105,26 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
       delta, H, Sq, Sq_pad, so, sdo, int(aligned(o, so) && aligned(dout, sdo)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 = scale * LOG2E;
-  bwd_dq_wgmma<HD><<<dim3(B * H, Sq_pad / BQ), THREADS, C::SMEM_DQ, stream>>>(
+  // capped, P's exponent is tanh(s scale / cap) times cap log2(e)
+  const float scale_log2 = (CAP ? cap : scale) * LOG2E;
+  const float tanh_scale = CAP ? scale / cap : 0.0f;
+  bwd_dq_wgmma<HD, CAP><<<dim3(B * H, Sq_pad / BQ), THREADS, C::SMEM_DQ, stream>>>(
       q_dq, d_dq, k_dq, v_dq, lse2, delta, static_cast<__nv_bfloat16*>(dq), H, G, Sq, Sk, Sq_pad,
-      kv_len, causal, scale, scale_log2, strides(5));
+      kv_len, causal, scale, scale_log2, tanh_scale, strides(5));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_wgmma<HD><<<dim3(B * KV, (Sk + BKV - 1) / BKV), THREADS, C::SMEM_DKDV, stream>>>(
-      q_kv, d_kv, k_kv, v_kv, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, G, Sq, Sk, Sq_pad, kv_len, causal, scale, scale_log2,
-      strides(6), strides(7));
+  bwd_dkdv_wgmma<HD, CAP>
+      <<<dim3(B * KV, (Sk + BKV - 1) / BKV), THREADS, C::SMEM_DKDV, stream>>>(
+          q_kv, d_kv, k_kv, v_kv, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), H, G, Sq, Sk, Sq_pad, kv_len, causal, scale,
+          scale_log2, tanh_scale, strides(6), strides(7));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-template <typename T>
-int run(const Args& a, const void* o, Strides so, float* delta, int B, int hd, int slot,
+template <typename T, bool CAP>
+int run(const Args& a, const void* o, Strides so, float* delta, int B, int hd,
         cudaStream_t stream) {
   const long long rows = (long long)B * a.H * a.Sq;
   const long long blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
@@ -1080,11 +1135,32 @@ int run(const Args& a, const void* o, Strides so, float* delta, int B, int hd, i
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (hd) {
     case 32:
-      return launch<T, 32>(a, B, slot, stream);
+      return launch<T, 32, CAP>(a, B, stream);
     case 64:
-      return launch<T, 64>(a, B, slot + 1, stream);
+      return launch<T, 64, CAP>(a, B, stream);
     case 128:
-      return launch<T, 128>(a, B, slot + 2, stream);
+      return launch<T, 128, CAP>(a, B, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the bf16 kernels at head dim hd, capped or not
+template <bool CAP>
+int run_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int H, int G,
+           int Sq, int Sk, int hd, int kv_len, int causal, float scale, float cap,
+           const long long* st, cudaStream_t s) {
+  switch (hd) {
+    case 32:
+      return tc::run<32, CAP>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk,
+                              kv_len, causal, scale, cap, st, s);
+    case 64:
+      return tc::run<64, CAP>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk,
+                              kv_len, causal, scale, cap, st, s);
+    case 128:
+      return tc::run<128, CAP>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk,
+                               kv_len, causal, scale, cap, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1102,36 +1178,32 @@ int run(const Args& a, const void* o, Strides so, float* delta, int B, int hd, i
 // eight tensors; q, k, v and dout with d stride 1, the other strides and
 // the pointers 16-byte aligned; dq, dk and dv with d stride 1 and even
 // strides); hd in {32, 64, 128}; 0 <= kv_len <= Sk; (Sq + 63) / 64 and
-// (Sk + 63) / 64 below 65536.  `scale` is the forward's.  Launches on
-// `stream` and returns a cudaError_t (0 when every launch was accepted).
+// (Sk + 63) / 64 below 65536.  `scale` and `cap` are the forward's (cap <= 0:
+// no cap).  Launches on `stream` and returns a cudaError_t (0 when every
+// launch was accepted).
 extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
                                          float* scratch, void* dq, void* dk, void* dv, int B,
                                          int H, int G, int Sq, int Sk, int hd, int kv_len,
-                                         int causal, float scale, const long long* st,
-                                         void* stream) {
+                                         int causal, float scale, float cap,
+                                         const long long* st, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool capped = cap > 0.0f;
   if (dtype == 1) {
-    switch (hd) {
-      case 32:
-        return tc::run<32>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, kv_len,
-                           causal, scale, st, 3, s);
-      case 64:
-        return tc::run<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, kv_len,
-                           causal, scale, st, 4, s);
-      case 128:
-        return tc::run<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, kv_len,
-                            causal, scale, st, 5, s);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return capped ? run_tc<true>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, hd,
+                                 kv_len, causal, scale, cap, st, s)
+                  : run_tc<false>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk,
+                                  hd, kv_len, causal, scale, 0.0f, st, s);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto strides = [&](int i) { return Strides{st[4 * i], st[4 * i + 1], st[4 * i + 2], st[4 * i + 3]}; };
-  const Args a{q,  k,  v,      dout,   lse,       scratch,    dq,         dk,         dv,
-               H,  G,  Sq,     Sk,     kv_len,    causal,     scale,      strides(0), strides(1),
-               strides(2), strides(4), strides(5), strides(6), strides(7)};
-  return run<float>(a, o, strides(3), scratch, B, hd, 0, s);
+  const Args a{q,          k,          v,          dout,       lse,        scratch,
+               dq,         dk,         dv,         H,          G,          Sq,
+               Sk,         kv_len,     causal,     scale,      capped ? cap : 0.0f,
+               strides(0), strides(1), strides(2), strides(4), strides(5), strides(6),
+               strides(7)};
+  return capped ? run<float, true>(a, o, strides(3), scratch, B, hd, s)
+                : run<float, false>(a, o, strides(3), scratch, B, hd, s);
 }
 
 // bytes of dynamic shared memory a block of the dq (which 0) or the dk/dv

@@ -371,4 +371,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ---- special functions -------------------------------------------------------
+
+// tanh(x) = sign(x) (1 - 2 / (2^(2 |x| log2 e) + 1)): two special-function
+// operations (ex2.approx, rcp.approx) and no branch.  Its absolute error stays
+// below ~3e-7 over the whole range: near 0 the reciprocal is near 1/2, so
+// nothing cancels, and past |x| ~ 44 the power overflows to +inf and the
+// result is exactly +-1.  tanh.approx.f32 would take one operation but errs
+// by up to ~2^-11 relative, which a logit cap of 50 turns into logits off by
+// ~0.025.
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(fabsf(x) * 2.8853900817779268f));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(e + 1.0f));
+  return copysignf(fmaf(-2.0f, r, 1.0f), x);
+}
+
 }  // namespace hopper

@@ -51,15 +51,15 @@ SIGNATURES = {
     # dtype, a, b, c, n, stream
     "repro_matadd": (_I, _P, _P, _P, _L, _P),
     # dtype, q, k, v, o, lse (or NULL), B, H, G, Sq, Sk, hd, kv_len, causal, scale,
-    # strides[16], stream
+    # cap (<= 0: none), strides[16], stream
     "repro_flash_attention": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _LP, _P),
+                              _F, _LP, _P),
     # dtype, hd -> bytes of dynamic shared memory of that kernel
     "repro_flash_attention_smem": (_I, _I),
     # dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, hd, kv_len, causal,
-    # scale, strides[32], stream
+    # scale, cap (<= 0: none), strides[32], stream
     "repro_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _LP, _P),
+                                  _I, _I, _I, _I, _F, _F, _LP, _P),
     # dtype, 0 = the dq kernel or 1 = the dk/dv kernel, hd -> bytes of dynamic shared memory
     "repro_flash_attention_bwd_smem": (_I, _I, _I),
     # r, k, v, w, u, o, state, B, H, S, N, strides[8], stream

@@ -28,6 +28,10 @@ by path:
 row's log-sum-exp ``(B, H, Sq)`` in f32 for the backward (K3b,
 :mod:`.flash_attention_bwd`); :func:`flash_attention`, the serving call,
 passes the kernel no LSE buffer.  Both count as K3 launches.
+
+``cap > 0`` caps each scaled logit to ``cap tanh(s / cap)`` (a model's
+``attn_logit_softcap``) on every path; the kernel is built capped and
+uncapped, and ``cap <= 0`` launches the uncapped one.
 """
 
 from __future__ import annotations
@@ -82,21 +86,22 @@ def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
+                    causal: bool = True, kv_len: int | None = None,
+                    cap: float = 0.0) -> torch.Tensor:
     """Launch the kernel; raises on an input it does not take."""
-    return _launch(q, k, v, causal, kv_len, want_lse=False)[0]
+    return _launch(q, k, v, causal, kv_len, cap, want_lse=False)[0]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, kv_len: int | None = None
+                        causal: bool = True, kv_len: int | None = None, cap: float = 0.0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o, lse): the kernel's output and each query row's log-sum-exp of
-    its scaled logits, ``(B, H, Sq)`` f32 (natural log; ``pad`` crops
-    nothing from it).  Raises on an input the kernel does not take."""
-    return _launch(q, k, v, causal, kv_len, want_lse=True)
+    its scaled (and capped) logits, ``(B, H, Sq)`` f32 (natural log; ``pad``
+    crops nothing from it).  Raises on an input the kernel does not take."""
+    return _launch(q, k, v, causal, kv_len, cap, want_lse=True)
 
 
-def _launch(q, k, v, causal, kv_len, want_lse: bool):
+def _launch(q, k, v, causal, kv_len, cap, want_lse: bool):
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -131,18 +136,23 @@ def _launch(q, k, v, causal, kv_len, want_lse: bool):
         err = lib.repro_flash_attention(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv,
-            int(causal), 1.0 / math.sqrt(hd), strides, stream)
+            int(causal), 1.0 / math.sqrt(hd), float(cap), strides, stream)
     _build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
+    flash_attention.launches_capped += cap > 0
     return (out if built == hd else out[..., :hd]), lse
 
 
 def reset_launches() -> None:
-    """Set the launch counts (the total and each path's) to 0."""
+    """Set the launch counts (the total, each path's and the capped) to 0."""
     flash_attention.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
+    flash_attention.launches_capped = 0
 
 
 flash_attention.launches = 0  # kernel launches since the last reset to 0
 flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)  # the same, by path
+# of the launches through this wrapper, those with a logit cap (a CUDA graph's
+# replays add to the two counts above only: ops.add_launches)
+flash_attention.launches_capped = 0

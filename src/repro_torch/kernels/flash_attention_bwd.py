@@ -27,6 +27,10 @@ it is decided from the dtype, the head dim and the layout alone
   (zero columns add nothing to any product, so the extra columns of the
   gradients are 0 and cropped), with the scale ``1/sqrt`` of the caller's
   head dim.
+
+``cap > 0`` is the forward's logit cap: the kernels recompute the capped
+logits and multiply dS by the cap's derivative ``1 - tanh^2``; ``cap <= 0``
+launches the uncapped kernels.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ def prepare(q, k, v, o, dout) -> tuple[str, tuple[torch.Tensor, ...]]:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        kv_len: int | None = None
+                        kv_len: int | None = None, cap: float = 0.0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernel; raises on an input it does not take."""
     ts = (q, k, v, o, dout)
@@ -115,20 +119,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd),
-            strides, stream)
+            float(cap), strides, stream)
     _build.check(err, f"flash_attention_bwd ({path})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_path[path] += 1
+    flash_attention_bwd.launches_capped += cap > 0
     if built == hd:
         return dq, dk, dv
     return dq[..., :hd], dk[..., :hd], dv[..., :hd]
 
 
 def reset_launches() -> None:
-    """Set the launch counts (the total and each path's) to 0."""
+    """Set the launch counts (the total, each path's and the capped) to 0."""
     flash_attention_bwd.launches = 0
     flash_attention_bwd.launches_by_path = dict.fromkeys(PATHS, 0)
+    flash_attention_bwd.launches_capped = 0
 
 
 flash_attention_bwd.launches = 0  # kernel launches since the last reset to 0
 flash_attention_bwd.launches_by_path = dict.fromkeys(PATHS, 0)  # the same, by path
+# of the launches through this wrapper, those with a logit cap (a CUDA graph's
+# replays add to the two counts above only: ops.add_launches)
+flash_attention_bwd.launches_capped = 0

@@ -36,43 +36,46 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_len: int | None = None) -> torch.Tensor:
-    """q ``(B, H, Sq, hd)`` over k, v ``(B, K, Sk, hd)``, K dividing H.
-    With grad enabled and an input that requires it, through
+                    causal: bool = True, kv_len: int | None = None,
+                    cap: float = 0.0) -> torch.Tensor:
+    """q ``(B, H, Sq, hd)`` over k, v ``(B, K, Sk, hd)``, K dividing H, each
+    scaled logit capped to ``cap tanh(s / cap)`` where ``cap > 0``.  With
+    grad enabled and an input that requires it, through
     :class:`FlashAttention`; otherwise the serving call, with no LSE."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, kv_len)
+        return FlashAttention.apply(q, k, v, causal, kv_len, cap)
     if q.is_cuda or k.is_cuda or v.is_cuda:
-        return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len)
-    return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+    return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with the reference's ``_flash_attend_core`` gradient: the
     forward saves (q, k, v, o, lse), the backward recomputes P from the LSE
     (FlashAttention-2).  On CUDA tensors the forward is K3 with its LSE and
-    the backward K3b; on CPU tensors their plain versions."""
+    the backward K3b; on CPU tensors their plain versions.  With a logit cap
+    the backward takes the cap's derivative, which the reference's
+    ``fusedkernel_flash_bwd`` leaves out (ROADMAP section 3, fault 7)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, kv_len: int | None):
+    def forward(ctx, q, k, v, causal: bool, kv_len: int | None, cap: float):
         if q.is_cuda or k.is_cuda or v.is_cuda:
-            o, lse = _flash_fwd_kernel(q, k, v, causal=causal, kv_len=kv_len)
+            o, lse = _flash_fwd_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
         else:
-            o, lse = _ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len)
+            o, lse = _ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.kv_len = causal, kv_len
+        ctx.causal, ctx.kv_len, ctx.cap = causal, kv_len, cap
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, kv_len=ctx.kv_len, cap=ctx.cap)
         if q.is_cuda:
-            grads = _flash_bwd_kernel(q, k, v, o, lse, dout, causal=ctx.causal,
-                                      kv_len=ctx.kv_len)
+            grads = _flash_bwd_kernel(q, k, v, o, lse, dout, **kw)
         else:
-            grads = _ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=ctx.causal,
-                                             kv_len=ctx.kv_len)
-        return (*grads, None, None)
+            grads = _ref.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        return (*grads, None, None, None)
 
 
 def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,9 +141,10 @@ def warm_up(device) -> None:
     on every path: K1's ``wgmma`` path in each dtype and each operand layout
     (K-major or MN-major A and B) and its ``fma`` path; K2 ``direct`` and
     ``copy``; K3 in each dtype at each built head dim (``tma``, ``fp32``),
-    on a bf16 view TMA cannot address (``copy``) and at a head dim that is
-    padded (``pad``); K4 at each built head size (``ring``), with unequal
-    strides (``copy``) and at a padded head size (``pad``); K4b likewise
+    uncapped and with a logit cap, on a bf16 view TMA cannot address
+    (``copy``) and at a head dim that is padded (``pad``); K4 at each built
+    head size (``ring``), with unequal strides (``copy``) and at a padded
+    head size (``pad``); K4b likewise
     (``direct``, ``copy`` of an n-stride 2 view, ``pad``).  So the one-time
     costs (the ``nvcc`` build, loading the library and each kernel's module,
     the shared-memory settings of ``cudaFuncSetAttribute``) stay out of a
@@ -163,7 +167,8 @@ def warm_up(device) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (*HEAD_DIMS, 4):  # 4 is padded up to 32
             a = torch.zeros(1, 1, 8, hd, device=device, dtype=dtype)
-            _flash_kernel(a, a, a)
+            for cap in (0.0, 1.0):
+                _flash_kernel(a, a, a, cap=cap)
     a = torch.zeros(1, 1, 8, 64, device=device, dtype=torch.bfloat16)[..., ::2]
     _flash_kernel(a, a, a)  # a strided last dimension: copy
     for n in (*WKV6_HEAD_SIZES, 4):  # 4 is padded up to 32

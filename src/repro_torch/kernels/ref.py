@@ -31,13 +31,21 @@ def _expand(t: torch.Tensor, G: int) -> torch.Tensor:
     return t.repeat_interleave(G, dim=1) if G > 1 else t
 
 
-def _scores(q, k, causal, kv_len, scale):
-    """Masked logits ``(B, H, Sq, Sk)`` in f32: ``q . k`` divided by
-    ``sqrt(hd)`` (or times ``scale``), -1e30 where masked.  ``k`` has the
-    query heads already."""
-    Sq, Sk = q.shape[2], k.shape[2]
+def _scaled(q, k, scale):
+    """``q . k`` in f32, divided by ``sqrt(hd)`` or times ``scale``; ``k`` has
+    the query heads already."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
+    return s / math.sqrt(q.shape[-1]) if scale is None else s * scale
+
+
+def _scores(q, k, causal, kv_len, scale, cap=0.0):
+    """Masked logits ``(B, H, Sq, Sk)`` in f32: the scaled dots, capped to
+    ``cap tanh(s / cap)`` where ``cap > 0``, then -1e30 where masked (the
+    reference caps before it masks).  ``k`` has the query heads already."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = _scaled(q, k, scale)
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
     kpos = torch.arange(Sk, device=q.device)
     if causal:
         qpos = torch.arange(Sq, device=q.device)
@@ -49,37 +57,39 @@ def _scores(q, k, causal, kv_len, scale):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, cap: float = 0.0) -> torch.Tensor:
     """Softmax attention, ``(B, H, Sq, hd)`` queries over ``(B, K, Sk, hd)``
     keys/values with ``K`` dividing ``H`` (query head ``h`` reads KV head
     ``h // (H // K)``; the reference's MHA layout is ``K == H``).
 
     Logits in f32, divided by ``sqrt(hd)``, or multiplied by ``scale`` where
     one is given (the CUDA kernel's argument: ``1/sqrt`` of the head dim
-    before zero-padding); the causal mask is top-left
+    before zero-padding); where ``cap > 0`` each scaled logit becomes ``cap
+    tanh(s / cap)`` (the reference's ``logit_cap``); the causal mask is top-left
     aligned (``qpos >= kpos``, both from 0); keys at or past ``kv_len`` are
     masked.  Masked logits are -1e30, so a fully masked row averages V.
     The probabilities are rounded to ``v.dtype`` before the product with V;
     the output is in ``q.dtype``."""
-    return _attend(q, k, v, causal, kv_len, scale)[0]
+    return _attend(q, k, v, causal, kv_len, scale, cap)[0]
 
 
-def _attend(q, k, v, causal, kv_len, scale):
+def _attend(q, k, v, causal, kv_len, scale, cap):
     """-> (the output, the masked logits)."""
     G = q.shape[1] // k.shape[1]
-    s = _scores(q, _expand(k, G), causal, kv_len, scale)
+    s = _scores(q, _expand(k, G), causal, kv_len, scale, cap)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), _expand(v, G)).to(q.dtype), s
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, kv_len: int | None = None,
-                        scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                        scale: float | None = None, cap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention`'s output and each query row's log-sum-exp of
-    its masked, scaled logits, ``(B, H, Sq)`` f32, as the reference's
+    its masked, scaled (and capped) logits, ``(B, H, Sq)`` f32, as the reference's
     ``_flash_fwd_inner`` returns it: ``m + log(max(l, 1e-30))`` with ``m``
     the row's largest logit and ``l`` the sum of ``exp(s - m)``."""
-    o, s = _attend(q, k, v, causal, kv_len, scale)
+    o, s = _attend(q, k, v, causal, kv_len, scale, cap)
     m = s.amax(dim=-1)
     l_sum = torch.exp(s - m[..., None]).sum(dim=-1)
     return o, m + torch.log(l_sum.clamp_min(1e-30))
@@ -87,8 +97,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        kv_len: int | None = None, scale: float | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        kv_len: int | None = None, scale: float | None = None,
+                        cap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` given its
     output ``o``, the output's gradient ``dout`` and the forward's ``lse``:
     the reference's ``fusedkernel_flash_bwd`` in its two passes, each
@@ -98,7 +108,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     recomputes P and dS, then ``dk = dS^T q`` and ``dv = P^T dout``, summed
     over the G query heads of each KV head.  P and dS are rounded to the
     input dtype before their products (the reference's ``.astype``); every
-    sum is f32; the gradients are in the inputs' dtypes."""
+    sum is f32; the gradients are in the inputs' dtypes.
+
+    With a cap, ``dS`` also carries the cap's derivative: ``dS = P (dP -
+    delta) (1 - t^2) scale`` with ``t = tanh(s scale / cap)`` of every
+    pair's unmasked logit.  The reference's ``fusedkernel_flash_bwd`` leaves
+    ``1 - t^2`` out (ROADMAP section 3, fault 7); this is the gradient of
+    the capped forward."""
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
     G = H // Kh
@@ -107,9 +123,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     delta = (dout.float() * o.float()).sum(dim=-1)
 
     def probs_and_ds():
-        p = torch.exp(_scores(q, ke, causal, kv_len, scale) - lse[..., None])
+        p = torch.exp(_scores(q, ke, causal, kv_len, scale, cap) - lse[..., None])
         dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), ve.float())
-        return p, p * (dp - delta[..., None]) * sc
+        ds = p * (dp - delta[..., None])
+        if cap > 0:
+            t = torch.tanh(_scaled(q, ke, scale) / cap)
+            ds = ds * (1 - t * t)
+        return p, ds * sc
 
     # pass 1: dq
     _, ds = probs_and_ds()

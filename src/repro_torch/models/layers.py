@@ -10,6 +10,9 @@ gradient is K3b (:class:`repro_torch.kernels.ops.FlashAttention`), on the
 CPU too through the plain versions, as the reference's ``custom_vjp``.
 Decode attention (one new token against the cache) has no TPU kernel in the
 reference and stays plain tensor code; so does MLA's absorbed-weight decode.
+A model's ``attn_logit_softcap`` caps the GQA block's logits, in prefill,
+training and decode, as the reference's ``attn_block`` and
+``attn_decode_block`` do; MLA and cross-attention take no cap there.
 
 Weights are cast to the activation dtype at each use, as in the reference
 (``p["wq"].to(x.dtype)``); a tree cast once at load
@@ -119,13 +122,15 @@ def mlp(p, x, ctx: Ctx):
 # attention (K3)
 # ---------------------------------------------------------------------------
 
-def attention(q, k, v, *, causal: bool):
+def attention(q, k, v, *, causal: bool, logit_cap: float = 0.0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * G.  One K3 call on
     (B, heads, S, hd) views: no transposed copies, no K/V repeat; under
-    autograd its backward is one K3b call.  The reference's query offset and
-    logit cap are not taken: no configuration of the repo sets either."""
+    autograd its backward is one K3b call.  ``logit_cap > 0`` caps each
+    scaled logit to ``cap tanh(s / cap)`` before the mask, as the
+    reference's.  The reference's query offset is not taken: every caller
+    of the port attends from position 0."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal=causal)
+                            causal=causal, cap=logit_cap)
     return o.transpose(1, 2)
 
 
@@ -177,7 +182,7 @@ def attn_block(p, x, cfg, ctx: Ctx, *, positions, causal=True):
     q, k, v = _qkv(p, x, cfg, ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=causal)
+    o = attention(q, k, v, causal=causal, logit_cap=cfg.attn_logit_softcap)
     return _out(o, p["wo"], x.dtype), (k, v)
 
 
@@ -185,15 +190,17 @@ def attn_block(p, x, cfg, ctx: Ctx, *, positions, causal=True):
 # decode attention (one new token against a cache)
 # ---------------------------------------------------------------------------
 
-def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor):
+def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor, *, logit_cap: float = 0.0):
     """q: (B, H, hd); caches (B, S, K, hd); pos: write position of the new
     token, a one-element ``long`` tensor on the caches' device.  The caches
     are updated in place (the serving loop owns them) and returned.
+    ``logit_cap > 0`` caps each scaled logit to ``cap tanh(s / cap)``
+    before the mask, as the reference's.
 
     The position is never read on the host (``index_copy_`` writes at it,
-    a comparison against ``arange`` masks past it), so the step can be
-    captured into a CUDA graph and replayed with the position advanced on
-    the card."""
+    a comparison against ``arange`` masks past it), and the cap is a Python
+    float, so the step can be captured into a CUDA graph (which bakes the
+    cap in) and replayed with the position advanced on the card."""
     B, S, K, hd = ck.shape
     H = q.shape[1]
     G = H // K
@@ -201,6 +208,8 @@ def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor):
     cv.index_copy_(1, pos, v_new[:, None].to(cv.dtype))
     qg = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), ck.float()) / math.sqrt(hd)
+    if logit_cap > 0:
+        s = logit_cap * torch.tanh(s / logit_cap)
     s = s.masked_fill(torch.arange(S, device=s.device) > pos, NEG_INF)
     p = torch.softmax(s, dim=-1).to(cv.dtype)
     o = torch.einsum("bkgs,bskh->bkgh", p, cv)
@@ -214,7 +223,8 @@ def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     posv = pos.view(1, 1).expand(x.shape[0], 1)
     q = apply_rope(q, posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k, posv, cfg.rope_theta)[:, 0]
-    o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos)
+    o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos,
+                                    logit_cap=cfg.attn_logit_softcap)
     return _out(o, p["wo"], x.dtype)[:, None], {"k": ck, "v": cv}
 
 

@@ -11,9 +11,6 @@ it where the reference scans; prefix layers are unstacked, as there.
 Training (:func:`lm_loss`) rematerializes each unit, each encoder layer and
 each chunk of the LM head's cross-entropy when ``ctx.remat``, as the
 reference's ``jax.checkpoint`` does.
-
-An attention logit cap raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
 """
 
 from __future__ import annotations
@@ -30,14 +27,7 @@ from . import rwkv, ssm
 from .layers import Ctx, _checkpoint, _remat
 from .params import P, tree_map
 
-NO_SOFTCAP = ("an attention logit cap (no config sets one; ROADMAP queue 1, item 6b) "
-              "is not ported yet")
 _ENCODER = LayerSpec("attn", "dense")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(NO_SOFTCAP)
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +64,6 @@ def _stack(tree, n: int):
 
 
 def model_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
-    _check_ported(cfg)
     d = cfg.d_model
     V = cfg.padded_vocab(tp)
     p: dict = {
@@ -236,7 +225,6 @@ def forward(params, batch, cfg: ModelConfig, ctx: Ctx, *, collect_cache=False):
     before the text, + "enc_embeds" (B,F,d) for enc_dec].  Returns (hidden,
     caches, aux_total); the unit caches are stacked on a leading (n_units,)
     axis, as the reference's scan stacks them."""
-    _check_ported(cfg)
     x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.vlm:
         x = torch.cat([batch["patch_embeds"].to(ctx.dtype), x], dim=1)
@@ -431,7 +419,6 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx):
 
 def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
     """Spec tree (P) for a decode cache of capacity S."""
-    _check_ported(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     H6, N6 = cfg.rwkv_n_heads, cfg.rwkv_head_size

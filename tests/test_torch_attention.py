@@ -10,7 +10,10 @@ sweeps), 2e-2 in bf16.  The CUDA kernel itself runs only on the card
 wrapper is held to refusing CPU tensors, and what the wrapper hands the
 kernel (``prepare``: the path, the copies and the zero-padding of head dims
 that are not built) is run on the CPU and fed to the plain version with the
-kernel's scale argument.
+kernel's scale argument.  With a logit cap (5, on inputs scaled so the
+logits reach ~15) the plain forward and LSE are held to the reference's
+``fusedkernel_flash_fwd``, the model's attention to both branches of the
+reference's, and the decode attention to its ``decode_attn_dense``.
 """
 
 import pytest
@@ -221,3 +224,104 @@ def test_padded_head_dim_with_its_scale_equals_plain_and_reference(hd, causal):
     expect = jref.flash_attention(*map(jnp.asarray, (q, np.repeat(k, 2, 1), np.repeat(v, 2, 1))),
                                   causal=causal, kv_len=33)
     np.testing.assert_allclose(_f32(got), _f32(expect), **F32)
+
+
+# ---------------------------------------------------------------------------
+# the logit cap
+# ---------------------------------------------------------------------------
+
+CAP = 5.0
+# inputs x 3: the scaled logits reach ~15, three times the cap, so the tanh
+# saturates.  B, Sq, Sk, K (KV heads), G (query heads a KV head), hd, causal,
+# kv_len
+CAPPED = [
+    (2, 32, 32, 2, 2, 16, True, None),
+    (1, 48, 32, 1, 4, 32, True, None),    # GQA, Sq > Sk
+    (2, 32, 48, 2, 1, 32, False, 40),     # Sq < Sk, kv_len < Sk
+    (1, 32, 48, 2, 2, 96, True, None),    # hd 96: the pad path
+    (1, 16, 32, 2, 2, 16, False, 0),      # every key masked: the mean of V
+]
+
+
+def _capped_inputs(B, Sq, Sk, K, G, hd, seed):
+    """q (B, Sq, K, G, hd), k, v (B, Sk, K, hd) in the reference's grouped
+    layout, f32, q and k times 3."""
+    rng = np.random.default_rng(seed)
+    q = 3 * rng.standard_normal((B, Sq, K, G, hd)).astype(np.float32)
+    k = 3 * rng.standard_normal((B, Sk, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, K, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _bhsd(a):
+    """A reference (B, S, [K, G,] hd) array as the port's (B, H, S, hd) view."""
+    B, S = a.shape[:2]
+    return torch.from_numpy(np.array(a).reshape(B, S, -1, a.shape[-1])).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", CAPPED)
+def test_capped_forward_and_lse_match_fusedkernel_flash_fwd(case):
+    """The plain capped forward and LSE against the reference's blockwise
+    forward with ``logit_cap``, on the inputs as given and on what the
+    wrapper hands the kernel (``prepare``: hd 16 and 96 zero-padded to 32 and
+    128 with the caller's scale), at the suite's f32 tolerance."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v = _capped_inputs(B, Sq, Sk, K, G, hd, seed=hd + Sq)
+    o, lse = jL.fusedkernel_flash_fwd(q, k, v, 0, causal=causal, scale=1 / np.sqrt(hd), Cq=16,
+                                      Ck=16, logit_cap=CAP, kv_len=kv_len)
+    o = np.asarray(o).reshape(B, Sq, K * G, hd)
+    lse = np.asarray(lse).reshape(B, K * G, Sq)
+    tq, tk, tv = map(_bhsd, (q, k, v))
+    path, pq, pk, pv = prepare(tq, tk, tv)
+    assert path == ("fp32" if hd in HEAD_DIMS else "pad")
+    for got_o, got_lse in (ref.flash_attention_fwd(tq, tk, tv, causal=causal, kv_len=kv_len,
+                                                   cap=CAP),
+                           ref.flash_attention_fwd(pq, pk, pv, causal=causal, kv_len=kv_len,
+                                                   scale=1 / np.sqrt(hd), cap=CAP)):
+        np.testing.assert_allclose(got_o[..., :hd].transpose(1, 2).numpy(), o, **F32)
+        np.testing.assert_allclose(got_lse.numpy(), lse, **F32)
+    np.testing.assert_allclose(
+        _f32(ops.flash_attention(tq, tk, tv, causal=causal, kv_len=kv_len, cap=CAP)
+             .transpose(1, 2)), o, **F32)
+
+
+@pytest.mark.parametrize("chunk", [16, 4096], ids=["flash-branch", "einsum-branch"])
+@pytest.mark.parametrize("seq", [48, 33])
+def test_capped_layers_attention_matches_reference_branches(chunk, seq):
+    """``L.attention`` with ``logit_cap`` against the reference's in both of
+    its branches (the blockwise flash forward with 16-wide chunks, which
+    pads a ragged S, and the dense einsum); capped logits differ from the
+    uncapped ones far past the tolerance."""
+    B, K, G, hd = 2, 2, 2, 16
+    q, k, v = _capped_inputs(B, seq, seq, K, G, hd, seed=seq)
+    q = q.reshape(B, seq, K * G, hd)
+    jctx = jL.Ctx(rules=TRAIN_RULES, dtype=jnp.float32, q_chunk=chunk, kv_chunk=chunk)
+    expect = jL.attention(*map(jnp.asarray, (q, k, v)), causal=True, ctx=jctx, logit_cap=CAP)
+    got = tL.attention(_t(q), _t(k), _t(v), causal=True, logit_cap=CAP)
+    np.testing.assert_allclose(_f32(got), _f32(expect), **F32)
+    uncapped = tL.attention(_t(q), _t(k), _t(v), causal=True)
+    assert np.abs(_f32(uncapped) - _f32(expect)).max() > 100 * F32["atol"]
+
+
+@pytest.mark.parametrize("cap", [0.0, 0.5, CAP])
+@pytest.mark.parametrize("G", [1, 4])
+def test_decode_attn_dense_matches_the_reference(cap, G):
+    """One query against a cache written at ``pos``, the logits capped (0:
+    not) before the mask, as the reference's ``decode_attn_dense``; the
+    caches come back written in place."""
+    B, S, K, hd, pos = 2, 24, 2, 16, 13
+    rng = np.random.default_rng(G)
+    q = 3 * rng.standard_normal((B, K * G, hd)).astype(np.float32)
+    ck = 3 * rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    cv = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    kn = 3 * rng.standard_normal((B, K, hd)).astype(np.float32)
+    vn = rng.standard_normal((B, K, hd)).astype(np.float32)
+    want, (wk, wv) = jL.decode_attn_dense(*map(jnp.asarray, (q, ck, cv, kn, vn)),
+                                          jnp.int32(pos), logit_cap=cap)
+    tk, tv = _t(ck), _t(cv)
+    got, (gk, gv) = tL.decode_attn_dense(_t(q), tk, tv, _t(kn), _t(vn), torch.tensor([pos]),
+                                         logit_cap=cap)
+    assert gk is tk and gv is tv
+    np.testing.assert_allclose(_f32(got), _f32(want), **F32)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))

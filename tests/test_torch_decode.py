@@ -4,7 +4,8 @@ against the JAX reference.
 
 * ``decode_step`` with a one-element ``long`` position is bit-equal to the
   ``int`` call and matches the reference's ``decode_step`` (a traced int32
-  position) at 1e-4 in f32, for an ``attn`` and an ``rwkv6`` architecture.
+  position) at 1e-4 in f32, for an ``attn`` and an ``rwkv6`` architecture
+  and the ``attn`` one with an attention logit cap.
 * The replay contract: ``DecodeGraph`` with its capture replaced by a
   stand-in that calls the one captured closure over fixed token, position
   and cache buffers, rewritten in place (the card's CUDA graph does the
@@ -35,7 +36,9 @@ from repro_torch.models.params import params_from_numpy, tree_leaves, tree_map
 from test_torch_models import _cfgs, _np_leaves, _ref_params
 
 CPU = torch.device("cpu")
-ARCHS = ["granite_3_2b", "rwkv6_3b"]  # one attn, one rwkv6 architecture
+# one attn, one rwkv6 architecture, and the attn one with its logit caps (the
+# decode graph bakes the attention cap in as a Python float)
+ARCHS = ["granite_3_2b", "rwkv6_3b", "granite_3_2b+softcap"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 12, 4
 

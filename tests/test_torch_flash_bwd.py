@@ -20,6 +20,14 @@ masked, P in base 2 from padded row statistics, where P and dS are rounded,
 the order of every sum); it is held to the reference's
 ``fusedkernel_flash_bwd`` and ``jax.grad`` in f32 at 1e-4 and to the plain
 ``ref.flash_attention_bwd`` in bf16 at 1e-2 x max |grad|.
+
+With a logit cap (5, on inputs scaled so the logits reach ~15) the
+reference's ``fusedkernel_flash_bwd`` is wrong (ROADMAP section 3, fault 7:
+no ``1 - tanh^2`` in dS; a test below records it), so the capped plain
+backward, the capped transcription and ``torch.autograd`` through
+``L.attention`` are held to autodiff of the reference's capped forward:
+``jax.vjp`` of ``_flash_fwd_inner`` and ``jax.grad`` of its dense branch, at
+1e-4.
 """
 
 import pytest
@@ -258,7 +266,7 @@ def _rows(t, r0, n):
     return out
 
 
-def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
+def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None, cap=0.0):
     """K3b's bf16 kernels in plain PyTorch: (dq, dk, dv) as they compute them,
     for any dtype (P and dS are rounded to it).
 
@@ -272,7 +280,9 @@ def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
     G query heads, then the query tiles from the first that sees the block's
     keys; the first tiles of each head, up to the half's diagonal (all of
     them where its keys cross kv_len), masked.  P = exp2(s scale log2(e) -
-    lse2), a masked logit -1e30 log2(e)."""
+    lse2), a masked logit -1e30 log2(e).  With a cap, t = tanh(s scale / cap)
+    takes the dot's place and cap log2(e) the scale's, and dS carries
+    1 - t^2."""
     B, H, Sq, hd = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
     G = H // Kh
@@ -280,7 +290,15 @@ def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
     BK, BQT = _tile_sizes(hd)
     f32 = torch.float32
-    sl = torch.tensor(sc, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    sl = torch.tensor(cap if cap > 0 else sc, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    tanh_scale = torch.tensor(sc, dtype=f32) / torch.tensor(cap, dtype=f32) if cap > 0 else None
+
+    def logits(s):
+        """-> (s or t in base 2 before the LSE, the factor dS carries)."""
+        if cap > 0:
+            t = torch.tanh(s * tanh_scale)
+            return t * sl, 1 - t * t
+        return s * sl, 1.0
     neg2 = torch.tensor(-1e30, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
 
     def rnd(x):
@@ -318,10 +336,11 @@ def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
             acc = torch.zeros((B, H, 64, hd))
             for i in range(n_tiles):
                 kt, vt = _rows(ke, i * BK, BK), _rows(ve, i * BK, BK)
-                x = (qt @ kt.transpose(-1, -2)) * sl - l2
+                x, dt = logits(qt @ kt.transpose(-1, -2))
+                x = x - l2
                 if i >= n_plain:
                     x = masked(x, l2, rows[:, None], torch.arange(i * BK, (i + 1) * BK))
-                ds = torch.exp2(x) * (dot @ vt.transpose(-1, -2) - dl) * sc
+                ds = torch.exp2(x) * (dot @ vt.transpose(-1, -2) - dl) * dt * sc
                 acc = acc + rnd(ds) @ kt
             dq[..., rows, :] = acc
     # dk and dv
@@ -347,11 +366,12 @@ def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
                     rows = torch.arange(r0, r0 + BQT)
                     qt, dot = _rows(q[:, heads], r0, BQT), _rows(dout[:, heads], r0, BQT)
                     l2, dl = lse2[:, heads][..., None, rows], delta[:, heads][..., None, rows]
-                    x = (kt @ qt.transpose(-1, -2)) * sl - l2
+                    x, dt = logits(kt @ qt.transpose(-1, -2))
+                    x = x - l2
                     if jj < n_mask:
                         x = masked(x, l2, rows[None, :], keys[:, None])
                     p = torch.exp2(x)
-                    ds = p * (vt @ dot.transpose(-1, -2) - dl) * sc
+                    ds = p * (vt @ dot.transpose(-1, -2) - dl) * dt * sc
                     dv_acc = dv_acc + rnd(p) @ dot
                     dk_acc = dk_acc + rnd(ds) @ qt
             dk[..., keys, :] = dk_acc
@@ -360,13 +380,13 @@ def _tiled_bwd(q, k, v, o, lse, dout, *, causal, kv_len=None, scale=None):
             dv[..., :Sk, :].to(v.dtype))
 
 
-def _tiled_as_kernel(q, k, v, o, lse, dout, *, causal, kv_len=None):
+def _tiled_as_kernel(q, k, v, o, lse, dout, *, causal, kv_len=None, cap=0.0):
     """The transcription on what the wrapper hands the kernel (``prepare``:
     head dims padded with the caller's scale), cropped back."""
     hd = q.shape[-1]
     _, (pq, pk, pv, po, pdo) = prepare(q, k, v, o, dout)
     got = _tiled_bwd(pq, pk, pv, po, lse, pdo, causal=causal, kv_len=kv_len,
-                     scale=1 / math.sqrt(hd))
+                     scale=1 / math.sqrt(hd), cap=cap)
     return tuple(g[..., :hd] for g in got)
 
 
@@ -426,3 +446,141 @@ def test_tiled_transcription_matches_plain_in_bf16(case):
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= 1e-2 * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# the logit cap
+# ---------------------------------------------------------------------------
+
+CAP = 5.0
+
+
+def _capped_inputs(B, Sq, Sk, K, G, hd, seed=0):
+    """:func:`_inputs` with q and k times 3: the scaled logits reach ~15,
+    three times the cap, so the tanh saturates and ``1 - t^2`` matters."""
+    q, k, v, do = _inputs(B, Sq, Sk, K, G, hd, seed)
+    return 3 * q, 3 * k, v, do
+
+
+def _vjp_capped(q, k, v, do, causal, kv_len=None):
+    """Autodiff of the reference's capped blockwise forward: ``jax.vjp`` of
+    ``_flash_fwd_inner`` (plain JAX, not the ``custom_vjp``), the output's
+    cotangent ``do`` and the LSE's 0.  -> (o, lse, (dq, dk, dv))."""
+    hd = q.shape[-1]
+
+    def fwd(q, k, v):
+        return jL._flash_fwd_inner(q, k, v, causal=causal, q_offset=0, scale=1 / math.sqrt(hd),
+                                   Cq=16, Ck=16, logit_cap=CAP, kv_len=kv_len)
+
+    (o, lse), pull = jax.vjp(fwd, *map(jnp.asarray, (q, k, v)))
+    return o, lse, pull((jnp.asarray(do), jnp.zeros_like(lse)))
+
+
+def _assert_grads(got, want, **tol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().transpose(1, 2).numpy().reshape(w.shape),
+                                   np.asarray(w, np.float32), **tol)
+
+
+# TILED_CASES but the one whose keys are all masked (kv_len 0): there
+# autodiff gives no dq and dk (the mask's where), while every FlashAttention-2
+# backward, the reference's regions and the port's alike, forms dS from
+# P = 1 / Sk on every key
+VJP_CASES = [c for c in TILED_CASES if c[-1] != 0]
+
+
+@pytest.mark.parametrize("case", VJP_CASES)
+def test_capped_plain_backward_matches_autodiff_of_the_reference_forward(case):
+    """The plain capped forward and LSE against the reference's, and the
+    plain backward, fed the reference's output and LSE, against
+    ``jax.vjp`` of the reference's capped forward at 1e-4."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v, do = _capped_inputs(B, Sq, Sk, K, G, hd)
+    o, lse, want = _vjp_capped(q, k, v, do, causal, kv_len)
+    tq, tk, tv, tdo = map(_bhsd, (q, k, v, do))
+    to, tlse = ref.flash_attention_fwd(tq, tk, tv, causal=causal, kv_len=kv_len, cap=CAP)
+    _assert_grads([to], [o], **TOL)
+    np.testing.assert_allclose(tlse.numpy().reshape(lse.shape), np.asarray(lse), **TOL)
+    tlse = torch.from_numpy(np.array(lse).reshape(B, K * G, Sq))
+    got = ref.flash_attention_bwd(tq, tk, tv, _bhsd(o), tlse, tdo, causal=causal,
+                                  kv_len=kv_len, cap=CAP)
+    _assert_grads(got, want, **TOL)
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_capped_tiled_transcription_matches_plain_and_autodiff_in_f32(case):
+    """f32: the bf16 kernels' tiling with the cap (t in place of the dot,
+    ``1 - t^2`` in dS) against the plain capped backward at 1e-4, and
+    against ``jax.vjp`` of the reference's capped forward where a row has a
+    valid key."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v, do = _capped_inputs(B, Sq, Sk, K, G, hd)
+    tq, tk, tv, tdo = map(_bhsd, (q, k, v, do))
+    o, lse = ref.flash_attention_fwd(tq, tk, tv, causal=causal, kv_len=kv_len, cap=CAP)
+    got = _tiled_as_kernel(tq, tk, tv, o, lse, tdo, causal=causal, kv_len=kv_len, cap=CAP)
+    plain = ref.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=causal, kv_len=kv_len,
+                                    cap=CAP)
+    for g, w in zip(got, plain):
+        torch.testing.assert_close(g, w, **TOL)
+    if kv_len != 0:
+        _assert_grads(got, _vjp_capped(q, k, v, do, causal, kv_len)[2], **TOL)
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_capped_tiled_transcription_matches_plain_in_bf16(case):
+    """bf16 and capped: the transcription against the plain capped backward,
+    both fed the plain forward's output and LSE, at ``chip_smoke.py``'s bf16
+    tolerance for K3b (max |got - plain| <= 1e-2 x max |plain|)."""
+    B, Sq, Sk, K, G, hd, causal, kv_len = case
+    q, k, v, do = (_bhsd(a).to(torch.bfloat16)
+                   for a in _capped_inputs(B, Sq, Sk, K, G, hd, seed=5))
+    o, lse = ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len, cap=CAP)
+    got = _tiled_as_kernel(q, k, v, o, lse, do, causal=causal, kv_len=kv_len, cap=CAP)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, kv_len=kv_len, cap=CAP)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_capped_attention_grads_match_the_reference_dense_branch(case):
+    """``torch.autograd`` through the port's ``L.attention`` with
+    ``logit_cap`` (:class:`ops.FlashAttention`, on the CPU its plain
+    versions) against ``jax.grad`` of the reference's at chunks of 4096,
+    its dense branch, whose autodiff gradient is right (its flash branch's
+    is not: fault 7 below), loss = sum(o * dout)."""
+    B, Sq, Sk, K, G, hd, causal = case
+    q, k, v, do = _capped_inputs(B, Sq, Sk, K, G, hd)
+    H = K * G
+    q4, do4 = q.reshape(B, Sq, H, hd), jnp.asarray(do.reshape(B, Sq, H, hd))
+    ctx = jL.Ctx(rules=TRAIN_RULES, dtype=jnp.float32, q_chunk=4096, kv_chunk=4096)
+
+    def loss(q, k, v):
+        return (jL.attention(q, k, v, causal=causal, ctx=ctx, logit_cap=CAP) * do4).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q4, k, v)))
+    tq, tk, tv = (torch.from_numpy(np.array(a)).requires_grad_() for a in (q4, k, v))
+    out = tL.attention(tq, tk, tv, causal=causal, logit_cap=CAP)
+    got = torch.autograd.grad((out * torch.from_numpy(np.array(do4))).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_reference_flash_bwd_omits_the_caps_derivative():
+    """ROADMAP section 3, fault 7: the reference's ``fusedkernel_flash_bwd``
+    recomputes capped logits but forms ``dS = P (dP - delta) scale`` without
+    ``1 - t^2``.  Its dv (which does not go through dS) equals autodiff's
+    (``jax.vjp`` of ``_flash_fwd_inner``), while its dq and dk are off by
+    more than 10% of their largest entry.  The port's backward is held to
+    autodiff instead (the tests above)."""
+    B, S, K, G, hd = 1, 64, 2, 2, 16
+    q, k, v, do = _capped_inputs(B, S, S, K, G, hd)
+    o, lse, want = _vjp_capped(q, k, v, do, causal=True)
+    got = jL.fusedkernel_flash_bwd(q, k, v, o, lse, do, 0, causal=True, scale=1 / math.sqrt(hd),
+                                   Cq=16, Ck=16, logit_cap=CAP)
+    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(want[2]), **TOL)
+    for g, w in zip(got[:2], want[:2]):
+        g, w = np.asarray(g), np.asarray(w)
+        assert np.abs(g - w).max() > 0.1 * np.abs(w).max()

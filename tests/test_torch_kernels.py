@@ -280,10 +280,12 @@ def test_reset_launches_clears_every_path():
     assert cuda_matmul.launches_by_path == {"wgmma": 0, "fma": 0}
 
 
-@pytest.mark.parametrize("name", ["matmul", "matadd", "flash_attention", "wkv6"])
+@pytest.mark.parametrize("name", ["matmul", "matadd", "flash_attention", "wkv6",
+                                  "flash_attention_bwd", "wkv6_bwd"])
 def test_every_kernel_module_resets_its_counts(name):
     """Each kernel module's reset_launches sets its wrapper's launch count,
-    and each path's where it has paths (one per name in PATHS), to 0."""
+    each path's where it has paths (one per name in PATHS), and the capped
+    launches' where it counts them (K3 and K3b), to 0."""
     import importlib
 
     module = importlib.import_module(f"repro_torch.kernels.{name}")
@@ -291,10 +293,15 @@ def test_every_kernel_module_resets_its_counts(name):
     kernel.launches = 3
     if hasattr(kernel, "launches_by_path"):
         kernel.launches_by_path = dict.fromkeys(module.PATHS, 1)
+    assert hasattr(kernel, "launches_capped") == name.startswith("flash_attention")
+    if hasattr(kernel, "launches_capped"):
+        kernel.launches_capped = 2
     module.reset_launches()
     assert kernel.launches == 0
     if hasattr(kernel, "launches_by_path"):
         assert kernel.launches_by_path == dict.fromkeys(module.PATHS, 0)
+    if hasattr(kernel, "launches_capped"):
+        assert kernel.launches_capped == 0
 
 
 def _tf32(x):

@@ -8,8 +8,11 @@ packages' reduced configs), ``granite_moe_3b_a800m`` (MoE), ``minicpm3_4b``
 ``whisper_large_v3`` (encoder-decoder), ``llava_next_mistral_7b`` (VLM),
 ``deepseek_moe_16b`` (a dense prefix layer, then MoE with shared experts),
 ``jamba_1_5_large_398b`` (one 8-layer hybrid unit: Mamba, attention at index
-4, MoE every other layer) and ``command_r_35b`` (dense GQA, rope theta 8e6)
-run in their reduced configs with f32 activations, on the reference's own
+4, MoE every other layer), ``command_r_35b`` (dense GQA, rope theta 8e6)
+and ``granite_3_2b+softcap`` (granite with an attention logit cap and a
+final logit cap, the pair Gemma 2 sets, at the values that bite at the
+reduced widths: ``repro_torch.configs.registry.CUT_VARIANTS``) run in
+their reduced configs with f32 activations, on the reference's own
 ``init_params`` arrays carried across by ``params_from_numpy``.  Prefill
 logits and caches and four decode steps agree at 1e-4 (f32, summed in
 another order); greedy tokens are equal.  The MoE routers see f32 inputs
@@ -42,7 +45,7 @@ from repro_torch.models.params import (cast_params, init_params, params_from_num
 CPU = torch.device("cpu")
 ARCHS = ["granite_3_2b", "rwkv6_3b", "minitron_4b", "granite_moe_3b_a800m", "minicpm3_4b",
          "whisper_large_v3", "llava_next_mistral_7b", "deepseek_moe_16b",
-         "jamba_1_5_large_398b", "command_r_35b"]
+         "jamba_1_5_large_398b", "command_r_35b", "granite_3_2b+softcap"]
 # fields the reduced config resets that a served head dim depends on
 KEEP = {"minitron_4b": dict(head_dim=128),
         "minicpm3_4b": dict(head_dim=96, qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64)}
@@ -64,7 +67,11 @@ def _tol(arch, want) -> dict:
 
 
 def _cfgs(arch):
-    extra = dict(activation_dtype="float32", **KEEP.get(arch, {}))
+    """Both packages' reduced configs of ``arch`` (``arch+variant``: with the
+    variant's fields at a cut's values, ``treg.split_variant(cut=True)``),
+    f32 activations."""
+    arch, fields = treg.split_variant(arch, cut=True)
+    extra = dict(activation_dtype="float32", **KEEP.get(arch, {}), **fields)
     jcfg = dataclasses.replace(jreg.get_config(arch).smoke(), **extra)
     tcfg = dataclasses.replace(treg.get_config(arch).smoke(), **extra)
     return jcfg, tcfg
@@ -251,16 +258,29 @@ def test_cast_params_keeps_the_f32_parameters():
     assert torch.equal(mixer["wr"], params["unit"]["l0"]["mixer"]["wr"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("variant", ["granite_3_2b+softcap"])
-def test_unported_architectures_raise(variant):
-    """An attention logit cap (which K3 does not take) names its ROADMAP
-    item."""
-    arch, _, extra = variant.partition("+")
-    cfg = treg.get_config(arch).smoke()
-    if extra:
-        cfg = dataclasses.replace(cfg, attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6b"):
-        tT.model_param_specs(cfg)
+def test_the_attention_cap_moves_the_reduced_logits():
+    """``+softcap``'s attention cap bites at the reduced widths: the prefill
+    and decode logits differ from the uncapped model's by far more than the
+    parity tolerance, so the parity tests above would see it left out.  The
+    final logit cap leaves the served logits as they are: the reference
+    applies it in the training loss alone (``tests/test_torch_train.py``)."""
+    _, plain = _cfgs("granite_3_2b")
+    _, capped = _cfgs("granite_3_2b+softcap")
+    final_only = dataclasses.replace(plain, logits_softcap=capped.logits_softcap)
+    params = init_params(tT.model_param_specs(plain), torch.Generator().manual_seed(0))
+    batch = _to_torch(_np_batch(plain, B, S))
+    ctx = Ctx(dtype=torch.float32)
+    out = {}
+    with torch.inference_mode():
+        for name, c in (("plain", plain), ("capped", capped), ("final only", final_only)):
+            cache, logits = tT.prefill(params, batch, c, ctx, cache_len=S + 1)
+            step, _ = tT.decode_step(params, cache, torch.zeros(B, dtype=torch.int32), S, c,
+                                     ctx)
+            out[name] = (logits, step)
+    for a, b in zip(out["plain"], out["capped"]):
+        assert (a - b).abs().max().item() > 100 * TOL["atol"]
+    for a, b in zip(out["plain"], out["final only"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -5,11 +5,14 @@ DistConfig())`` (its sharded step is red on this JAX: ROADMAP section 3,
 fault 5).
 
 The reduced configs of eight families (``hybrid`` is jamba's unit of Mamba
-and attention layers: its loss and gradients go through the Mamba scan),
-f32 activations, on the reference's own ``init_params`` arrays carried
-across by ``params_from_numpy``, and one
-numpy batch of 2 x 32 positions (the VLM's 8 patch positions among them)
-with some labels masked at -100:
+and attention layers: its loss and gradients go through the Mamba scan) and
+of ``dense+softcap`` (granite with the attention and final logit caps at a
+cut's values, ``repro_torch.configs.registry.CUT_VARIANTS``; at 2 x 32 positions the reference
+differentiates its dense attention branch, whose capped gradient is right,
+not its flash backward: ROADMAP section 3, fault 7), f32 activations, on
+the reference's own ``init_params`` arrays carried across by
+``params_from_numpy``, and one numpy batch of 2 x 32 positions (the VLM's
+8 patch positions among them) with some labels masked at -100:
 
 * ``lm_loss``, its CE and aux terms and the gradient of every parameter at
   1e-4 (f32, summed in another order);
@@ -49,7 +52,7 @@ CPU = torch.device("cpu")
 FAMILIES = {"dense": "granite_3_2b", "moe": "granite_moe_3b_a800m", "mla": "minicpm3_4b",
             "enc-dec": "whisper_large_v3", "vlm": "llava_next_mistral_7b",
             "prefix": "deepseek_moe_16b", "rwkv6": "rwkv6_3b",
-            "hybrid": "jamba_1_5_large_398b"}
+            "hybrid": "jamba_1_5_large_398b", "dense+softcap": "granite_3_2b+softcap"}
 B, S = 2, 32
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -65,8 +68,10 @@ def _tol(family, want) -> dict:
 def _cfgs(arch):
     """The reduced config with f32 activations and an f32 optimizer state
     (jamba's published bf16 state would round the first moments the
-    gradients are read from)."""
-    extra = dict(activation_dtype="float32", optstate_dtype="float32")
+    gradients are read from); ``arch+variant`` with the variant's fields at a
+    cut's values (``treg.split_variant(cut=True)``)."""
+    arch, fields = treg.split_variant(arch, cut=True)
+    extra = dict(activation_dtype="float32", optstate_dtype="float32", **fields)
     jcfg = dataclasses.replace(jreg.get_config(arch).smoke(), **extra)
     tcfg = dataclasses.replace(treg.get_config(arch).smoke(), **extra)
     return jcfg, tcfg
@@ -136,6 +141,29 @@ def test_lm_loss_and_grads_match_reference(family):
     assert len(grads) == len(want)
     for g, w in zip(grads, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **_tol(family, w))
+
+
+@pytest.mark.parametrize("cap", sorted(treg.CUT_VARIANTS["softcap"]))
+def test_each_softcap_moves_the_reduced_loss(cap):
+    """Each cap of ``dense+softcap`` alone moves the loss of the reduced
+    granite by more than twice the parity tolerance and its gradients by
+    far more, so the parity tests would see either left out."""
+    _, plain = _cfgs("granite_3_2b")
+    capped = dataclasses.replace(plain, **{cap: treg.CUT_VARIANTS["softcap"][cap]})
+    from repro_torch.models.params import init_params
+    params = init_params(tT.model_param_specs(plain), torch.Generator().manual_seed(0))
+    batch = _tbatch(_np_batch(plain))
+    out = []
+    for cfg in (plain, capped):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        tree = tsteps._rebuild(params, iter(leaves))
+        loss, _ = tT.lm_loss(tree, batch, cfg, tsteps.make_ctx(cfg, "train",
+                                                                tsteps.DistConfig()))
+        out.append((loss, torch.autograd.grad(loss, leaves)))
+    (loss, grads), (capped_loss, capped_grads) = out
+    assert abs(loss.item() - capped_loss.item()) > 2 * (TOL["atol"] + TOL["rtol"] * loss.item())
+    assert max((a - b).abs().max().item() for a, b in zip(grads, capped_grads)) \
+        > 100 * TOL["atol"]
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
