@@ -77,8 +77,12 @@ prints no result):
    capped at granite's shapes beside their plain versions, the larger of
    the tensor bound and the special-function floor (3 operations a kept
    pair at 16 a clock per SM) and ``flex_attention`` with the cap as its
-   ``score_mod`` (forward, and ``torch.autograd.grad`` through it); K4b at
-   rwkv6-3b's training shape beside its plain version and its bound;
+   ``score_mod`` (forward, and ``torch.autograd.grad`` through it); K3 and
+   K3b on their f32 paths (the CUDA cores) at lm-100m's training shape
+   (``examples/train_lm_torch.py``: 4 x 128, 12 query heads over 4 of 64),
+   each first held against its plain version, beside SDPA in f32 and its
+   backward and their bounds at the f32 peak; K4b at rwkv6-3b's training
+   shape beside its plain version and its bound;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -170,13 +174,26 @@ prints no result):
    and a restart from the step-5 checkpoint, the losses after it against
    an uninterrupted run's; ``[train-cli]``, ``python -m
    repro_torch.launch.train --arch granite_3_2b --smoke --steps 4`` and the
-   same with ``--arch rwkv6_3b``, which must exit 0.
+   same with ``--arch rwkv6_3b``, which must exit 0;
+16. ``[examples]``: the five ``examples/*_torch.py`` twins' ``main`` in
+   this process with the reference scripts' arguments: ``quickstart_torch``
+   on the card (its 38 matmuls 38 K1 launches, each against the plain
+   version where that is finite) and on the CPU (the same schedule lines
+   and transfers); ``heterogeneous_serving_torch`` (granite-3-2b's reduced
+   config served in f32, K3 on ``fp32``, and the scheduler lines);
+   ``online_repartition_torch`` and ``elastic_repartition_torch`` (host
+   code); ``train_lm_torch``, lm-100m for 250 steps of 4 x 128 in a fresh
+   checkpoint directory, the counters set to 0 just before: K3 and K3b
+   2000 launches each on ``fp32`` (a layer and step, remat off), the loss
+   falling.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound, and the capped K3 and
 K3b (``flash_attention+cap``, ``flash_attention_bwd+cap``: the launches
 their wrappers counted as capped on the main paths, the capped granite's,
-which the kernel's own total also counts); a ``[phase]`` line gives the
+which the kernel's own total also counts) and their f32 paths
+(``flash_attention+f32``, ``flash_attention_bwd+f32``: the ``fp32``
+launches of ``[examples]``, which the kernel's own total also counts); a ``[phase]`` line gives the
 seconds elapsed after each phase; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -236,6 +253,9 @@ K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, zero-padded
 K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not causal
 K3_COMMAND_R = (8, 64, 8, 2048, 128)
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
+# lm-100m's training attention (examples/train_lm_torch.py: batch 4 x 128,
+# 12 query heads over 4 KV heads of 64), f32
+LM100M_K3 = (4, 12, 4, 128, 64)
 # every served model: (arch, the kernel its prefill runs, its prompt length,
 # the config's one cut, its requests); "arch+variant" is the published config
 # with the fields of the registry's VARIANTS[variant].  whisper-large-v3's
@@ -1099,6 +1119,67 @@ def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | Non
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     return (ms, plain, time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve,
                                                                       is_causal=causal))), bnd
+
+
+def time_flash_f32(gen, peaks) -> tuple[dict, dict, dict]:
+    """-> ({name: (ms, plain ms, library ms)}, {name: bound}, {name: max abs
+    err}) of K3 (``flash_attention+f32``) and K3b (``flash_attention_bwd+f32``)
+    on their f32 paths, on the CUDA cores, at lm-100m's training shape
+    (``examples/train_lm_torch.py``: 4 x 128 tokens, 12 query heads over 4
+    KV heads of 64, causal), on the model's strided views.  Each is first
+    held against its plain version: K3 within 2e-5, K3b within 1e-4 x max
+    |plain| a gradient.  The bounds: K3 4 hd and K3b 10 hd operations a kept
+    pair at the f32 peak, over q, k, v, o (and dout, the LSE, dq, dk, dv)
+    read or written once in f32; the library calls SDPA in f32
+    (``is_causal``, K and V expanded to the query heads outside the timed
+    call) and ``torch.autograd.grad`` through it, the backward alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    B, H, K, S, hd = LM100M_K3
+    q, dout = (_strided((B, S, H, hd), torch.float32, gen) for _ in range(2))
+    k, v = (_strided((B, S, K, hd), torch.float32, gen) for _ in range(2))
+    pairs = B * H * S * (S + 1) / 2
+    f32 = 4
+    errs = {"flash_attention+f32": (flash_attention(q, k, v) - ref.flash_attention(q, k, v))
+            .abs().max().item()}
+    if not errs["flash_attention+f32"] <= 2e-5:
+        raise AssertionError(f"K3 f32 at {LM100M_K3}: off its plain version by "
+                             f"{errs['flash_attention+f32']}")
+    o, lse = flash_attention_fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, o, lse, dout)
+    errs["flash_attention_bwd+f32"] = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), grads,
+                               ref.flash_attention_bwd(q, k, v, o, lse, dout)):
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"K3b f32 {name} at {LM100M_K3}: off by {err} (max {scale})")
+        errs["flash_attention_bwd+f32"] = max(errs["flash_attention_bwd+f32"], err)
+    bounds = {
+        "flash_attention+f32": bound(4.0 * pairs * hd, (2 * B * H * S * hd + 2 * B * K * S * hd)
+                                     * f32, peaks["f32"], peaks["bytes"]),
+        "flash_attention_bwd+f32": bound(10.0 * pairs * hd, (4 * B * H * S * hd
+                                                             + 4 * B * K * S * hd) * f32
+                                         + B * H * S * 4, peaks["f32"], peaks["bytes"]),
+    }
+    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, ke, ve))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    times = {
+        "flash_attention+f32": (
+            time_ms(lambda: flash_attention(q, k, v)),
+            time_ms(lambda: ref.flash_attention(q, k, v), batches=3, per_batch=5),
+            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))),
+        "flash_attention_bwd+f32": (
+            time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout)),
+            time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout), batches=3,
+                    per_batch=5),
+            time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))),
+    }
+    return times, bounds, errs
 
 
 def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
@@ -2261,6 +2342,157 @@ def cli_phase() -> None:
         raise AssertionError(f"[cli] failed: {failed}")
 
 
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "examples",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_example(module, argv: list[str]):
+    """-> (its stdout's lines, what its ``main`` returned)."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = module.main(argv)
+    return log.getvalue().splitlines(), result
+
+
+def examples_phase(dev, smi) -> dict:
+    """``[examples]``: the five ``examples/*_torch.py`` twins' ``main`` in
+    this process with the reference scripts' own arguments, on the card.
+
+    ``quickstart_torch`` runs on the card, K1's counters set to 0 just
+    before, and then with ``--device cpu``: its 38 matmuls must be 38 K1
+    launches, its printed schedule (the Formula (1)/(2) line and the
+    policies' lines) and transfers the CPU run's, and each launch's output
+    within ``mm_tol`` of the plain version on the same inputs where the
+    plain product is finite (the reference's DAG squares and chains 256 x
+    256 unit-normal blocks, so most of its products overflow f32, in the
+    reference too; ROADMAP section 3, fault 8).  ``heterogeneous_serving_
+    torch``'s reduced granite-3-2b serves in f32 (K3 in its prefill; the
+    launches ``ops.warm_up`` makes first are taken out) and its scheduler
+    lines are printed.  ``online_repartition_torch`` and
+    ``elastic_repartition_torch`` run host code only.  ``train_lm_torch``
+    trains lm-100m for its 250 steps of 4 x 128 in a fresh checkpoint
+    directory, the counters set to 0 just before: one K3 and one K3b launch
+    a layer and step (remat off), all on ``fp32``, and the loss must fall.
+    Any twin that raises fails the run.  -> {"matmul": {path: n}, kernel:
+    {path: n} for K3 and K3b}: the counted launches of the quickstart and
+    of the served and trained f32 paths."""
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import matmul as matmul_module
+    from repro_torch.kernels import ops, ref
+
+    mods = {name: _load_example(name) for name in (
+        "quickstart_torch", "heterogeneous_serving_torch", "online_repartition_torch",
+        "elastic_repartition_torch", "train_lm_torch")}
+    counted = {}
+
+    # quickstart: every K1 launch recorded beside its inputs
+    launched = []
+    kernel = ops.matmul
+
+    def recording(a, b):
+        out = kernel(a, b)
+        launched.append((a, b, out))
+        return out
+
+    matmul_module.reset_launches()
+    ops.matmul = recording
+    try:
+        card_lines, card = _run_example(mods["quickstart_torch"], ["--device", "cuda"])
+    finally:
+        ops.matmul = kernel
+    counted["matmul"] = dict(matmul_module.matmul.launches_by_path)
+    cpu_lines, cpu = _run_example(mods["quickstart_torch"], ["--device", "cpu"])
+    n = sum(counted["matmul"].values())
+    if n != 38 or len(launched) != 38:
+        raise AssertionError(f"[examples] quickstart_torch: {n} K1 launches ({counted['matmul']}),"
+                             f" {len(launched)} matmuls, want the DAG's 38")
+    if card_lines[:4] != cpu_lines[:4] or card.n_transfers != cpu.n_transfers:
+        raise AssertionError(f"[examples] quickstart_torch card {card_lines} vs cpu {cpu_lines}")
+    finite, err = 0, 0.0
+    for a, b, out in launched:
+        want = ref.matmul(a.cpu(), b.cpu())
+        if torch.isfinite(want).all():
+            finite += 1
+            scale = want.abs().max().item()
+            torch.testing.assert_close(out.cpu(), want, **mm_tol(a.shape[1], torch.float32,
+                                                                 scale))
+            err = max(err, (out.cpu() - want).abs().max().item() / scale)
+    same_exits = all(bool(torch.isfinite(card.outputs[k]).all()) == bool(torch.isfinite(v).all())
+                     for k, v in cpu.outputs.items())
+    for line in card_lines:
+        print(f"[examples] quickstart_torch: {line}")
+    print(f"[examples] quickstart_torch: the schedule lines and {card.n_transfers} transfers "
+          f"equal the CPU run's; K1 {n} launches by path {counted['matmul']}; {finite} of 38 "
+          f"products finite in the plain version, each within mm_tol (largest error "
+          f"{err:.3g} x max |plain|), the others overflow f32 as the reference's do; "
+          f"exit blocks finite as on the CPU: {same_exits}; {smi}")
+    if not same_exits:
+        raise AssertionError("[examples] quickstart_torch: exit blocks finite on one device only")
+    del launched, card, cpu
+
+    # heterogeneous serving: the reduced granite in f32, then the schedules
+    _reset_counts()
+    ops.warm_up(dev)
+    warm = _counts()["flash_attention"]
+    _reset_counts()
+    lines, _ = _run_example(mods["heterogeneous_serving_torch"], ["--device", "cuda"])
+    served = {p: m - warm[p] for p, m in _counts()["flash_attention"].items()}
+    for line in lines:
+        print(f"[examples] heterogeneous_serving_torch: {line}")
+    print(f"[examples] heterogeneous_serving_torch: K3 {sum(served.values())} launches in the "
+          f"f32 prefill by path {served} (ops.warm_up's {sum(warm.values())} taken out)")
+    if served["fp32"] != sum(served.values()) or not served["fp32"]:
+        raise AssertionError(f"[examples] the reduced granite's K3 launches {served}: want fp32")
+
+    for name in ("online_repartition_torch", "elastic_repartition_torch"):
+        lines, _ = _run_example(mods[name], [])
+        for line in lines:
+            print(f"[examples] {name}: {line}")
+
+    # train_lm: 250 steps of 4 x 128 in a fresh checkpoint directory
+    cfg = mods["train_lm_torch"].CFG
+    tmp = tempfile.mkdtemp(prefix="train_lm_torch_")
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        lines, losses = _run_example(mods["train_lm_torch"], ["--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = 250
+    want = cfg.n_layers * steps
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if counts[k]["fp32"] != want or sum(counts[k].values()) != want:
+            raise AssertionError(f"[examples] train_lm_torch: {k} launched {counts[k]}, want "
+                                 f"{want} on fp32 (one a layer and step, remat off)")
+        counted[k] = {p: m + (served[p] if k == "flash_attention" else 0)
+                      for p, m in counts[k].items()}
+    step_ms = [float(m) for m in re.findall(r"\((\d+) ms/step\)", "\n".join(lines))]
+    for line in lines[-3:]:
+        print(f"[examples] train_lm_torch: {line}")
+    print(f"[examples] train_lm_torch: lm-100m, {steps} steps of 4 x 128 in {wall:.1f} s; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f} ({len(losses)} logged); ms a step "
+          f"by logged interval {step_ms} (median {statistics.median(step_ms):.0f}); K3 "
+          f"{counts['flash_attention']}, K3b {counts['flash_attention_bwd']} by path = "
+          f"{cfg.n_layers} layers x {steps} steps; {smi}")
+    return counted
+
+
 def build_report(build) -> None:
     """One ``[build]`` line per kernel from ``ptxas -v``: registers, spills,
     static shared memory, the dynamic shared memory K1's ``wgmma`` path, K3,
@@ -2495,6 +2727,11 @@ def main() -> int:
         flash_attention, ref, gen, peaks, K3_SHAPE, cap=cap)
     times["flash_attention_bwd+cap"], bounds["flash_attention_bwd+cap"], k3b_cap_bound6, \
         k3_lse_cap_ms, k3b_cap_split = time_flash_bwd(gen, peaks, cap)
+    # K3 and K3b on their f32 paths at lm-100m's training shape ([examples])
+    f32_times, f32_bounds, f32_errs = time_flash_f32(gen, peaks)
+    times.update(f32_times)
+    bounds.update(f32_bounds)
+    errs.update(f32_errs)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
@@ -2514,7 +2751,14 @@ def main() -> int:
                                          "larger of the five-product bound and 3 special-"
                                          "function operations a kept pair; library "
                                          "torch.autograd.grad through flex_attention)"
-                                         .format(*K3_SHAPE, cap)}
+                                         .format(*K3_SHAPE, cap),
+              "flash_attention+f32": "B{} H{}/K{} S{} hd{} f32 causal (lm-100m's training "
+                                     "attention, examples/train_lm_torch.py; fp32 path, CUDA "
+                                     "cores; bound at the f32 peak)".format(*LM100M_K3),
+              "flash_attention_bwd+f32": "B{} H{}/K{} S{} hd{} f32 causal (lm-100m's training "
+                                         "attention; fp32 path, CUDA cores; bound 10 hd a kept "
+                                         "pair at the f32 peak; library torch.autograd.grad "
+                                         "through SDPA)".format(*LM100M_K3)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
     # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
@@ -2759,6 +3003,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_cli()
+    mark("train-cli")
+
+    # 16. the examples/ twins; the capped rows' way, the f32 rows count the
+    # f32 launches of the served reduced granite and of lm-100m's training,
+    # which their kernel's own total also counts
+    ex = examples_phase(dev, smi)
+    for k, counts in ex.items():
+        launches[k] += sum(counts.values())
+        by_path[k] = {p: n + by_path[k].get(p, 0) for p, n in counts.items()}
+        if k != "matmul":
+            launches[f"{k}+f32"] = counts["fp32"]
+    mark("examples")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

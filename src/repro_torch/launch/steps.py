@@ -2,13 +2,18 @@
 ``repro/launch/steps.py``, one device): a train step, a prefill step and a
 decode step from a config.
 
-The reference derives each step's shardings from a mesh; the port runs on
-one device and takes none.  :class:`DistConfig` keeps the reference's field
-names; the fields that only mean something on a mesh (``sharding_mode=
-"fsdp"``, ``seq_parallel``, ``moe_dedup``) raise, naming the ROADMAP item
-that ports the multi-device path.  ``decode_seqpar``, ``q_chunk``,
-``kv_chunk`` and ``moe_dest_k`` select among paths that compute the same
-function, and the port has one of each.
+The reference derives each step's shardings from a mesh.  The port's model
+has the multi-rank paths (the expert-parallel MoE and the sequence-parallel
+decode, taken when :class:`~repro_torch.models.layers.Ctx` holds a mesh),
+but the trainer and the server build no mesh yet (ROADMAP queue 1, item
+9): :func:`make_ctx` gives every step a one-device context.
+:class:`DistConfig` keeps the reference's field names.  ``make_ctx``
+refuses, raising and naming item 9, the fields that only mean something
+on a mesh: ``sharding_mode="fsdp"``, ``seq_parallel``, ``moe_dedup`` and a
+``moe_dest_k`` that is set.  It drops ``decode_seqpar`` (True by default;
+on one device the reference decodes densely too) and ``q_chunk`` and
+``kv_chunk``, which pick between attention branches that compute the same
+function; the port sends both to one K3 call.
 """
 
 from __future__ import annotations
@@ -47,14 +52,16 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def make_ctx(cfg: ModelConfig, phase: str, dist: DistConfig) -> Ctx:
-    """The model's context for ``phase`` (train | prefill | decode); raises
-    on the mesh-only fields."""
+    """The model's one-device context for ``phase`` (train | prefill |
+    decode); raises on the mesh-only fields."""
     if dist.sharding_mode != "tp":
         raise NotImplementedError(f"sharding_mode={dist.sharding_mode!r} {MESH_ONLY}")
     if dist.seq_parallel:
         raise NotImplementedError(f"seq_parallel {MESH_ONLY}")
     if dist.moe_dedup:
         raise NotImplementedError(f"moe_dedup {MESH_ONLY}")
+    if dist.moe_dest_k is not None:
+        raise NotImplementedError(f"moe_dest_k {MESH_ONLY}")
     return Ctx(dtype=_dtype(cfg.activation_dtype), remat=dist.remat and cfg.remat)
 
 

@@ -1,2 +1,3 @@
-"""The model stack on one device: parameters, layers, the RWKV-6 mixer and
-the transformer assembly that serving and training run."""
+"""The model stack: parameters, layers, the MoE, the RWKV-6 and Mamba
+mixers and the transformer assembly that serving and training run, on one
+device and, for prefill and decode, on a mesh."""

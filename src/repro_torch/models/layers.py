@@ -1,15 +1,18 @@
 """Shared transformer layers: norms, rotary embeddings, the dense MLP, GQA
-attention and MLA (the port of ``repro/models/layers.py``, one device).
+attention and MLA (the port of ``repro/models/layers.py``).
 
 All functions take ``params`` (nested dicts of tensors) and activations and
 return tensors; parameter builders return :class:`~.params.P` spec trees.
+On a mesh each process runs them on its own blocks (:class:`Ctx`).
 Prefill and training attention is K3
 (:func:`repro_torch.kernels.ops.flash_attention`): the hand-written CUDA
 kernel on the card, its plain version on the CPU; under autograd its
 gradient is K3b (:class:`repro_torch.kernels.ops.FlashAttention`), on the
 CPU too through the plain versions, as the reference's ``custom_vjp``.
 Decode attention (one new token against the cache) has no TPU kernel in the
-reference and stays plain tensor code; so does MLA's absorbed-weight decode.
+reference and stays plain tensor code, on one device and sequence-parallel
+over a mesh (:func:`decode_attn_seqpar`, ``torch.distributed``
+collectives); so does MLA's absorbed-weight decode.
 A model's ``attn_logit_softcap`` caps the GQA block's logits, in prefill,
 training and decode, as the reference's ``attn_block`` and
 ``attn_decode_block`` do; MLA and cross-attention take no cap there.
@@ -38,19 +41,45 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Execution context: the activation dtype, the device mesh the
-    reference shards over (``mesh.shape`` maps axis names to sizes), and
-    whether training rematerializes each unit and each CE chunk
-    (``remat``, the reference's ``jax.checkpoint``; it changes no value).
-    The port runs on one device and nothing in it sets ``mesh`` yet: a
-    caller's mesh only makes the sharded paths it would select raise
-    (ROADMAP queue 1, item 9).  The reference's attention chunk sizes are
-    not taken: they pick one of two attention branches that compute the same
-    function, and the port sends both to one K3 call."""
+    """Execution context: the activation dtype, the device mesh, the
+    decode and MoE strategies on it, and whether training rematerializes
+    each unit and each CE chunk (``remat``, the reference's
+    ``jax.checkpoint``; it changes no value).
+
+    ``mesh`` is ``None`` on one device, or a
+    :class:`~repro_torch.launch.mesh.Mesh` with axes ("data", "model")
+    (``mesh.shape`` maps axis names to sizes), each process one rank of it.
+    Tensors go in and out of the model in SPMD form, each rank holding its
+    own block of what the reference's ``shard_map`` would see whole:
+
+    - activations are the rank's data block of the batch (over the data
+      axes that divide it, :func:`repro_torch.parallel.sharding.batch_block`),
+      replicated over "model" within it;
+    - parameters are whole on every rank;
+    - the expert-parallel MoE (:func:`repro_torch.models.moe.moe_ep`,
+      ``moe_ep_dedup``, chosen by :func:`~repro_torch.models.moe.moe_apply`
+      when "model" is above 1 and the sequence at least as long) routes the
+      rank's slice ``x[:, m S/tp:(m+1) S/tp]`` of its data block (rank m of
+      tp along "model", the reference's ``PS(bspec, "model")``) and
+      all-gathers the output over "model" before it returns;
+    - with ``decode_seqpar``, decode attention
+      (:func:`decode_attn_seqpar`) holds each attention cache as the
+      rank's ``(batch block, S/tp)`` shard
+      (:func:`repro_torch.models.transformer.shard_caches`) and returns its
+      updated shard and the whole output of its batch block.
+
+    ``moe_dedup`` sends a token once per destination rank, not once per
+    expert (the reference's field).  The reference's ``moe_dest_k`` is not
+    taken: no entry point builds a mesh yet (ROADMAP queue 1, item 9), and
+    the dedup path sizes its buffers by its default.  The reference's attention chunk sizes are not taken: they
+    pick one of two attention branches that compute the same function, and
+    the port sends both to one K3 call."""
 
     dtype: torch.dtype = torch.bfloat16
     mesh: Any = None
+    decode_seqpar: bool = False        # shard each attention cache's sequence over "model"
     remat: bool = True
+    moe_dedup: bool = False            # dedup EP dispatch (one send per shard)
 
 
 def _remat(ctx: Ctx) -> bool:
@@ -216,15 +245,58 @@ def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor, *, logit_cap: 
     return o.reshape(B, H, hd).to(q.dtype), (ck, cv)
 
 
+def decode_attn_seqpar(q, ck, cv, k_new, v_new, pos: torch.Tensor, *, ctx: Ctx,
+                       logit_cap: float = 0.0):
+    """Flash decode over a cache whose sequence is sharded over "model":
+    q (B, H, hd) and the new k, v (B, K, hd) of the rank's batch block;
+    ck, cv (B, S/tp, K, hd), the rank's shard of positions
+    ``[m S/tp, (m+1) S/tp)``.  Each rank scores its shard (a partial
+    softmax), and the global max, the sums of the weights and the weighted
+    values are combined over "model"; only the (B, H, hd) partials cross
+    between ranks, not the cache.  Returns (o (B, H, hd), (ck, cv)).
+
+    The new key and value are written at ``pos`` (a one-element ``long``
+    tensor) only on the rank that owns it, in place, as
+    :func:`decode_attn_dense` writes (no host read); positions past
+    ``pos`` are masked."""
+    mesh = ctx.mesh
+    B, S_loc, K, hd = ck.shape
+    H = q.shape[1]
+    G = H // K
+    off = mesh.axis_index("model") * S_loc
+    lpos = pos - off
+    owned = ((lpos >= 0) & (lpos < S_loc)).view(1, 1, 1, 1)
+    li = lpos.clamp(0, S_loc - 1)
+    ck.index_copy_(1, li, torch.where(owned, k_new[:, None].to(ck.dtype), ck.index_select(1, li)))
+    cv.index_copy_(1, li, torch.where(owned, v_new[:, None].to(cv.dtype), cv.index_select(1, li)))
+    qg = q.reshape(B, K, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), ck.float()) / math.sqrt(hd)
+    if logit_cap > 0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    s = s.masked_fill(off + torch.arange(S_loc, device=s.device) > pos, NEG_INF)
+    m = mesh.pmax(s.amax(dim=-1), "model")
+    pexp = torch.exp(s - m[..., None])
+    l_sum = mesh.psum(pexp.sum(dim=-1), "model")
+    o = torch.einsum("bkgs,bskh->bkgh", pexp.to(cv.dtype).float(), cv.float())
+    o = mesh.psum(o, "model") / l_sum.clamp_min(1e-30)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype), (ck, cv)
+
+
 def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
-    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}; pos: a one-element
-    ``long`` tensor.  Returns (out (B,1,d), cache)."""
+    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}, each the rank's
+    sequence shard under ``ctx.decode_seqpar`` on a "model" axis above 1
+    (:func:`decode_attn_seqpar`); pos: a one-element ``long`` tensor.
+    Returns (out (B,1,d), cache)."""
     q, k, v = _qkv(p, x, cfg, ctx)               # (B,1,H,hd)/(B,1,K,hd)
     posv = pos.view(1, 1).expand(x.shape[0], 1)
     q = apply_rope(q, posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k, posv, cfg.rope_theta)[:, 0]
-    o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos,
-                                    logit_cap=cfg.attn_logit_softcap)
+    if ctx.decode_seqpar and ctx.mesh is not None and ctx.mesh.shape.get("model", 1) > 1:
+        o, (ck, cv) = decode_attn_seqpar(q, cache["k"], cache["v"], k, v[:, 0], pos, ctx=ctx,
+                                         logit_cap=cfg.attn_logit_softcap)
+    else:
+        o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos,
+                                        logit_cap=cfg.attn_logit_softcap)
     return _out(o, p["wo"], x.dtype)[:, None], {"k": ck, "v": cv}
 
 

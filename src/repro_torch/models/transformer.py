@@ -1,5 +1,8 @@
 """Block-pattern transformer assembly (the port of
-``repro/models/transformer.py``, one device: serving and training).
+``repro/models/transformer.py``): serving and training on one device, and
+prefill and decode on a mesh, each process one rank (the contract is
+:class:`~repro_torch.models.layers.Ctx`'s; :func:`shard_caches` gives a
+rank its shard of the attention caches for sequence-parallel decode).
 
 A model is {embedding -> [prefix layers] -> repeating *units* of layers ->
 final norm -> LM head}, each layer = {mixer in attn|mla|mamba|rwkv6} + {ffn
@@ -144,17 +147,19 @@ def _cross_attend(p, x, kv, cfg, ctx):
     return L._out(o, p["wo"], x.dtype)
 
 
-def _ffn(spec, p, h, cfg, ctx):
+def _ffn(spec, p, h, cfg, ctx, expert_perm=None):
     """-> (out, aux): the dense MLP (aux 0.0) or the MoE with its aux loss."""
     if spec.ffn == "dense":
         return L.mlp(p["ffn"], h, ctx), 0.0
-    return M.moe_apply(p["ffn"], h, cfg, ctx)
+    return M.moe_apply(p["ffn"], h, cfg, ctx, expert_perm=expert_perm)
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
-                enc_out=None):
+                enc_out=None, expert_perm=None):
     """Full-sequence layer.  Returns (x, cache, aux); with ``enc_out`` and
-    cross-attention weights the cache is {"self": ..., "cross": {"k", "v"}}."""
+    cross-attention weights the cache is {"self": ..., "cross": {"k", "v"}}.
+    ``expert_perm`` (logical expert -> physical slot) reaches the
+    expert-parallel MoE (:func:`~repro_torch.models.moe.moe_apply`)."""
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     out, cache = _mixer_full(spec, p, h, cfg, ctx, positions, causal)
     x = x + out
@@ -164,11 +169,12 @@ def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
         x = x + _cross_attend(p["cross"], h, kv, cfg, ctx)
         cache = {"self": cache, "cross": {"k": kv[0], "v": kv[1]}}
     h = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    out, aux = _ffn(spec, p, h, cfg, ctx)
+    out, aux = _ffn(spec, p, h, cfg, ctx, expert_perm)
     return x + out, cache, aux
 
 
-def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
+def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor,
+                       expert_perm=None):
     """One-token layer step; ``pos`` is a one-element ``long`` tensor.
     Returns (x, new_cache, aux)."""
     self_cache = cache["self"] if "cross" in p else cache
@@ -192,7 +198,7 @@ def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torc
         x = x + _cross_attend(p["cross"], h, ckv, cfg, ctx)
         nc = {"self": nc, "cross": cache["cross"]}
     h = L.rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-    out, aux = _ffn(spec, p, h, cfg, ctx)
+    out, aux = _ffn(spec, p, h, cfg, ctx, expert_perm)
     return x + out, nc, aux
 
 
@@ -373,6 +379,35 @@ def _grow_caches(caches, extra: int):
     return walk(caches)
 
 
+def shard_caches(caches, mesh):
+    """This rank's sequence shard of every self-attention cache ("k", "v",
+    (..., S, K, hd)), positions ``[m S/tp, (m+1) S/tp)`` for rank m of tp
+    along "model": the layout decode reads under ``ctx.decode_seqpar``
+    (:func:`~repro_torch.models.layers.decode_attn_seqpar`).  Fresh
+    tensors; the cross-attention caches, MLA's latent caches and the
+    recurrent states stay whole, as the reference shards only the
+    self-attention caches."""
+    tp, m = mesh.shape["model"], mesh.axis_index("model")
+
+    def walk(tree):
+        out = {}
+        for name, leaf in tree.items():
+            if name == "cross":
+                out[name] = leaf
+            elif isinstance(leaf, dict):
+                out[name] = walk(leaf)
+            elif name in ("k", "v"):
+                S = leaf.shape[-3]
+                if S % tp:
+                    raise ValueError(f"cache length {S} does not shard over {tp} ranks")
+                out[name] = leaf[..., m * (S // tp):(m + 1) * (S // tp), :, :].clone()
+            else:
+                out[name] = leaf
+        return out
+
+    return walk(caches)
+
+
 def _write_back(cache: dict, new: dict) -> None:
     """Store a layer's new cache into the buffers it came from."""
     for name, t in new.items():
@@ -382,11 +417,12 @@ def _write_back(cache: dict, new: dict) -> None:
             cache[name].copy_(t)
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx):
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx, *, expert_perm=None):
     """One decode step.  tokens: (B,) ints; pos: write index (the same for
     the whole batch), an ``int`` or a one-element ``long`` tensor on the
     tokens' device.  The cache buffers are updated in place: the serving
-    loop owns them.  Returns (logits (B, V), cache).
+    loop owns them.  Returns (logits (B, V), cache).  ``expert_perm`` is
+    :func:`apply_layer`'s.
 
     Nothing here reads a device value on the host, so with a tensor ``pos``
     the step captures into one CUDA graph (``launch/serve.py``'s
@@ -400,14 +436,15 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx):
     for i, spec in enumerate(cfg.prefix):
         c = cache["prefix"][f"p{i}"]
         x, nc, _ = apply_layer_decode(spec, params["prefix"][f"p{i}"], x, cfg, ctx,
-                                      cache=c, pos=pos)
+                                      cache=c, pos=pos, expert_perm=expert_perm)
         _write_back(c, nc)
     for u in range(cfg.n_units):
         unit_p = _unit(params["unit"], u)
         unit_c = _unit(cache["unit"], u)
         for i, spec in enumerate(cfg.unit):
             x, nc, _ = apply_layer_decode(spec, unit_p[f"l{i}"], x, cfg, ctx,
-                                          cache=unit_c[f"l{i}"], pos=pos)
+                                          cache=unit_c[f"l{i}"], pos=pos,
+                                          expert_perm=expert_perm)
             _write_back(unit_c[f"l{i}"], nc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_for(params, x[:, 0], cfg, ctx), cache

@@ -1,5 +1,6 @@
 """The port's MoE FFN (``repro_torch/models/moe.py``) against the JAX
-reference's ``repro/models/moe.py``, on one device.
+reference's ``repro/models/moe.py``, on one device (the expert-parallel
+paths over ranks: tests/test_torch_ep.py).
 
 ``moe_ref`` runs on the reference's own ``init_params`` arrays, carried
 across by ``params_from_numpy``, and f32 activations drawn from a seed:
@@ -15,7 +16,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -100,19 +100,20 @@ def test_moe_param_tree_matches_the_reference(tp):
     assert tM.padded_experts(40, tp) == jM.padded_experts(40, tp) == (40 if tp == 1 else 48)
 
 
-def test_moe_apply_is_moe_ref_on_one_device_and_raises_on_a_mesh():
+def test_moe_apply_is_moe_ref_on_one_device_and_one_rank():
+    """One device (a context without a mesh), with and without
+    ``moe_dedup``: ``moe_ref``, bit for bit.  A rank of a mesh whose
+    "model" axis is 1, and the expert-parallel paths a "model" axis above 1
+    takes, are tests/test_torch_ep.py's."""
     _, tcfg = _cfgs("deepseek_moe_16b")
     tp = init_params(tM.moe_params(tcfg), torch.Generator().manual_seed(0))
     x = torch.from_numpy(_x(tcfg))
     ctx = Ctx(dtype=torch.float32)
     with torch.inference_mode():
-        got, want = tM.moe_apply(tp, x, tcfg, ctx), tM.moe_ref(tp, x, tcfg, ctx)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        one = Ctx(dtype=torch.float32, mesh=types.SimpleNamespace(shape={"model": 1}))
-        assert torch.equal(tM.moe_apply(tp, x, tcfg, one)[0], want[0])
-        sharded = Ctx(dtype=torch.float32, mesh=types.SimpleNamespace(shape={"model": 4}))
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            tM.moe_apply(tp, x, tcfg, sharded)
+        want = tM.moe_ref(tp, x, tcfg, ctx)
+        for c in (ctx, dataclasses.replace(ctx, moe_dedup=True)):
+            got = tM.moe_apply(tp, x, tcfg, c)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_moe_ref_keeps_the_activation_dtype():

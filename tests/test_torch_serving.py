@@ -254,7 +254,8 @@ def test_groups_for_platform_maps_every_class():
 # -- import guard ---------------------------------------------------------------
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_repro_ast():
@@ -279,9 +280,14 @@ def test_port_imports_neither_jax_nor_repro_at_runtime():
                                   .with_suffix("").parts)
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
+    twins = [str(p) for p in sorted((ROOT / "examples").glob("*_torch.py"))]
+    assert len(twins) == 5
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for i, path in enumerate({twins!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )

@@ -242,7 +242,7 @@ def test_cli_mesh_flags_raise(flag):
 
 
 @pytest.mark.parametrize("field", [dict(sharding_mode="fsdp"), dict(seq_parallel=True),
-                                   dict(moe_dedup=True)])
+                                   dict(moe_dedup=True), dict(moe_dest_k=1.5)])
 def test_mesh_only_dist_fields_raise(field):
     _, cfg = _cfgs("granite_3_2b")
     with pytest.raises(NotImplementedError, match="item 9"):
