@@ -78,11 +78,14 @@ prints no result):
    the tensor bound and the special-function floor (3 operations a kept
    pair at 16 a clock per SM) and ``flex_attention`` with the cap as its
    ``score_mod`` (forward, and ``torch.autograd.grad`` through it); K3 and
-   K3b on their f32 paths (the CUDA cores) at lm-100m's training shape
-   (``examples/train_lm_torch.py``: 4 x 128, 12 query heads over 4 of 64),
+   K3b on their f32 paths (3xTF32 on the tensor cores) at lm-100m's
+   training shape (``examples/train_lm_torch.py``: 4 x 128, 12 query heads
+   over 4 of 64, causal) and at whisper-large-v3's encoder (2 x 1500 frames,
+   20 heads of 64, not causal: item 10's and ``[train-vs-cpu]``'s f32 cut),
    each first held against its plain version, beside SDPA in f32 and its
-   backward and their bounds at the f32 peak; K4b at rwkv6-3b's training
-   shape beside its plain version and its bound;
+   backward and their bounds (3xTF32 at the tf32 tensor peak, the f32 FMA
+   bound beside); K4b at rwkv6-3b's training shape beside its plain version
+   and its bound;
 7. one request chain executed on the card and on the CPU from the same
    inputs, outputs compared;
 8. the executed serving arena: the pinned CI stream (12 requests, 6 decode
@@ -185,7 +188,8 @@ prints no result):
    code); ``train_lm_torch``, lm-100m for 250 steps of 4 x 128 in a fresh
    checkpoint directory, the counters set to 0 just before: K3 and K3b
    2000 launches each on ``fp32`` (a layer and step, remat off), the loss
-   falling.
+   falling; then one more lm-100m step under ``torch.profiler``: the
+   device's busy share, K3's and K3b's ms and share, the top six kernels.
 
 The line before the last is a JSON object listing each kernel with its
 launches on its main path, error, times and bound, and the capped K3 and
@@ -193,7 +197,10 @@ K3b (``flash_attention+cap``, ``flash_attention_bwd+cap``: the launches
 their wrappers counted as capped on the main paths, the capped granite's,
 which the kernel's own total also counts) and their f32 paths
 (``flash_attention+f32``, ``flash_attention_bwd+f32``: the ``fp32``
-launches of ``[examples]``, which the kernel's own total also counts); a ``[phase]`` line gives the
+launches of ``[examples]``; ``flash_attention+f32_whisper``,
+``flash_attention_bwd+f32_whisper``: whisper-large-v3's ``fp32`` launches in
+``[card-vs-cpu]`` and ``[train-vs-cpu]``, timed at its encoder's shape; the
+kernel's own total counts them too); a ``[phase]`` line gives the
 seconds elapsed after each phase; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -251,6 +258,7 @@ K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
 K3_MINITRON = (8, 24, 8, 2048, 128)
 K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, zero-padded to 128
 K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not causal
+K3_WHISPER_F32 = (2, 20, 20, 1500, 64)  # the same in the f32 cuts (batch 2), not causal
 K3_COMMAND_R = (8, 64, 8, 2048, 128)
 K4_SHAPE = (8, 40, 2048, 64)       # B, H, S, N
 # lm-100m's training attention (examples/train_lm_torch.py: batch 4 x 128,
@@ -304,6 +312,10 @@ INIT_CHECKED = ("granite_3_2b", "rwkv6_3b", "minitron_4b", "granite_moe_3b_a800m
 # served models whose prefill is also timed layer by layer (``[prefill-split]``)
 PREFILL_SPLIT = ("jamba_1_5_large_398b",)
 PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
+# the device kernels of each wrapper, by a part of their names (torch.profiler)
+KERNEL_KEYS = {"flash_attention_bwd": ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "flash_bwd_tf32"),
+               "flash_attention": ("flash_fwd<", "flash_fwd_tf32<"), "wkv6_bwd": ("wkv6_bwd",),
+               "wkv6": ("wkv6_ring",)}
 # special-function (MUFU) operations an SM issues a clock (Hopper)
 MUFU_PER_SM_CLOCK = 16
 
@@ -662,8 +674,9 @@ def check_flash_bwd(gen) -> tuple[float, float]:
     """``[K3b]``: dq, dk and dv of the CUDA backward against the plain
     version's (``ref.flash_attention_bwd``), both fed the same q, k, v, o,
     LSE (K3's forward) and dout, each case on the path it names (``tma``,
-    ``fp32``, ``copy`` for a bf16 dout with a strided last dimension and a q
-    whose base is 4 bytes off the 16-byte granule, or ``pad``); a second
+    ``fp32`` (3xTF32 on the tensor cores), ``copy`` for a bf16 dout with a
+    strided last dimension and a q whose base is 4 bytes off the 16-byte
+    granule, or ``pad``); a second
     launch on the same inputs must give the same bits (no atomics).  The
     capped cases (cap 5 over q and k 3 times unit normal) run the capped
     kernels, held to the plain capped backward (which carries the cap's
@@ -1121,65 +1134,68 @@ def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | Non
                                                                       is_causal=causal))), bnd
 
 
-def time_flash_f32(gen, peaks) -> tuple[dict, dict, dict]:
+def time_flash_f32(gen, peaks, shape=LM100M_K3, causal: bool = True, suffix: str = ""
+                   ) -> tuple[dict, dict, dict, dict]:
     """-> ({name: (ms, plain ms, library ms)}, {name: bound}, {name: max abs
-    err}) of K3 (``flash_attention+f32``) and K3b (``flash_attention_bwd+f32``)
-    on their f32 paths, on the CUDA cores, at lm-100m's training shape
-    (``examples/train_lm_torch.py``: 4 x 128 tokens, 12 query heads over 4
-    KV heads of 64, causal), on the model's strided views.  Each is first
-    held against its plain version: K3 within 2e-5, K3b within 1e-4 x max
-    |plain| a gradient.  The bounds: K3 4 hd and K3b 10 hd operations a kept
-    pair at the f32 peak, over q, k, v, o (and dout, the LSE, dq, dk, dv)
-    read or written once in f32; the library calls SDPA in f32
-    (``is_causal``, K and V expanded to the query heads outside the timed
-    call) and ``torch.autograd.grad`` through it, the backward alone."""
+    err}, {name: the f32 FMA bound}) of K3 (``flash_attention+f32`` +
+    ``suffix``) and K3b (``flash_attention_bwd+f32`` + ``suffix``) on their
+    f32 paths (3xTF32 on the tensor cores) at ``shape`` (B, H, K, S, hd),
+    causal or not, on the model's strided views: by default lm-100m's
+    training shape (``examples/train_lm_torch.py``: 4 x 128 tokens, 12
+    query heads over 4 KV heads of 64, causal).  Each is first held against
+    its plain version: K3 within 2e-5, K3b within 1e-4 x max |plain| a
+    gradient.  The bounds: K3 4 hd and K3b 10 hd operations a kept pair, in
+    three TF32 passes at the tf32 tensor peak (as K1's f32 bound), over q,
+    k, v, o (and dout, the LSE, dq, dk, dv) read or written once in f32;
+    beside them the same operations as f32 FMAs at the f32 peak.  The
+    library calls SDPA in f32 (``is_causal``, K and V expanded to the query
+    heads outside the timed call) and ``torch.autograd.grad`` through it,
+    the backward alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
-    B, H, K, S, hd = LM100M_K3
+    B, H, K, S, hd = shape
+    fwd, bwd = f"flash_attention+f32{suffix}", f"flash_attention_bwd+f32{suffix}"
     q, dout = (_strided((B, S, H, hd), torch.float32, gen) for _ in range(2))
     k, v = (_strided((B, S, K, hd), torch.float32, gen) for _ in range(2))
-    pairs = B * H * S * (S + 1) / 2
+    pairs = B * H * S * (S + 1) / 2 if causal else B * H * S * S
     f32 = 4
-    errs = {"flash_attention+f32": (flash_attention(q, k, v) - ref.flash_attention(q, k, v))
-            .abs().max().item()}
-    if not errs["flash_attention+f32"] <= 2e-5:
-        raise AssertionError(f"K3 f32 at {LM100M_K3}: off its plain version by "
-                             f"{errs['flash_attention+f32']}")
-    o, lse = flash_attention_fwd(q, k, v)
-    grads = flash_attention_bwd(q, k, v, o, lse, dout)
-    errs["flash_attention_bwd+f32"] = 0.0
+    errs = {fwd: (flash_attention(q, k, v, causal=causal)
+                  - ref.flash_attention(q, k, v, causal=causal)).abs().max().item()}
+    if not errs[fwd] <= 2e-5:
+        raise AssertionError(f"K3 f32 at {shape}: off its plain version by {errs[fwd]}")
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    grads = flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+    errs[bwd] = 0.0
     for name, got, want in zip(("dq", "dk", "dv"), grads,
-                               ref.flash_attention_bwd(q, k, v, o, lse, dout)):
+                               ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)):
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
         if not err <= 1e-4 * scale:
-            raise AssertionError(f"K3b f32 {name} at {LM100M_K3}: off by {err} (max {scale})")
-        errs["flash_attention_bwd+f32"] = max(errs["flash_attention_bwd+f32"], err)
-    bounds = {
-        "flash_attention+f32": bound(4.0 * pairs * hd, (2 * B * H * S * hd + 2 * B * K * S * hd)
-                                     * f32, peaks["f32"], peaks["bytes"]),
-        "flash_attention_bwd+f32": bound(10.0 * pairs * hd, (4 * B * H * S * hd
-                                                             + 4 * B * K * S * hd) * f32
-                                         + B * H * S * 4, peaks["f32"], peaks["bytes"]),
-    }
+            raise AssertionError(f"K3b f32 {name} at {shape}: off by {err} (max {scale})")
+        errs[bwd] = max(errs[bwd], err)
+    work = {fwd: (4.0 * pairs * hd, (2 * B * H * S * hd + 2 * B * K * S * hd) * f32),
+            bwd: (10.0 * pairs * hd, (4 * B * H * S * hd + 4 * B * K * S * hd) * f32
+                  + B * H * S * 4)}
+    bounds = {n: bound(3 * ops, nbytes, peaks["tf32"], peaks["bytes"])
+              for n, (ops, nbytes) in work.items()}
+    fma = {n: bound(ops, nbytes, peaks["f32"], peaks["bytes"]) for n, (ops, nbytes) in work.items()}
     ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, ke, ve))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     times = {
-        "flash_attention+f32": (
-            time_ms(lambda: flash_attention(q, k, v)),
-            time_ms(lambda: ref.flash_attention(q, k, v), batches=3, per_batch=5),
-            time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))),
-        "flash_attention_bwd+f32": (
-            time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout)),
-            time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout), batches=3,
-                    per_batch=5),
-            time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))),
+        fwd: (time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+              time_ms(lambda: ref.flash_attention(q, k, v, causal=causal), batches=3,
+                      per_batch=5),
+              time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=causal))),
+        bwd: (time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)),
+              time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal),
+                      batches=3, per_batch=5),
+              time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))),
     }
-    return times, bounds, errs
+    return times, bounds, errs, fma
 
 
 def time_attention_and_wkv6(flash, wkv6, ref, gen, peaks) -> tuple[dict, dict]:
@@ -2112,12 +2128,9 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launched = _kernel_ms(prof)
     busy = sum(by_name.values())
-    keys = {"flash_attention_bwd": ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "bwd_delta"),
-            "flash_attention": ("flash_fwd<",), "wkv6_bwd": ("wkv6_bwd",),
-            "wkv6": ("wkv6_ring",)}
     shares = []
     for k in (bwd, fwd):
-        ms = sum(t for name, t in by_name.items() if any(key in name for key in keys[k]))
+        ms = sum(t for name, t in by_name.items() if any(key in name for key in KERNEL_KEYS[k]))
         shares.append(f"{short[k]} {ms:.1f} ms ({ms / busy:.1%})")
     print(f"[train] {cfg.name} profiled step: device {busy:.1f} of {wall_ms:.1f} ms wall "
           f"({busy / wall_ms:.1%} busy), {launched} kernels; {', '.join(shares)}; top: "
@@ -2490,7 +2503,58 @@ def examples_phase(dev, smi) -> dict:
           f"by logged interval {step_ms} (median {statistics.median(step_ms):.0f}); K3 "
           f"{counts['flash_attention']}, K3b {counts['flash_attention_bwd']} by path = "
           f"{cfg.n_layers} layers x {steps} steps; {smi}")
+    profile_lm_step(cfg, dev, smi)
     return counted
+
+
+def profile_lm_step(cfg, dev, smi: str, batch: tuple[int, int] = (4, 128), warm: int = 3
+                    ) -> None:
+    """lm-100m's training step (``examples/train_lm_torch.py``'s config and
+    batch, no remat) from fresh parameters: ``warm`` steps, then 3 timed by
+    the host clock (each ended by a synchronise) and one under
+    ``torch.profiler``.  Prints the device's busy share of the profiled
+    step's wall, K3's and K3b's device ms and share and the top six
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.steps import DistConfig, make_train_step
+    from repro_torch.models.params import init_params
+
+    B, S = batch
+    step, p_specs, o_specs, _ = make_train_step(cfg, DistConfig(remat=False))
+    params = init_params(p_specs, torch.Generator(device=dev).manual_seed(0))
+    opt = init_params(o_specs, torch.Generator(device=dev).manual_seed(0))
+    it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev)
+    try:
+        for _ in range(warm):
+            step(params, opt, next(it))
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(params, opt, next(it))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        batch_ = next(it)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, opt, batch_)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        it.close()
+    by_name, launched = _kernel_ms(prof)
+    busy = sum(by_name.values())
+    shares = []
+    for k, short in (("flash_attention", "K3"), ("flash_attention_bwd", "K3b")):
+        ms = sum(t for name, t in by_name.items() if any(key in name for key in KERNEL_KEYS[k]))
+        shares.append(f"{short} {ms:.3f} ms ({ms / busy:.1%} of the device time)")
+    print(f"[examples] train_lm_torch profiled step (lm-100m, {B} x {S}, no remat, after "
+          f"{warm + 3} steps): {statistics.median(walls):.2f} ms a step on the host clock "
+          f"({', '.join(f'{w:.2f}' for w in walls)}); under the profiler device {busy:.2f} of "
+          f"{wall:.2f} ms wall ({busy / wall:.1%} busy), {launched} kernels; "
+          f"{', '.join(shares)}; top: {_top(by_name, 6)}; {smi}")
 
 
 def build_report(build) -> None:
@@ -2517,15 +2581,16 @@ def build_report(build) -> None:
             serialised.add(m.group(1))
         elif m := re.search(r"Compiling entry function '(\w+)'", line):
             name = m.group(1)
-            k3 = re.search(r"\d(f32|bf16)\d+flash_fwdILi(\d+)ELb([01])E", name)
+            k3 = re.search(r"\d(f32|bf16)\d+flash_fwd(?:_tf32)?ILi(\d+)ELb([01])E", name)
             k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
-            k3b = re.search(r"(bwd_dq|bwd_dkdv)(_wgmma)?I(f)?Li(\d+)ELb([01])E", name)
+            k3b = re.search(r"(bwd_dq|bwd_dkdv|flash_bwd_tf32)(_wgmma)?ILi(\d+)ELb([01])E",
+                            name)
             cur = {"src": src, "name": name,
                    "k3": k3 and (k3.group(1), int(k3.group(2)), k3.group(3) == "1"),
                    "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
                                  "KM"[int(k1.group(2))], "KN"[int(k1.group(3))]),
-                   "k3b": k3b and (k3b.group(1), "f32" if k3b.group(3) else "bf16",
-                                   int(k3b.group(4)), k3b.group(5) == "1")}
+                   "k3b": k3b and (k3b.group(1), "f32" if k3b.group(1) == "flash_bwd_tf32"
+                                   else "bf16", int(k3b.group(3)), k3b.group(4) == "1")}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -2556,14 +2621,16 @@ def build_report(build) -> None:
         elif kern["k3"]:
             dtype, hd, capped = kern["k3"]
             k3[kern["k3"]] = kern
-            label = f"flash_fwd<{dtype}, hd {hd}{', capped' if capped else ''}>"
+            label = (f"flash_fwd{'_tf32' if dtype == 'f32' else ''}<{dtype}, hd {hd}"
+                     f"{', capped' if capped else ''}>")
             dynamic = lib.repro_flash_attention_smem(int(dtype == "bf16"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif kern["k3b"]:
             which, dtype, hd, capped = kern["k3b"]
             k3b[kern["k3b"]] = kern
             label = (f"{which}<{dtype}, hd {hd}{', capped' if capped else ''}>"
-                     + (" (wgmma)" if dtype == "bf16" else ""))
+                     + (" (wgmma)" if dtype == "bf16" else " (3xTF32 mma.sync, dq and dk/dv "
+                        "blocks)"))
             dynamic = lib.repro_flash_attention_bwd_smem(int(dtype == "bf16"),
                                                          int(which == "bwd_dkdv"), hd)
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
@@ -2575,8 +2642,6 @@ def build_report(build) -> None:
             kern["smem"] = f"{kern['smem']} bytes static + {dynamic} dynamic"
         elif "mm_fma" in kern["name"]:
             label = f"mm_fma<{'bf16' if 'bfloat16' in kern['name'] else 'f32'}>"
-        elif "bwd_deltaIfE" in kern["name"]:
-            label = "bwd_delta<f32>"
         elif "bwd_rowstats" in kern["name"]:
             label = "bwd_rowstats<bf16>"
         elif m := re.search(r"(add_stream|add_scalar)I(f|i|13__nv_bfloat16)E", kern["name"]):
@@ -2594,8 +2659,9 @@ def build_report(build) -> None:
     want = {32, 64}
     if set(k4) != want:
         raise AssertionError(f"K4 specialisations built {sorted(k4)}, want {sorted(want)}")
-    want = {(w, dt, hd, c) for w in ("bwd_dq", "bwd_dkdv") for dt in ("f32", "bf16")
-            for hd in (32, 64, 128) for c in (False, True)}
+    want = ({(w, "bf16", hd, c) for w in ("bwd_dq", "bwd_dkdv") for hd in (32, 64, 128)
+             for c in (False, True)}
+            | {("flash_bwd_tf32", "f32", hd, c) for hd in (32, 64, 128) for c in (False, True)})
     if set(k3b) != want:
         raise AssertionError(f"K3b specialisations built {sorted(k3b)}, want {sorted(want)}")
     want = {(w, n) for w in ("ckpt", "main") for n in (32, 64)} | {("du", 0)}
@@ -2728,10 +2794,15 @@ def main() -> int:
     times["flash_attention_bwd+cap"], bounds["flash_attention_bwd+cap"], k3b_cap_bound6, \
         k3_lse_cap_ms, k3b_cap_split = time_flash_bwd(gen, peaks, cap)
     # K3 and K3b on their f32 paths at lm-100m's training shape ([examples])
-    f32_times, f32_bounds, f32_errs = time_flash_f32(gen, peaks)
-    times.update(f32_times)
-    bounds.update(f32_bounds)
-    errs.update(f32_errs)
+    # and at whisper-large-v3's encoder (the f32 cuts of [card-vs-cpu] and
+    # [train-vs-cpu])
+    fma_bounds = {}
+    for args in ((), (K3_WHISPER_F32, False, "_whisper")):
+        f32_times, f32_bounds, f32_errs, f32_fma = time_flash_f32(gen, peaks, *args)
+        times.update(f32_times)
+        bounds.update(f32_bounds)
+        errs.update(f32_errs)
+        fma_bounds.update(f32_fma)
     shapes = {"matmul": f"{SIDE}^3 f32", "matadd": f"{SIDE}^2 f32",
               "flash_attention": "B{} H{}/K{} S{} hd{} bf16 causal".format(*K3_SHAPE),
               "wkv6": "B{} H{} S{} N{} f32".format(*K4_SHAPE),
@@ -2753,12 +2824,20 @@ def main() -> int:
                                          "torch.autograd.grad through flex_attention)"
                                          .format(*K3_SHAPE, cap),
               "flash_attention+f32": "B{} H{}/K{} S{} hd{} f32 causal (lm-100m's training "
-                                     "attention, examples/train_lm_torch.py; fp32 path, CUDA "
-                                     "cores; bound at the f32 peak)".format(*LM100M_K3),
+                                     "attention, examples/train_lm_torch.py; fp32 path, 3xTF32 "
+                                     "on the tensor cores)".format(*LM100M_K3),
               "flash_attention_bwd+f32": "B{} H{}/K{} S{} hd{} f32 causal (lm-100m's training "
-                                         "attention; fp32 path, CUDA cores; bound 10 hd a kept "
-                                         "pair at the f32 peak; library torch.autograd.grad "
-                                         "through SDPA)".format(*LM100M_K3)}
+                                         "attention; fp32 path, 3xTF32 on the tensor cores; bound "
+                                         "10 hd a kept pair; library torch.autograd.grad through "
+                                         "SDPA)".format(*LM100M_K3),
+              "flash_attention+f32_whisper": "B{} H{}/K{} S{} hd{} f32 full (whisper-large-v3's "
+                                             "encoder in the f32 cuts; fp32 path, 3xTF32 on the "
+                                             "tensor cores)".format(*K3_WHISPER_F32),
+              "flash_attention_bwd+f32_whisper": "B{} H{}/K{} S{} hd{} f32 full (whisper-large-"
+                                                 "v3's encoder in [train-vs-cpu]; fp32 path, "
+                                                 "3xTF32 on the tensor cores; bound 10 hd a pair; "
+                                                 "library torch.autograd.grad through SDPA)"
+                                                 .format(*K3_WHISPER_F32)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
     # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
@@ -2782,6 +2861,9 @@ def main() -> int:
         if k == "matmul":
             b_by += (f", 3xTF32 at the tf32 tensor peak; IEEE f32 FMA bound "
                      f"{fma_bound[0]:.4f} ms ({fma_bound[1]})")
+        if k in fma_bounds:
+            b_by += (f", 3xTF32 at the tf32 tensor peak; IEEE f32 FMA bound "
+                     f"{fma_bounds[k][0]:.4f} ms ({fma_bounds[k][1]})")
         if k == "flash_attention_bwd":
             b_by += (f"; seven-product bound {k3b_bound7[0]:.4f} ms ({k3b_bound7[1]}, 14 hd a "
                      f"kept pair: S and dP in both kernels)")
@@ -2906,9 +2988,15 @@ def main() -> int:
 
     mark("fused")
 
-    # 10. the model's own context: 2 full-width layers, card against CPU
+    # 10. the model's own context: 2 full-width layers, card against CPU;
+    # whisper's f32 launches are counted for its fp32 rows
+    whisper_f32 = dict.fromkeys(("flash_attention+f32_whisper",
+                                 "flash_attention_bwd+f32_whisper"), 0)
     for arch in CARD_VS_CPU:
+        _reset_counts()
         card_vs_cpu(arch, dev)
+        if arch == "whisper_large_v3":
+            whisper_f32["flash_attention+f32_whisper"] += _counts()["flash_attention"]["fp32"]
     gc.collect()
     torch.cuda.empty_cache()
     mark("card-vs-cpu")
@@ -2981,7 +3069,11 @@ def main() -> int:
     # 15. training: a full-width step on the card against the CPU, then
     # granite-3-2b at full width and depth, a crash and restart, the CLI
     for arch in TRAIN_VS_CPU:
-        train_vs_cpu(arch, dev)
+        train_vs_cpu(arch, dev)  # the counts of its card step stay
+        if arch == "whisper_large_v3":
+            counts = _counts()
+            whisper_f32["flash_attention+f32_whisper"] += counts["flash_attention"]["fp32"]
+            whisper_f32["flash_attention_bwd+f32_whisper"] += counts["flash_attention_bwd"]["fp32"]
         gc.collect()
     torch.cuda.empty_cache()
     mark("train-vs-cpu")
@@ -3014,6 +3106,7 @@ def main() -> int:
         by_path[k] = {p: n + by_path[k].get(p, 0) for p, n in counts.items()}
         if k != "matmul":
             launches[f"{k}+f32"] = counts["fp32"]
+    launches.update(whisper_f32)
     mark("examples")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 

@@ -48,12 +48,33 @@
 // times log2(e) is folded into exp2.  Query blocks are launched with the
 // most keys first, so the causal diagonal's heavy blocks do not finish last.
 //
-// f32 stays on the CUDA cores: the tensor cores take f32 only as TF32, which
-// keeps about three decimal digits and cannot hold f32's 2e-5.  Each query
-// row's q and accumulator live in the registers of one thread (hd 32, 64) or
-// two (hd 128, each holding half and adding the partial dots by one
-// shuffle), and the products are exact f32 FMAs over K and V tiles staged in
-// shared memory.  No served path runs it.
+// f32 runs on the tensor cores as 3xTF32, as K1 does (matmul.cu): each
+// operand x is split into hi = x with its low 13 mantissa bits cleared and
+// lo = x - hi, and each product is lo.hi + hi.lo + hi.hi in three
+// mma.sync m16n8k8 TF32 passes (attention_tf32.cuh); the dropped lo.lo is
+// below 2^-20 of the product.  tests/test_torch_attention_tf32.py emulates
+// the scheme and holds it to the reference at K3's f32 tolerance, 2e-5,
+// which one TF32 pass misses by two orders of magnitude.  The tensor cores'
+// f32 accumulation rounds toward zero, so each tile's S and each 8 columns
+// of its P V start a fresh accumulator (24 and 12 mma.syncs at hd 64),
+// added to the running O by ordinary f32 arithmetic.  A block of 2 warps
+// covers 32 query rows of one (batch, head), 16 a warp; Q is staged once
+// and K and V tiles of 32 keys go through two cp.async stages (16-byte
+// copies where the last dimension is contiguous, 4-byte ones through any
+// other strides), so the next tile loads while one is computed.  Staged
+// rows are hd + 4 floats long, so every fragment read hits 32 banks.  P
+// goes from its accumulator straight into the A operand of P V: the
+// accumulator holds columns 2t and 2t + 1 where a TF32 A fragment wants t
+// and t + 4, so P V takes its keys in that order and reads V's rows to
+// match, and no value moves between lanes.  Only tiles that cross kv_len,
+// Sk or the diagonal of one of the warp's rows are masked, and the query
+// blocks with the most keys launch first.  At lm-100m's training shape (B
+// 4, H 12 over 4 KV heads, S 128, hd 64, causal) that is 192 blocks for
+// 132 SMs; its 4 hd operations a kept pair take 0.0006 ms as three TF32
+// passes at 494.5 TFLOP/s against 0.0013 ms for its 4.2 MB of q, k, v and
+// o at 3.35 TB/s, so bytes bound it, and what paces the kernel is the
+// latency of each warp's chain of at most 4 tiles.  No served path runs
+// it.
 //
 // Blocks are skipped (causal, or past kv_len) only when kv_len > 0: then
 // every row has a valid key and a skipped key would add exactly 0.  With
@@ -83,6 +104,7 @@
 
 #include <type_traits>
 
+#include "attention_tf32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -94,135 +116,181 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// f32: exact FMAs on the CUDA cores
+// f32: 3xTF32 on the tensor cores (mma.sync), K and V staged by cp.async
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int BQ = 128;  // query rows per block
-constexpr int SUB = 16;  // keys per online-softmax update
+using namespace tf32;
+
+constexpr int WARPS = 2;             // a warp owns 16 query rows
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;       // query rows a block
+constexpr int BK = 32;               // keys a tile
 
 template <int HD>
 struct Cfg {
-  static constexpr int SPLIT = HD > 64 ? 2 : 1;  // threads per query row
-  static constexpr int HP = HD / SPLIT;          // hd values each of them holds
-  static constexpr int BK = HD > 64 ? 32 : 64;   // keys staged per tile: 32 KB
-  static constexpr int THREADS = BQ * SPLIT;
+  static constexpr int LD = HD + 4;  // floats a staged row: fragment reads hit 32 banks
+  static constexpr int TILE = BK * LD;
+  // Q, then two stages of a K and a V tile
+  static constexpr int SMEM = (BQ * LD + 4 * TILE) * 4;
 };
 
 template <int HD, bool CAP>
-__global__ void __launch_bounds__(Cfg<HD>::THREADS)
-    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int G, int Sq, int Sk,
-              int kv_len, int causal, float scale, float cap, Strides sq, Strides sk,
-              Strides sv, Strides so) {
+__global__ void __launch_bounds__(THREADS)
+    flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   int H, int G, int Sq, int Sk, int kv_len, int causal, float scale, float cap,
+                   int vec, Strides sq, Strides sk, Strides sv, Strides so) {
   using C = Cfg<HD>;
-  constexpr int BK = C::BK;
-  constexpr int HP = C::HP;
-  __shared__ __align__(16) float Ks[BK][HD];
-  __shared__ __align__(16) float Vs[BK][HD];
+  constexpr int LD = C::LD;
+  constexpr int NT = BK / 8;  // 8-key blocks of S
+  constexpr int ND = HD / 8;  // 8-column blocks of O
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s TILE, V after it
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int row = q0 + threadIdx.x / C::SPLIT;
-  const int d0 = (threadIdx.x % C::SPLIT) * HP;
-  const int warp_last_row = q0 + (threadIdx.x | 31) / C::SPLIT;
-  const bool live_row = row < Sq;
-
-  float qr[HP];
-  {
-    const float* qp = q + b * sq.b + h * sq.h + (long long)row * sq.s;
-#pragma unroll
-    for (int d = 0; d < HP; ++d) qr[d] = live_row ? qp[(d0 + d) * sq.d] : 0.0f;
-  }
-  float acc[HP];
-#pragma unroll
-  for (int d = 0; d < HP; ++d) acc[d] = 0.0f;
-  float m = NEG_INF;
-  float l = 0.0f;
-
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the most keys first
+  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  const int w0 = q0 + 16 * warp;  // the warp's first row; this thread's are w0 + g, + 8
   // keys past k_end are masked for every row of the block and, since each
   // row has a valid key (key 0) when kv_len > 0, contribute exactly 0
   const bool any_valid = kv_len > 0;
   int k_end = any_valid ? kv_len : Sk;
   if (causal && any_valid) k_end = min(k_end, q0 + BQ);
+  const int n_tiles = (k_end + BK - 1) / BK;
   const int hk = h / G;
   const float* kp = k + b * sk.b + hk * sk.h;
   const float* vp = v + b * sv.b + hk * sv.h;
+  auto stage_kv = [&](int i) {
+    float* Ks = KVs + 2 * (i & 1) * C::TILE;
+    stage_rows<HD>(Ks, LD, kp, sk.s, sk.d, i * BK, BK, Sk, vec & 2, threadIdx.x, THREADS);
+    stage_rows<HD>(Ks + C::TILE, LD, vp, sv.s, sv.d, i * BK, BK, Sk, vec & 4, threadIdx.x,
+                   THREADS);
+    cp_commit();
+  };
+  stage_rows<HD>(Qs, LD, q + b * sq.b + h * sq.h, sq.s, sq.d, q0, BQ, Sq, vec & 1, threadIdx.x,
+                 THREADS);
+  stage_kv(0);
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    const int nj = min(BK, k_end - k0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * HD; e += C::THREADS) {
-      const int j = e / HD;
-      const int d = e % HD;
-      const long long key = k0 + j;
-      const bool ok = j < nj;
-      Ks[j][d] = ok ? kp[key * sk.s + d * sk.d] : 0.0f;
-      Vs[j][d] = ok ? vp[key * sv.s + d * sv.d] : 0.0f;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};  // this thread's part of each row's sum
+  const float* Qw = Qs + 16 * warp * LD;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      stage_kv(i + 1);  // into the stage tile i - 1 used
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile i (and Q) staged by every thread
+    const float* Ks = KVs + 2 * (i & 1) * C::TILE;
+    const float* Vs = Ks + C::TILE;
+    const int k0 = i * BK;
 
-    for (int j0 = 0; j0 < nj; j0 += SUB) {
-      // a group wholly past the diagonal of every row of the warp adds
-      // exactly 0 to them (the break is warp-uniform for the shuffle below)
-      if (causal && any_valid && k0 + j0 > warp_last_row) break;
-      float s[SUB];
+    // S = Q K^T, a fresh accumulator each tile
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const Split<4> a = frag_a(Qw + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma3(s[n], a, frag_bt(Ks + 8 * n * LD + 8 * kk, LD, g, t));
+    }
+
+    // the online softmax; only a tile that crosses kv_len, Sk or the
+    // diagonal of one of the warp's rows is masked
+    const bool mask = k0 + BK > kv_len || (causal && k0 + BK - 1 > w0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (CAP) x = cap * tanhf(x / cap);
+        if (mask) {
+          const int row = w0 + g + 8 * (e >> 1);
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const bool valid = key < kv_len && (!causal || key <= row);
+          // a slot past Sk does not exist: -inf gives it p = 0
+          x = valid ? x : (key < Sk ? NEG_INF : -INFINITY);
+        }
+        s[n][e] = x;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        const int key = k0 + j;
-        float dot = 0.0f;
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      corr[r] = expf(m[r] - m_new);
+      float sum = 0.0f;
 #pragma unroll
-        for (int d = 0; d < HP; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][d0 + d]);
-          dot = fmaf(qr[d], kk.x, dot);
-          dot = fmaf(qr[d + 1], kk.y, dot);
-          dot = fmaf(qr[d + 2], kk.z, dot);
-          dot = fmaf(qr[d + 3], kk.w, dot);
-        }
-        if (C::SPLIT == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        const bool valid = key < kv_len && (!causal || key <= row);
-        float x = dot * scale;
-        if (CAP) x = cap * tanhf(x / cap);
-        // a slot past the staged keys does not exist: -inf gives it p = 0
-        s[jj] = j < nj ? (valid ? x : NEG_INF) : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
-      l *= corr;
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int d = 0; d < HP; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = expf(s[jj] - m_new);
-        l += p;
-        const float* vrow = &Vs[j0 + jj][d0];
-#pragma unroll
-        for (int d = 0; d < HP; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vrow[d]);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int j = 0; j < 2; ++j) {
+          const float p = expf(s[n][2 * r + j] - m_new);
+          s[n][2 * r + j] = p;
+          sum += p;
         }
       }
-      m = m_new;
+      l[r] = l[r] * corr[r] + sum;
+      m[r] = m_new;
     }
+
+    // O = O corr + P V: P is the A operand straight from its accumulator
+    // (k renumbered), and each 8 columns of O take a fresh accumulator over
+    // the tile's keys, added to O by ordinary f32 arithmetic
+    Split<4> pa[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) pa[n] = frag_a(s[n]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma3(part, pa[n], frag_b(Vs + 8 * n * LD + 8 * nd, LD, g, t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], corr[e >> 1], part[e]);
+    }
+    __syncthreads();  // tile i consumed: its stage takes tile i + 2
   }
 
-  if (live_row) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    float* op = o + b * so.b + h * so.h + (long long)row * so.s;
+  // out = O / max(l, 1e-30), l summed over the quad that shares each row
 #pragma unroll
-    for (int d = 0; d < HP; ++d) op[(d0 + d) * so.d] = acc[d] * inv;
-    // the SPLIT threads of a row hold the same m and l
-    if (lse != nullptr && threadIdx.x % C::SPLIT == 0)
-      lse[((long long)b * gridDim.y + h) * Sq + row] = m + logf(fmaxf(l, 1e-30f));
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = w0 + g + 8 * r;
+    if (row < Sq) {
+      const float inv = 1.0f / fmaxf(lr, 1e-30f);
+      float* op = o + b * so.b + h * so.h + (long long)row * so.s;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        op[(8 * nd + 2 * t) * so.d] = acc[nd][2 * r] * inv;
+        op[(8 * nd + 2 * t + 1) * so.d] = acc[nd][2 * r + 1] * inv;
+      }
+      if (lse != nullptr && t == 0)
+        lse[((long long)b * H + h) * Sq + row] = m[r] + logf(fmaxf(lr, 1e-30f));
+    }
   }
 }
 
@@ -230,15 +298,28 @@ template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
            int G, int Sq, int Sk, int kv_len, int causal, float scale, float cap,
            const long long* st, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  using C = Cfg<HD>;
+  // the dynamic shared memory above 48 KB (hd 128), set once on each device
+  // for each specialisation
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set >> dev & 1ull)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tf32<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set |= 1ull << dev;
+  }
+  const int vec = int(vec_ok(q, st)) | int(vec_ok(k, st + 4)) << 1 | int(vec_ok(v, st + 8)) << 2;
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
-  flash_fwd<HD, CAP><<<grid, Cfg<HD>::THREADS, 0, stream>>>(
+  flash_fwd_tf32<HD, CAP><<<grid, THREADS, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, G, Sq, Sk, kv_len, causal,
-      scale, cap, sq, sk, sv, so);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, G, Sq, Sk, kv_len, causal,
+      scale, cap, vec, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,14 +677,14 @@ using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, i
                          int, int, int, int, float, float, const long long*, cudaStream_t);
 
 int dynamic_smem(int dtype, int hd) {
-  if (dtype != 1) return 0;
+  const bool f = dtype == 0;
   switch (hd) {
     case 32:
-      return bf16::Cfg<32>::SMEM;
+      return f ? f32::Cfg<32>::SMEM : bf16::Cfg<32>::SMEM;
     case 64:
-      return bf16::Cfg<64>::SMEM;
+      return f ? f32::Cfg<64>::SMEM : bf16::Cfg<64>::SMEM;
     case 128:
-      return bf16::Cfg<128>::SMEM;
+      return f ? f32::Cfg<128>::SMEM : bf16::Cfg<128>::SMEM;
     default:
       return -1;
   }
@@ -630,7 +711,8 @@ LaunchFn pick(int dtype, int hd) {
 // `strides` holds 16 element strides: (b, h, s, d) of q, k, v and o in turn.
 // dtype: 0 = float32 (any strides), 1 = bfloat16 (d strides 1, the others and
 // the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 128};
-// 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536.
+// 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536
+// in bfloat16 and (Sq + 31) / 32 < 65536 in float32.
 // Logits are scaled by `scale`: 1/sqrt(hd) of the caller's head dim, which is
 // smaller than hd when the caller zero-padded q, k and v up to a built size;
 // where cap > 0 each scaled logit s becomes cap tanh(s / cap) (cap <= 0: no
@@ -653,6 +735,5 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 }
 
 // bytes of dynamic shared memory a block of the (dtype, hd) kernel takes
-// (0 for float32, which has only static shared memory; -1 for a pair that
-// is not built)
+// (-1 for a pair that is not built)
 extern "C" int repro_flash_attention_smem(int dtype, int hd) { return dynamic_smem(dtype, hd); }

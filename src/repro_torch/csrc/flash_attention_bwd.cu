@@ -21,14 +21,14 @@
 // 128 are built; the wrapper zero-pads others up to the next one and passes
 // the scale of its own.
 //
-// Three launches, no atomics: every sum has one owner, so the result is the
-// same bits run after run.  A row-statistics pass, then a dq kernel (a block
-// owns query rows of one (batch, head) and loops over the key tiles they
-// see), then a dk/dv kernel (a block owns keys of one (batch, KV head) and
-// loops over the G query heads of its group and every query tile that sees
-// them).  The price of owning every sum is that S and dP are computed in
-// both kernels: seven products, not the five of a backward that adds dq
-// with atomics.
+// No atomics: every sum has one owner, so the result is the same bits run
+// after run.  A dq block owns query rows of one (batch, head) and loops
+// over the key tiles they see; a dk/dv block owns keys of one (batch, KV
+// head) and loops over the G query heads of its group and every query tile
+// that sees them.  The price of owning every sum is that S and dP are
+// computed by both kinds of block: seven products, not the five of a
+// backward that adds dq with atomics.  In bf16 that is three launches (a
+// row-statistics pass, the dq kernel, the dk/dv kernel), in f32 one.
 //
 // What bounds it on an H100: at granite-3-2b's training shape (B 8, H 32
 // over 8 KV heads, S 2048, hd 64, bf16, causal) the five products of a
@@ -80,16 +80,39 @@
 // overlap one another.  The repeated S and dP stay: they are the price of
 // owning every sum.
 //
-// f32 stays on the CUDA cores: the tensor cores take f32 only as TF32, which
-// cannot hold 1e-4.  Its blocks own 64 query rows (dq) or 64 keys (dk/dv)
-// and loop over inner tiles of 64, staged in shared memory as f32 rows
-// (head dim + 4 floats, so float4 reads of 16 consecutive rows fall on
-// distinct banks).  Each of 256 threads computes a 4 x 4 piece of the
-// 64 x 64 S and dP tiles (rows ty + 16 i, columns tx + 16 j, float4 reads
-// along the head dim), writes P and dS to shared memory, and then
-// accumulates 4 rows by hd / 16 columns of dq (or of dk and dv) in
-// registers.  Reads go through the callers' strides, so any layout is read
-// in place.  A delta pass (one warp a row) runs first.
+// f32 runs on the tensor cores as 3xTF32, as K3's f32 kernel does: each
+// operand split into a TF32 hi part and a TF32 lo part, each product
+// lo.hi + hi.lo + hi.hi in three mma.sync m16n8k8 TF32 passes
+// (attention_tf32.cuh), a fresh accumulator for each product of a tile
+// (the tensor cores' f32 sums round toward zero) added into dq, dk or dv
+// by ordinary f32 adds.  tests/test_torch_attention_tf32.py emulates the
+// five products so and holds them to the reference's fusedkernel_flash_bwd
+// and to jax.vjp at 1e-4 x max |grad|, which one TF32 pass misses.  One
+// launch holds both kinds of block, 4 warps each; neither reads what the
+// other writes:
+//   * a dq block owns 64 query rows of one (batch, head), 16 a warp: Q and
+//     dO staged once, K and V tiles of 32 keys through two cp.async stages
+//     (16-byte copies where the last dimension is contiguous, 4-byte ones
+//     through any other strides).  It forms delta = rowsum(dO o) of its own
+//     rows, recomputes S and dP and adds dS K into dq; a warp skips the
+//     tiles wholly past its rows' diagonal.
+//   * a dk/dv block owns 16 keys of one (batch, KV head), K and V staged
+//     once.  Its work is the (query head, 16-row tile) pairs whose rows see
+//     the keys: warp w takes pairs w, w + 4, ... and streams their Q, dO, O
+//     and LSE rows through two stages of its own, synchronised within the
+//     warp alone, so no warp waits for another at a tile.  It forms each
+//     tile's delta from O and dO, recomputes S^T and dP^T, and adds P^T dO
+//     into dv and dS^T Q into dk; at the end warp 0 adds the four warps'
+//     sums in warp order.
+// P^T and dS^T go from their accumulators straight into the A operands of
+// those products, in the accumulators' k order (attention_tf32.cuh).  At
+// lm-100m's training shape (B 4, H 12 over 4 KV heads, S 128, hd 64,
+// causal) the launch has 128 dk/dv and 96 dq blocks for 132 SMs.  Its 10 hd
+// operations a kept pair take 0.0015 ms as three TF32 passes at 494.5
+// TFLOP/s against 0.0025 ms for its 8.4 MB at 3.35 TB/s, so bytes bound it;
+// what paces the kernel is latency: the busiest dk/dv warp streams 6 tiles
+// (3 heads x 2 of its block's 8), each a chain of dependent mma.syncs and
+// exponentials.
 //
 // The logit cap (K3's, a model's `attn_logit_softcap`): where the caller
 // passes cap > 0, the kernels recompute t = tanh(s scale / cap) from each
@@ -122,327 +145,16 @@
 
 #include <type_traits>
 
+#include "attention_tf32.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
-constexpr int BR = 64;             // query rows (dq) or keys (dk/dv) a block owns
-constexpr int BC = 64;             // keys (dq) or query rows (dk/dv) per inner tile
-constexpr int THREADS = 256;       // 16 x 16, each a 4 x 4 piece of a 64 x 64 tile
-constexpr int PAD = 4;             // floats past the end of each shared row
-constexpr int LDT = BC + PAD;      // row length of the P and dS tiles
 
 struct Strides {
   long long b, h, s, d;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
-// x rounded to T and back (the reference's `.astype(dtype)` before a product)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// rows [row0, row0 + BR) of one head of `src` into `dst` (BR rows of HD + PAD
-// floats), zeros past `limit`
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, long long sd,
-                                          int row0, int limit) {
-  constexpr int LD = HD + PAD;
-  for (int e = threadIdx.x; e < BR * HD; e += THREADS) {
-    const int r = e / HD;
-    const int d = e % HD;
-    const int row = row0 + r;
-    dst[r * LD + d] = row < limit ? to_f(src[(long long)row * ss + (long long)d * sd]) : 0.0f;
-  }
-}
-
-// acc[i][j] = A[ty + 16 i] . Bm[tx + 16 j] over the head dim
-template <int HD>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A, const float* Bm,
-                                         int ty, int tx) {
-  constexpr int LD = HD + PAD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[4];
-    float4 b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(&Bm[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][c] += sum_r W[r][ty * 4 + i] * X[r][tx * CW + c] over the BC rows r
-// of W (P or dS, LDT floats a row) and X (a staged tile)
-template <int HD>
-__device__ __forceinline__ void accumulate(float (&acc)[4][HD / 16], const float* W,
-                                           const float* X, int ty, int tx) {
-  constexpr int LD = HD + PAD;
-  constexpr int CW = HD / 16;
-#pragma unroll 4
-  for (int r = 0; r < BC; ++r) {
-    const float4 w = *reinterpret_cast<const float4*>(&W[r * LDT + ty * 4]);
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int c = 0; c < CW; c += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(&X[r * LD + tx * CW + c]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][c] = fmaf(wv[i], x.x, acc[i][c]);
-        acc[i][c + 1] = fmaf(wv[i], x.y, acc[i][c + 1]);
-      }
-    }
-  }
-}
-
-template <int HD>
-constexpr int smem_dq() {
-  return (4 * BR * (HD + PAD) + BC * LDT) * 4;
-}
-template <int HD>
-constexpr int smem_dkdv() {
-  return (4 * BR * (HD + PAD) + 2 * BC * LDT + 2 * BC) * 4;
-}
-
-// delta[b, h, row] = sum_d dO * O, one warp a row
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-              int H, int Sq, int hd, long long rows, Strides so, Strides sdo) {
-  const long long r = (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const int row = (int)(r % Sq);
-  const long long bh = r / Sq;
-  const int h = (int)(bh % H);
-  const long long b = bh / H;
-  const T* op = o + b * so.b + h * so.h + row * so.s;
-  const T* dp = dout + b * sdo.b + h * sdo.h + row * sdo.s;
-  float sum = 0.0f;
-  for (int d = lane; d < hd; d += 32) sum = fmaf(to_f(op[d * so.d]), to_f(dp[d * sdo.d]), sum);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) delta[r] = sum;
-}
-
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void *dq, *dk, *dv;
-  int H, G, Sq, Sk, kv_len, causal;
-  float scale, cap;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
-};
-
-// P and dS of pair (row, key) from the raw dots s and dp; CAP: the logit
-// capped to cap tanh(s scale / cap) and dS times 1 - tanh^2
-template <bool CAP>
-__device__ __forceinline__ void pair_grads(float s, float dp, int row, int key, float lse,
-                                           float delta, const Args& a, float& p, float& ds) {
-  if (row >= a.Sq || key >= a.Sk) {  // a slot past the staged rows or keys
-    p = 0.0f;
-    ds = 0.0f;
-    return;
-  }
-  const bool valid = key < a.kv_len && (!a.causal || key <= row);
-  if (CAP) {
-    const float t = tanhf(s * a.scale / a.cap);
-    p = expf((valid ? a.cap * t : NEG_INF) - lse);
-    ds = p * (dp - delta) * (1.0f - t * t) * a.scale;
-  } else {
-    p = expf((valid ? s * a.scale : NEG_INF) - lse);
-    ds = p * (dp - delta) * a.scale;
-  }
-}
-
-template <typename T, int HD, bool CAP>
-__global__ void __launch_bounds__(THREADS, 1) bwd_dq(const Args a) {
-  constexpr int LD = HD + PAD;
-  constexpr int CW = HD / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BR * LD;
-  float* Ks = dOs + BR * LD;
-  float* Vs = Ks + BC * LD;
-  float* dSt = Vs + BC * LD;  // [key][row]
-
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int hk = h / a.G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // the most keys first
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  load_tile<T, HD>(Qs, q, a.sq.s, a.sq.d, q0, a.Sq);
-  load_tile<T, HD>(dOs, dout, a.sdo.s, a.sdo.d, q0, a.Sq);
-
-  float lse[4], delta[4];
-  const long long rbase = ((long long)b * a.H + h) * a.Sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse[i] = row < a.Sq ? a.lse[rbase + row] : 0.0f;
-    delta[i] = row < a.Sq ? a.delta[rbase + row] : 0.0f;
-  }
-  float acc[4][CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.0f;
-  }
-
-  const bool any_valid = a.kv_len > 0;
-  int k_end = any_valid ? a.kv_len : a.Sk;
-  if (a.causal && any_valid) k_end = min(k_end, q0 + BR);
-  for (int k0 = 0; k0 < k_end; k0 += BC) {
-    __syncthreads();  // the previous tile is consumed (and Q, dO are staged)
-    load_tile<T, HD>(Ks, k, a.sk.s, a.sk.d, k0, a.Sk);
-    load_tile<T, HD>(Vs, v, a.sv.s, a.sv.d, k0, a.Sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<HD>(s, Qs, Ks, ty, tx);
-    dot_tile<HD>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p, ds;
-        pair_grads<CAP>(s[i][j], dp[i][j], q0 + ty + 16 * i, k0 + tx + 16 * j, lse[i],
-                        delta[i], a, p, ds);
-        dSt[(tx + 16 * j) * LDT + ty + 16 * i] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-    accumulate<HD>(acc, dSt, Ks, ty, tx);
-  }
-
-  T* dq = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row < a.Sq) {
-#pragma unroll
-      for (int c = 0; c < CW; ++c)
-        dq[(long long)row * a.sdq.s + (long long)(tx * CW + c) * a.sdq.d] = from_f<T>(acc[i][c]);
-    }
-  }
-}
-
-template <typename T, int HD, bool CAP>
-__global__ void __launch_bounds__(THREADS, 1) bwd_dkdv(const Args a) {
-  constexpr int LD = HD + PAD;
-  constexpr int CW = HD / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BR * LD;
-  float* Qs = Vs + BR * LD;
-  float* dOs = Qs + BC * LD;
-  float* Ps = dOs + BC * LD;    // [row][key]
-  float* dSs = Ps + BC * LDT;   // [row][key]
-  float* lse_s = dSs + BC * LDT;
-  float* delta_s = lse_s + BC;
-
-  const int KV = a.H / a.G;
-  const int b = blockIdx.x / KV;
-  const int hk = blockIdx.x % KV;
-  const int k0 = blockIdx.y * BR;  // the most query tiles first when causal
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  load_tile<T, HD>(Ks, static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h, a.sk.s, a.sk.d,
-                   k0, a.Sk);
-  load_tile<T, HD>(Vs, static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h, a.sv.s, a.sv.d,
-                   k0, a.Sk);
-  float dk[4][CW], dv[4][CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < CW; ++c) dk[i][c] = dv[i][c] = 0.0f;
-  }
-
-  const bool any_valid = a.kv_len > 0;
-  // with a valid key in every row, keys at or past kv_len get nothing, and
-  // under the causal mask rows before k0 see none of these keys
-  const bool none = any_valid && k0 >= a.kv_len;
-  const int first = (a.causal && any_valid) ? (k0 / BC) * BC : 0;
-  for (int g = 0; g < a.G && !none; ++g) {
-    const int h = hk * a.G + g;
-    const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-    const T* dout = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    const long long rbase = ((long long)b * a.H + h) * a.Sq;
-    for (int q0 = first; q0 < a.Sq; q0 += BC) {
-      __syncthreads();  // the previous tile is consumed
-      load_tile<T, HD>(Qs, q, a.sq.s, a.sq.d, q0, a.Sq);
-      load_tile<T, HD>(dOs, dout, a.sdo.s, a.sdo.d, q0, a.Sq);
-      if (threadIdx.x < BC) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.Sq ? a.lse[rbase + row] : 0.0f;
-        delta_s[threadIdx.x] = row < a.Sq ? a.delta[rbase + row] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      dot_tile<HD>(s, Ks, Qs, ty, tx);   // S^T: keys ty + 16 i, rows tx + 16 j
-      dot_tile<HD>(dp, Vs, dOs, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx + 16 * j;
-          float p, ds;
-          pair_grads<CAP>(s[i][j], dp[i][j], q0 + r, k0 + ty + 16 * i, lse_s[r], delta_s[r], a,
-                          p, ds);
-          Ps[r * LDT + ty + 16 * i] = round_to<T>(p);
-          dSs[r * LDT + ty + 16 * i] = round_to<T>(ds);
-        }
-      }
-      __syncthreads();
-      accumulate<HD>(dv, Ps, dOs, ty, tx);
-      accumulate<HD>(dk, dSs, Qs, ty, tx);
-    }
-  }
-
-  T* dkp = static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h;
-  T* dvp = static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key < a.Sk) {
-#pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const long long d = tx * CW + c;
-        dkp[(long long)key * a.sdk.s + d * a.sdk.d] = from_f<T>(dk[i][c]);
-        dvp[(long long)key * a.sdv.s + d * a.sdv.d] = from_f<T>(dv[i][c]);
-      }
-    }
-  }
-}
 
 // the dynamic shared memory above 48 KB of a dq and a dk/dv kernel, set
 // once on each device: bit dev of `set`, a static of the caller's template
@@ -461,20 +173,470 @@ cudaError_t allow_smem(unsigned long long& set, DQ dq, int dq_bytes, DKDV dkdv, 
   return err;
 }
 
-template <typename T, int HD, bool CAP>
-int launch(const Args& a, int B, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on the tensor cores (mma.sync), one launch of dq and dk/dv blocks
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+using namespace tf32;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows a dq block owns, 16 a warp
+constexpr int BK = 32;          // keys a dq block's tile
+constexpr int BKV = 16;         // keys a dk/dv block owns
+constexpr int BQW = 16;         // query rows of a dk/dv warp's tile
+
+template <int HD>
+struct Cfg {
+  static constexpr int LD = HD + 4;  // floats a staged row: fragment reads hit 32 banks
+  // a dq block: Q and dO, then two stages of a K and a V tile
+  static constexpr int SMEM_DQ = (2 * BQ * LD + 4 * BK * LD) * 4;
+  // a dk/dv warp's stage: its tile of Q, dO and O rows, their LSE and delta
+  static constexpr int STAGE = 3 * BQW * LD + 2 * BQW;
+  // a dk/dv block: K and V, then two stages for each warp
+  static constexpr int SMEM_KV = (2 * BKV * LD + 2 * WARPS * STAGE) * 4;
+  static constexpr int SMEM = SMEM_DQ > SMEM_KV ? SMEM_DQ : SMEM_KV;
+  // at hd 128, where dk and dv alone take 128 registers a thread, fewer
+  // head-dim steps of S and dP are unrolled at once, and P^T and dS^T are
+  // split at each use rather than held split: no spill
+  static constexpr bool LEAN = HD > 64;
+  static constexpr int UNROLL = LEAN ? 4 : HD / 8;
+  // the warps' dk and dv, added at the end, take the stages' room
+  static_assert(WARPS * 2 * 32 * HD <= 2 * WARPS * STAGE, "no room for the partial sums");
+};
+
+struct Args {
+  const float *q, *k, *v, *o, *dout, *lse;
+  float *dq, *dk, *dv;
+  int B, H, G, Sq, Sk, kv_len, causal;
+  int vec;  // bit i: tensor i of q, k, v, o, dout takes 16-byte copies
+  float scale, cap;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+};
+
+// P and dS of the pair (row, key) from its raw dots s = q.k and dp = dO.v.
+// MASK: the pair may be masked by kv_len or the causal mask, or lie past Sq
+// or Sk (a slot of a staged tile that holds no row or key: p = ds = 0).
+// CAP: the logit capped to cap tanh(s scale / cap) and dS times 1 - tanh^2.
+template <bool MASK, bool CAP>
+__device__ __forceinline__ void pair_grads(float s, float dp, int row, int key, float lse,
+                                           float delta, const Args& a, float& p, float& ds) {
+  if (MASK && (row >= a.Sq || key >= a.Sk)) {
+    p = 0.0f;
+    ds = 0.0f;
+    return;
+  }
+  const bool valid = !MASK || (key < a.kv_len && (!a.causal || key <= row));
+  if (CAP) {
+    const float t = tanhf(s * a.scale / a.cap);
+    p = expf((valid ? a.cap * t : NEG_INF) - lse);
+    ds = p * (dp - delta) * (1.0f - t * t) * a.scale;
+  } else {
+    p = expf((valid ? s * a.scale : NEG_INF) - lse);
+    ds = p * (dp - delta) * a.scale;
+  }
+}
+
+// A dq block: 16 query rows a warp of one (batch, head); it loops over the
+// key tiles they see, recomputing S and dP, and owns dq of its rows.
+template <int HD, bool CAP>
+__device__ __forceinline__ void dq_block(const Args& a, float* smem, int idx) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD;
+  constexpr int NT = BK / 8;
+  constexpr int ND = HD / 8;
+  const int BH = a.B * a.H;
+  const int q0 = ((a.Sq + BQ - 1) / BQ - 1 - idx / BH) * BQ;  // the most keys first
+  const int b = idx % BH / a.H;
+  const int h = idx % BH % a.H;
+  const int hk = h / a.G;
+  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  const int w0 = q0 + 16 * warp;
+  float* Qs = smem;
+  float* dOs = Qs + BQ * LD;
+  float* KVs = dOs + BQ * LD;  // stage s: K at KVs + 2 s BK LD, V after it
+
+  const bool any_valid = a.kv_len > 0;
+  int k_end = any_valid ? a.kv_len : a.Sk;
+  if (a.causal && any_valid) k_end = min(k_end, q0 + BQ);
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const float* kp = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vp = a.v + b * a.sv.b + hk * a.sv.h;
+  auto stage_kv = [&](int i) {
+    float* Ks = KVs + 2 * (i & 1) * BK * LD;
+    stage_rows<HD>(Ks, LD, kp, a.sk.s, a.sk.d, i * BK, BK, a.Sk, a.vec & 2, threadIdx.x,
+                   THREADS);
+    stage_rows<HD>(Ks + BK * LD, LD, vp, a.sv.s, a.sv.d, i * BK, BK, a.Sk, a.vec & 4,
+                   threadIdx.x, THREADS);
+    cp_commit();
+  };
+  stage_rows<HD>(Qs, LD, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, a.sq.d, q0, BQ, a.Sq,
+                 a.vec & 1, threadIdx.x, THREADS);
+  stage_rows<HD>(dOs, LD, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, a.sdo.d, q0, BQ, a.Sq,
+                 a.vec & 16, threadIdx.x, THREADS);
+  stage_kv(0);
+
+  // the LSE and delta = rowsum(dO o) of this thread's rows w0 + g and w0 + g
+  // + 8 (0 past Sq), delta summed over the quad that shares the row
+  float lse[2], delta[2];
+  const long long rbase = ((long long)b * a.H + h) * a.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    float sum = 0.0f;
+    lse[r] = 0.0f;
+    if (row < a.Sq) {
+      lse[r] = a.lse[rbase + row];
+      const float* op = a.o + b * a.so.b + h * a.so.h + (long long)row * a.so.s;
+      const float* dp = a.dout + b * a.sdo.b + h * a.sdo.h + (long long)row * a.sdo.s;
+      for (int d = t; d < HD; d += 4) sum = fmaf(dp[d * a.sdo.d], op[d * a.so.d], sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    delta[r] = sum;
+  }
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+  }
+  const float* Qw = Qs + 16 * warp * LD;
+  const float* dOw = dOs + 16 * warp * LD;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      stage_kv(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* Ks = KVs + 2 * (i & 1) * BK * LD;
+    const float* Vs = Ks + BK * LD;
+    const int k0 = i * BK;
+
+    // a tile wholly past the diagonal of the warp's rows adds exactly 0
+    // to them (each row has a valid key when kv_len > 0)
+    if (a.causal && any_valid && k0 > w0 + 15) {
+      __syncthreads();
+      continue;
+    }
+    // S = Q K^T and dP = dO V^T
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    }
+#pragma unroll C::UNROLL
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const Split<4> qa = frag_a(Qw + 8 * kk, LD, g, t);
+      const Split<4> da = frag_a(dOw + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma3(s[n], qa, frag_bt(Ks + 8 * n * LD + 8 * kk, LD, g, t));
+        mma3(dp[n], da, frag_bt(Vs + 8 * n * LD + 8 * kk, LD, g, t));
+      }
+    }
+    // dS in place of S; a tile is masked only where it crosses kv_len, Sk
+    // or the diagonal of one of the warp's rows
+    const bool mask = k0 + BK > a.kv_len || (a.causal && k0 + BK - 1 > w0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = w0 + g + 8 * (e >> 1);
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        float p, ds;
+        if (mask)
+          pair_grads<true, CAP>(s[n][e], dp[n][e], row, key, lse[e >> 1], delta[e >> 1], a, p,
+                                ds);
+        else
+          pair_grads<false, CAP>(s[n][e], dp[n][e], row, key, lse[e >> 1], delta[e >> 1], a, p,
+                                 ds);
+        s[n][e] = ds;
+      }
+    }
+    // dq += dS K, each 8 columns a fresh accumulator over the tile's keys
+    Split<4> dsa[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) dsa[n] = frag_a(s[n]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma3(part, dsa[n], frag_b(Ks + 8 * n * LD + 8 * nd, LD, g, t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[nd][e] += part[e];
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row < a.Sq) {
+      float* out = a.dq + b * a.sdq.b + h * a.sdq.h + (long long)row * a.sdq.s;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        out[(8 * nd + 2 * t) * a.sdq.d] = dq[nd][2 * r];
+        out[(8 * nd + 2 * t + 1) * a.sdq.d] = dq[nd][2 * r + 1];
+      }
+    }
+  }
+}
+
+// A dk/dv block: 16 keys of one (batch, KV head), owning dk and dv of
+// them.  Its work is the (query head of the group, 16-row tile) pairs whose
+// rows see the keys; warp w takes pairs w, w + WARPS, ... and streams its
+// own tiles through two stages of its own (its lanes synchronise only with
+// each other), and at the end warp 0 adds the warps' sums in warp order.
+template <int HD, bool CAP>
+__device__ __forceinline__ void dkdv_block(const Args& a, float* smem, int idx) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD;
+  constexpr int ND = HD / 8;
+  const int KV = a.H / a.G;
+  const int BKH = a.B * KV;
+  const int k0 = idx / BKH * BKV;  // the most query rows first when causal
+  const int b = idx % BKH / KV;
+  const int hk = idx % BKH % KV;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float* Ks = smem;
+  float* Vs = Ks + BKV * LD;
+  float* stages = Vs + BKV * LD;
+  float* mine = stages + 2 * warp * C::STAGE;  // this warp's two stages: Q, dO, O, LSE, delta
+
+  stage_rows<HD>(Ks, LD, a.k + b * a.sk.b + hk * a.sk.h, a.sk.s, a.sk.d, k0, BKV, a.Sk,
+                 a.vec & 2, threadIdx.x, THREADS);
+  stage_rows<HD>(Vs, LD, a.v + b * a.sv.b + hk * a.sv.h, a.sv.s, a.sv.d, k0, BKV, a.Sk,
+                 a.vec & 4, threadIdx.x, THREADS);
+  cp_commit();
+  // with a valid key in every row, keys at or past kv_len get nothing, and
+  // under the causal mask rows before k0 see none of these keys
+  const bool any_valid = a.kv_len > 0;
+  const bool none = any_valid && k0 >= a.kv_len;
+  const int first = (a.causal && any_valid) ? k0 / BQW * BQW : 0;
+  const int per_head = none || first >= a.Sq ? 0 : (a.Sq - first + BQW - 1) / BQW;
+  const int n_items = a.G * per_head;
+  auto stage_item = [&](int it, int j) {
+    float* S = mine + (j & 1) * C::STAGE;
+    const int h = hk * a.G + it / per_head;
+    const int r0 = first + it % per_head * BQW;
+    stage_rows<HD>(S, LD, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, a.sq.d, r0, BQW, a.Sq,
+                   a.vec & 1, lane, 32);
+    stage_rows<HD>(S + BQW * LD, LD, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, a.sdo.d, r0,
+                   BQW, a.Sq, a.vec & 16, lane, 32);
+    stage_rows<HD>(S + 2 * BQW * LD, LD, a.o + b * a.so.b + h * a.so.h, a.so.s, a.so.d, r0,
+                   BQW, a.Sq, a.vec & 8, lane, 32);
+    const float* lp = a.lse + ((long long)b * a.H + h) * a.Sq;
+    if (lane < BQW) {
+      const bool ok = r0 + lane < a.Sq;
+      cp_async4(S + 3 * BQW * LD + lane, ok ? lp + r0 + lane : lp, ok ? 4 : 0);
+    }
+    cp_commit();
+  };
+  if (warp < n_items)
+    stage_item(warp, 0);
+  else
+    cp_commit();  // an empty group, so the wait below covers K and V
+  cp_wait<1>();  // K and V, by this thread
+  __syncthreads();  // ... and by every thread
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  }
+  for (int it = warp, j = 0; it < n_items; it += WARPS, ++j) {
+    if (it + WARPS < n_items) {
+      stage_item(it + WARPS, j + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncwarp();  // the tile staged by every lane of the warp
+    float* S = mine + (j & 1) * C::STAGE;
+    const float* Qt = S;
+    const float* dOt = Qt + BQW * LD;
+    const float* Ot = dOt + BQW * LD;
+    const float* lse_t = S + 3 * BQW * LD;
+    float* delta_t = S + 3 * BQW * LD + BQW;
+    const int r0 = first + it % per_head * BQW;
+
+    // delta of the tile's rows, two lanes a row, in four partial sums each
+    {
+      const int r = lane / 2;
+      const int d0 = lane % 2 * (HD / 2);
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int d = 0; d < HD / 2; d += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          part[u] = fmaf(dOt[r * LD + d0 + d + u], Ot[r * LD + d0 + d + u], part[u]);
+      }
+      float sum = (part[0] + part[1]) + (part[2] + part[3]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (lane % 2 == 0) delta_t[r] = sum;
+    }
+    __syncwarp();
+
+    // S^T = K Q^T and dP^T = V dO^T: the 16 keys by the tile's 16 rows
+    float st[2][4], dpt[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+    }
+#pragma unroll C::UNROLL
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const Split<4> ka = frag_a(Ks + 8 * kk, LD, g, t);
+      const Split<4> va = frag_a(Vs + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mma3(st[n], ka, frag_bt(Qt + 8 * n * LD + 8 * kk, LD, g, t));
+        mma3(dpt[n], va, frag_bt(dOt + 8 * n * LD + 8 * kk, LD, g, t));
+      }
+    }
+    // P^T in place of S^T, dS^T in place of dP^T
+    const bool mask = r0 + BQW > a.Sq || k0 + BKV > a.kv_len || (a.causal && k0 + BKV - 1 > r0);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + g + 8 * (e >> 1);
+        const int rr = 8 * n + 2 * t + (e & 1);  // the row within the tile
+        float p, ds;
+        if (mask)
+          pair_grads<true, CAP>(st[n][e], dpt[n][e], r0 + rr, key, lse_t[rr], delta_t[rr], a,
+                                p, ds);
+        else
+          pair_grads<false, CAP>(st[n][e], dpt[n][e], r0 + rr, key, lse_t[rr], delta_t[rr], a,
+                                 p, ds);
+        st[n][e] = p;
+        dpt[n][e] = ds;
+      }
+    }
+    // dv += P^T dO and dk += dS^T Q, each 8 columns a fresh accumulator over
+    // the tile's 16 rows
+    Split<4> pa[2], dsa[2];
+    if (!C::LEAN) {
+      pa[0] = frag_a(st[0]);
+      pa[1] = frag_a(st[1]);
+      dsa[0] = frag_a(dpt[0]);
+      dsa[1] = frag_a(dpt[1]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mma3(pv, C::LEAN ? frag_a(st[n]) : pa[n], frag_b(dOt + 8 * n * LD + 8 * nd, LD, g, t));
+        mma3(pk, C::LEAN ? frag_a(dpt[n]) : dsa[n], frag_b(Qt + 8 * n * LD + 8 * nd, LD, g, t));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv[nd][e] += pv[e];
+        dk[nd][e] += pk[e];
+      }
+    }
+    __syncwarp();  // the stage is read: the next prefetch may take it
+  }
+
+  // the warps' dk and dv into the stages' room, then warp 0 adds them in
+  // warp order and stores them
+  cp_wait<0>();
+  __syncthreads();
+  float* part = stages + warp * 2 * 32 * HD;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      part[(4 * nd + e) * 32 + lane] = dk[nd][e];
+      part[32 * HD + (4 * nd + e) * 32 + lane] = dv[nd][e];
+    }
+  }
+  __syncthreads();
+  if (warp > 0) return;
+  for (int w = 1; w < WARPS; ++w) {
+    const float* theirs = stages + w * 2 * 32 * HD;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk[nd][e] += theirs[(4 * nd + e) * 32 + lane];
+        dv[nd][e] += theirs[32 * HD + (4 * nd + e) * 32 + lane];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + g + 8 * r;
+    if (key < a.Sk) {
+      float* dkp = a.dk + b * a.sdk.b + hk * a.sdk.h + (long long)key * a.sdk.s;
+      float* dvp = a.dv + b * a.sdv.b + hk * a.sdv.h + (long long)key * a.sdv.s;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          dkp[(8 * nd + 2 * t + j) * a.sdk.d] = dk[nd][2 * r + j];
+          dvp[(8 * nd + 2 * t + j) * a.sdv.d] = dv[nd][2 * r + j];
+        }
+      }
+    }
+  }
+}
+
+// One launch: blocks [0, n_kv) are dk/dv blocks, the rest dq blocks.
+// Neither kind reads what the other writes, so they need no order.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_tf32(const Args a, int n_kv) {
+  extern __shared__ __align__(16) float smem[];
+  if ((int)blockIdx.x < n_kv)
+    dkdv_block<HD, CAP>(a, smem, blockIdx.x);
+  else
+    dq_block<HD, CAP>(a, smem, blockIdx.x - n_kv);
+}
+
+template <int HD, bool CAP>
+int launch(const Args& a, cudaStream_t stream) {
+  using C = Cfg<HD>;
   static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem(smem_set, bwd_dq<T, HD, CAP>, smem_dq<HD>(),
-                               bwd_dkdv<T, HD, CAP>, smem_dkdv<HD>());
+  const cudaError_t err =
+      allow_smem(smem_set, flash_bwd_tf32<HD, CAP>, C::SMEM, flash_bwd_tf32<HD, CAP>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq<T, HD, CAP>
-      <<<dim3(B * a.H, (a.Sq + BR - 1) / BR), THREADS, smem_dq<HD>(), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv<T, HD, CAP>
-      <<<dim3(B * (a.H / a.G), (a.Sk + BR - 1) / BR), THREADS, smem_dkdv<HD>(), stream>>>(a);
+  const long long n_kv = (long long)a.B * (a.H / a.G) * ((a.Sk + BKV - 1) / BKV);
+  const long long n_dq = (long long)a.B * a.H * ((a.Sq + BQ - 1) / BQ);
+  if (n_kv + n_dq > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_tf32<HD, CAP><<<(unsigned)(n_kv + n_dq), THREADS, C::SMEM, stream>>>(a, (int)n_kv);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <bool CAP>
+int run(const Args& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<32, CAP>(a, stream);
+    case 64:
+      return launch<64, CAP>(a, stream);
+    case 128:
+      return launch<128, CAP>(a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -1123,28 +1285,6 @@ int run(const void* q, const void* k, const void* v, const void* o, const void* 
 
 }  // namespace tc
 
-template <typename T, bool CAP>
-int run(const Args& a, const void* o, Strides so, float* delta, int B, int hd,
-        cudaStream_t stream) {
-  const long long rows = (long long)B * a.H * a.Sq;
-  const long long blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
-  bwd_delta<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(a.dout), delta, a.H, a.Sq, hd, rows, so,
-      a.sdo);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (hd) {
-    case 32:
-      return launch<T, 32, CAP>(a, B, stream);
-    case 64:
-      return launch<T, 64, CAP>(a, B, stream);
-    case 128:
-      return launch<T, 128, CAP>(a, B, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // the bf16 kernels at head dim hd, capped or not
 template <bool CAP>
 int run_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -1172,13 +1312,14 @@ int run_tc(const void* q, const void* k, const void* v, const void* o, const voi
 // (B, H / G, Sk, hd), given its output o, the output's gradient dout (both
 // (B, H, Sq, hd)) and the forward's log-sum-exp rows `lse`, a contiguous
 // (B, H, Sq) float32 buffer; `scratch` is a float32 buffer of 2 B H Sq_pad
-// values, Sq_pad = Sq rounded up to a multiple of 128, 16-byte aligned.
+// values, Sq_pad = Sq rounded up to a multiple of 128, 16-byte aligned, in
+// bfloat16 (float32 takes none: nullptr).
 // `strides` holds 32 element strides: (b, h, s, d) of q, k, v, o, dout, dq,
 // dk and dv in turn.  dtype: 0 = float32 (any strides), 1 = bfloat16 (all
 // eight tensors; q, k, v and dout with d stride 1, the other strides and
 // the pointers 16-byte aligned; dq, dk and dv with d stride 1 and even
-// strides); hd in {32, 64, 128}; 0 <= kv_len <= Sk; (Sq + 63) / 64 and
-// (Sk + 63) / 64 below 65536.  `scale` and `cap` are the forward's (cap <= 0:
+// strides); hd in {32, 64, 128}; 0 <= kv_len <= Sk; in bfloat16 (Sq + 127)
+// / 128 and (Sk + 127) / 128 below 65536.  `scale` and `cap` are the forward's (cap <= 0:
 // no cap).  Launches on `stream` and returns a cudaError_t (0 when every
 // launch was accepted).
 extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -1196,31 +1337,45 @@ extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k
                                   hd, kv_len, causal, scale, 0.0f, st, s);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto strides = [&](int i) { return Strides{st[4 * i], st[4 * i + 1], st[4 * i + 2], st[4 * i + 3]}; };
-  const Args a{q,          k,          v,          dout,       lse,        scratch,
-               dq,         dk,         dv,         H,          G,          Sq,
-               Sk,         kv_len,     causal,     scale,      capped ? cap : 0.0f,
-               strides(0), strides(1), strides(2), strides(4), strides(5), strides(6),
-               strides(7)};
-  return capped ? run<float, true>(a, o, strides(3), scratch, B, hd, s)
-                : run<float, false>(a, o, strides(3), scratch, B, hd, s);
+  auto strides = [&](int i) {
+    return Strides{st[4 * i], st[4 * i + 1], st[4 * i + 2], st[4 * i + 3]};
+  };
+  const void* in[5] = {q, k, v, o, dout};
+  int vec = 0;
+  for (int i = 0; i < 5; ++i) vec |= int(tf32::vec_ok(in[i], st + 4 * i)) << i;
+  const f32::Args a{static_cast<const float*>(q),    static_cast<const float*>(k),
+                    static_cast<const float*>(v),    static_cast<const float*>(o),
+                    static_cast<const float*>(dout), lse,
+                    static_cast<float*>(dq),         static_cast<float*>(dk),
+                    static_cast<float*>(dv),         B,
+                    H,                               G,
+                    Sq,                              Sk,
+                    kv_len,                          causal,
+                    vec,                             scale,
+                    capped ? cap : 0.0f,             strides(0),
+                    strides(1),                      strides(2),
+                    strides(3),                      strides(4),
+                    strides(5),                      strides(6),
+                    strides(7)};
+  return capped ? f32::run<true>(a, hd, s) : f32::run<false>(a, hd, s);
 }
 
 // bytes of dynamic shared memory a block of the dq (which 0) or the dk/dv
 // (which 1) kernel of dtype 0 (float32) or 1 (bfloat16) takes at head dim hd
-// (-1 for a head dim that is not built)
+// (-1 for a head dim that is not built); float32 has one kernel, whose
+// blocks are of both kinds
 extern "C" int repro_flash_attention_bwd_smem(int dtype, int which, int hd) {
   const bool tc = dtype == 1;
   switch (hd) {
     case 32:
       return tc ? (which == 0 ? tc::Cfg<32>::SMEM_DQ : tc::Cfg<32>::SMEM_DKDV)
-                : (which == 0 ? smem_dq<32>() : smem_dkdv<32>());
+                : f32::Cfg<32>::SMEM;
     case 64:
       return tc ? (which == 0 ? tc::Cfg<64>::SMEM_DQ : tc::Cfg<64>::SMEM_DKDV)
-                : (which == 0 ? smem_dq<64>() : smem_dkdv<64>());
+                : f32::Cfg<64>::SMEM;
     case 128:
       return tc ? (which == 0 ? tc::Cfg<128>::SMEM_DQ : tc::Cfg<128>::SMEM_DKDV)
-                : (which == 0 ? smem_dq<128>() : smem_dkdv<128>());
+                : f32::Cfg<128>::SMEM;
     default:
       return -1;
   }

@@ -16,7 +16,11 @@ by path:
 * ``tma``: bf16 read in place by TMA, which takes a layout only when the
   last dimension is contiguous and every other stride and each base address
   is a multiple of 16 bytes (the model's views are);
-* ``fp32``: f32 read in place through any strides;
+* ``fp32``: f32 on the tensor cores as 3xTF32 (each operand split into two
+  TF32 parts, three products summed in f32), read in place through any
+  strides: 16-byte ``cp.async`` copies where the last dimension is
+  contiguous and the other strides and the base are 16-byte multiples,
+  4-byte ones otherwise;
 * ``copy``: a bf16 tensor TMA cannot address, copied first into the model's
   ``(B, S, heads, hd)`` layout;
 * ``pad``: a head dim that is not built, zero-padded up to the next built
@@ -48,7 +52,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # built, for both dtypes; smaller head dims are padded
 PATHS = ("tma", "fp32", "copy", "pad")
 _INT_MAX = 2**31 - 1
-_BQ = 128  # query rows per block; blocks per (batch, head) stay below 2**16
+# query rows per block, by dtype; blocks per (batch, head) stay below 2**16
+_BQ = {torch.float32: 32, torch.bfloat16: 128}
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
 
 
@@ -118,9 +123,10 @@ def _launch(q, k, v, causal, kv_len, cap, want_lse: bool):
         raise ValueError(f"flash_attention kernel: k, v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)} (KV heads must divide query heads)")
     built = built_head_dim(hd)
-    if Sk == 0 or max(B * H, Sq, Sk) > _INT_MAX or -(-Sq // _BQ) >= 2**16:
+    bq = _BQ[q.dtype]
+    if Sk == 0 or max(B * H, Sq, Sk) > _INT_MAX or -(-Sq // bq) >= 2**16:
         raise ValueError(f"flash_attention kernel needs 0 < Sk, int32 sizes and "
-                         f"Sq < {_BQ * (2**16 - 1)}: {(B, H, Sq, Sk)}")
+                         f"Sq < {bq * (2**16 - 1)}: {(B, H, Sq, Sk)}")
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
     out = torch.empty((B, Sq, H, built), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if want_lse

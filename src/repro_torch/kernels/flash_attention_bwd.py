@@ -19,8 +19,11 @@ it is decided from the dtype, the head dim and the layout alone
   which takes a layout only when the last dimension is contiguous and every
   other stride and each base address is a multiple of 16 bytes (the model's
   views are); o is read through its strides;
-* ``fp32``: f32 on the CUDA cores, every tensor read in place through any
-  strides;
+* ``fp32``: f32 on the tensor cores as 3xTF32 (each operand split into two
+  TF32 parts, three products summed in f32), every tensor read in place
+  through any strides: 16-byte ``cp.async`` copies where the last dimension
+  is contiguous and the other strides and the base are 16-byte multiples,
+  4-byte ones otherwise;
 * ``copy``: a bf16 q, k, v or dout that TMA cannot address, copied first
   into the model's ``(B, S, heads, hd)`` layout;
 * ``pad``: q, k, v, o and dout zero-padded up to the next built head dim
@@ -47,7 +50,7 @@ from .layout import copy_bshd
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = ("tma", "fp32", "copy", "pad")
 _INT_MAX = 2**31 - 1
-_BLOCK = 64  # the f32 kernels' query rows and keys per block (bf16's: 128)
+_BLOCK = 128  # the bf16 kernels' query rows and keys a block: a grid dimension each
 _PAD_ROWS = 128  # the bf16 kernels' LSE and delta rows are padded to a multiple of this
 
 
@@ -105,10 +108,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         dv.zero_()
         return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     lib = _build.library()
-    # the f32 kernels' delta rows, or the bf16 kernels' lse log2(e) and delta
-    # rows padded to a multiple of _PAD_ROWS
-    scratch = torch.empty(2 * B * H * -(-Sq // _PAD_ROWS) * _PAD_ROWS, dtype=torch.float32,
-                          device=q.device)
+    # the bf16 kernels' lse log2(e) and delta rows padded to a multiple of
+    # _PAD_ROWS; the f32 kernel forms delta in its blocks and takes none
+    scratch = (torch.empty(2 * B * H * -(-Sq // _PAD_ROWS) * _PAD_ROWS, dtype=torch.float32,
+                           device=q.device) if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         path, (q, k, v, o, dout) = prepare(q, k, v, o, dout)
         strides = (ctypes.c_longlong * 32)(*q.stride(), *k.stride(), *v.stride(), *o.stride(),
@@ -117,7 +120,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd),
             float(cap), strides, stream)
     _build.check(err, f"flash_attention_bwd ({path})")

@@ -210,7 +210,7 @@ def test_build_digest_covers_the_included_headers(tmp_path, monkeypatch):
     compiled on their own, so only the digest sees them."""
     from repro_torch.kernels import _build
 
-    assert [p.name for p in _build.headers()] == ["hopper.cuh"]
+    assert [p.name for p in _build.headers()] == ["attention_tf32.cuh", "hopper.cuh"]
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     src = tmp_path / "k.cu"
     src.write_text('#include "k.cuh"\n')
