@@ -164,9 +164,14 @@ prints no result):
    in f32 at batch 2 x 128 on the card and on
    the CPU from the same parameters (loss, ``grad_norm``, updated
    parameters and moments; rwkv6-3b's card step 4 K4 and 2 K4b launches);
-   ``[train]``, granite-3-2b and then rwkv6-3b at full width and depth (f32
+   ``[train]``, first granite-3-2b and rwkv6-3b cut to 2 full-width layers,
+   3 steps of 2 x 2048 through ``make_train_step(cfg, make_host_mesh())``
+   and through the mesh-free step from the same weights and batches, the
+   losses and ``grad_norm``s bit-equal; then granite-3-2b and rwkv6-3b at
+   full width and depth (f32
    parameters and AdamW state, bf16 activations, remat), 6 steps of 8 x
-   2048 synthetic tokens each through ``launch.train.train``, then the
+   2048 synthetic tokens each through ``launch.train.train`` on the host
+   mesh (the trainer's default), then the
    capped granite-3-2b for 3 steps, the counters
    set to 0 just before: granite's K3 80 and K3b 40 launches a step, all on
    ``tma`` (the capped granite's on the capped kernels), rwkv6's K4 64 on
@@ -175,7 +180,17 @@ prints no result):
    memory, and one step under ``torch.profiler`` with the kernels' share;
    ``[train-restart]``, 2 full-width layers, a failure injected at step 7
    and a restart from the step-5 checkpoint, the losses after it against
-   an uninterrupted run's; ``[train-cli]``, ``python -m
+   an uninterrupted run's; ``[train-tp]``, the sharded step on a (data 1,
+   model 2) mesh of two spawned processes sharing ``cuda:0`` over gloo:
+   granite-3-2b at full width cut to 8 layers, batch 2 x 2048, 3 steps in
+   Megatron TP, TP with sequence parallelism and FSDP, and rwkv6-3b cut to
+   4 layers in TP, each rank's loss and ``grad_norm`` at every step within
+   2e-4 and 1e-3 relative of a one-process run on the same weights and
+   batch, and the AdamW moments of its small leaves (the norm scales)
+   within 3e-2 in norm after the last, K3 and K3b on ``tma`` over the rank's 16 of 32 query and 4 of 8
+   key/value heads (all of them under FSDP), K4 on ``ring`` and K4b on
+   ``direct`` over its 20 of 40 heads, each run's ms a step (two processes
+   taking turns on one card); ``[train-cli]``, ``python -m
    repro_torch.launch.train --arch granite_3_2b --smoke --steps 4`` and the
    same with ``--arch rwkv6_3b``, which must exit 0;
 16. ``[examples]``: the five ``examples/*_torch.py`` twins' ``main`` in
@@ -1960,7 +1975,7 @@ def train_vs_cpu(arch: str, dev) -> None:
     cfg = dataclasses.replace(full, n_layers=2, activation_dtype="float32",
                               n_encoder_layers=2 if full.enc_dec else 0,
                               **split_variant(arch, cut=True)[1])
-    step, p_specs, o_specs, _ = make_train_step(cfg)
+    step, p_specs, o_specs, _ = make_train_step(cfg, None)
     params = init_params(p_specs, torch.Generator().manual_seed(0))
     if cfg.attn_logit_softcap:
         sharpen_attention(params, CUT_QK_GAIN)
@@ -2000,7 +2015,7 @@ def train_vs_cpu(arch: str, dev) -> None:
         raise AssertionError(f"[train-vs-cpu] {cfg.name}: step {int(o_card['step'])}")
     moved = ""
     if uncapped is not None:
-        free_step = make_train_step(dataclasses.replace(cfg, attn_logit_softcap=0.0))[0]
+        free_step = make_train_step(dataclasses.replace(cfg, attn_logit_softcap=0.0), None)[0]
         _, o_free, m_free = free_step(*uncapped)
         want = [mv["m"] for mv in _mv(o_cpu["moments"])]
         scale = max(w.abs().max().item() for w in want)
@@ -2055,6 +2070,7 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
 
     from repro_torch.data.pipeline import DataConfig, batches
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models.params import count_params, init_params, tree_leaves
@@ -2068,8 +2084,8 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        params, opt, losses = train(cfg, steps=steps, global_batch=B, seq_len=S,
-                                    log_every=1, seed=0, device=dev)
+        params, opt, losses = train(cfg, make_host_mesh(), steps=steps, global_batch=B,
+                                    seq_len=S, log_every=1, seed=0, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -2088,7 +2104,7 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
     if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
             or not losses[-1] < losses[0]):
         raise AssertionError(f"[train] {cfg.name}: losses {losses}, not finite and falling")
-    init = init_params(make_train_step(cfg)[1], torch.Generator(device=dev).manual_seed(0))
+    init = init_params(make_train_step(cfg, None)[1], torch.Generator(device=dev).manual_seed(0))
     still = [tuple(a.shape) for a, b in zip(tree_leaves(params), tree_leaves(init))
              if torch.equal(a, b)]
     del init
@@ -2096,7 +2112,7 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
         raise AssertionError(f"[train] {cfg.name}: parameters that did not move: {still}")
     tokens = B * S
     steady = statistics.median(step_ms[1:])
-    n_params = count_params(make_train_step(cfg)[1])
+    n_params = count_params(make_train_step(cfg, None)[1])
     ratio = 6 * n_params * tokens / (steady / 1e3) / 989e12
     # the kernels of this model's mixer: (forward, backward) as named in the JSON line
     fwd, bwd = ("wkv6", "wkv6_bwd") if want["wkv6"][1] else ("flash_attention",
@@ -2115,7 +2131,7 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
           f"{capped[bwd]}; {smi}")
 
     # one more step under the profiler: the device's busy share and top kernels
-    step, *_ = make_train_step(cfg)
+    step, *_ = make_train_step(cfg, None)
     it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev,
                  start_step=steps)
     batch_ = next(it)
@@ -2139,6 +2155,285 @@ def train_full(arch: str, batch: tuple[int, int], steps: int, dev, smi: str) -> 
     return {"counts": counts, "capped": capped, "step_ms": steady}
 
 
+def host_mesh_equal(arch: str, dev, smi: str, layers: int = 2, steps: int = 3,
+                    batch: tuple[int, int] = (2, 2048)) -> None:
+    """``[train] ... host mesh``: ``arch`` at full width cut to ``layers``
+    layers, ``steps`` steps of ``make_train_step(cfg, make_host_mesh())`` and
+    of ``make_train_step(cfg, None)`` from the same weights on the same
+    batches: the losses and ``grad_norm``s must be bit-equal (the host
+    mesh's collectives are the identity, and it takes the one-device
+    code).  Both run under ``torch.use_deterministic_algorithms`` (warnings
+    only), so that the embedding's index backward, which adds with atomics,
+    sums in one order."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    B, S = batch
+    seen = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mesh in (None, make_host_mesh()):
+            step, p_specs, o_specs, _ = make_train_step(cfg, mesh)
+            params = init_params(p_specs, torch.Generator(device=dev).manual_seed(0))
+            opt = init_params(o_specs, torch.Generator(device=dev).manual_seed(0))
+            it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev)
+            try:
+                got = []
+                for _ in range(steps):
+                    params, opt, m = step(params, opt, next(it))
+                    got.append((m["loss"].item(), m["grad_norm"].item()))
+            finally:
+                it.close()
+            seen.append(got)
+            del params, opt
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if seen[0] != seen[1]:
+        raise AssertionError(f"[train] {cfg.name} host mesh {seen[1]} != no mesh {seen[0]}")
+    print(f"[train] {cfg.name} cut to {layers} full-width layers, {steps} steps of {B} x {S}: "
+          f"(loss, grad_norm) through make_host_mesh() {seen[1]} bit-equal to the mesh-free "
+          f"step's; {smi}")
+
+
+# [train-tp]: (arch, label, DistConfig fields) run by two ranks on one card
+TRAIN_TP_RUNS = (("granite_3_2b", "tp", {}), ("granite_3_2b", "tp+sp", {"seq_parallel": True}),
+                 ("granite_3_2b", "fsdp", {"sharding_mode": "fsdp"}), ("rwkv6_3b", "tp", {}))
+TRAIN_TP_LAYERS = {"granite_3_2b": 8, "rwkv6_3b": 4}
+TRAIN_TP_BATCH = (2, 2048)
+TRAIN_TP_STEPS = 3
+TRAIN_TP_TIMEOUT_S = 420
+# AdamW moments held whole against one process's: every leaf of at most
+# this many elements (the norm scales, RWKV-6's mixing and decay vectors),
+# the leaves a gradient left partial over "model" would show in
+TRAIN_TP_SMALL = 1 << 20
+# relative limits of [train-tp] (loss, grad_norm, a moment leaf's norm),
+# 2-5x the largest gaps read on an H100 (3.96e-5, 2.63e-4, 1.30e-2: bf16
+# activations summed in another order; two runs gave the same bits)
+TRAIN_TP_TOL = (2e-4, 1e-3, 3e-2)
+
+
+def _train_tp_cfg(arch: str):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=TRAIN_TP_LAYERS[arch])
+
+
+def _train_tp_batch(cfg, dev) -> dict:
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S = TRAIN_TP_BATCH
+    return {k: torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev, dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def _train_tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of ``[train-tp]``'s two ranks, both on ``cuda:0``, over gloo: each
+    run of :data:`TRAIN_TP_RUNS` from the whole weights drawn on the card
+    (the parent's), cut into this rank's blocks, ``TRAIN_TP_STEPS`` steps on
+    one batch; writes its losses, ``grad_norm``s, step ms, launches by path
+    and the head counts K3 and K4 saw."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import DistConfig, make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.parallel.sharding import gather, shard_tree, tree_shardings
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        heads: set = set()
+        attention, wkv6 = L.attention, ops.wkv6
+
+        def seen_attention(q, k, v, **kw):
+            heads.add(("K3", q.shape[2], k.shape[2]))
+            return attention(q, k, v, **kw)
+
+        def seen_wkv6(r, *a, **kw):
+            heads.add(("K4", r.shape[1]))
+            return wkv6(r, *a, **kw)
+
+        L.attention, ops.wkv6 = seen_attention, seen_wkv6
+        out = []
+        for arch, label, fields in TRAIN_TP_RUNS:
+            cfg = _train_tp_cfg(arch)
+            step, p_specs, o_specs, ctx = make_train_step(cfg, mesh, DistConfig(**fields))
+            params = shard_tree(init_params(p_specs, torch.Generator(device=dev).manual_seed(0)),
+                                tree_shardings(p_specs, mesh, ctx.rules))
+            o_sh = tree_shardings(o_specs, mesh, ctx.rules)
+            opt = shard_tree(init_params(o_specs, torch.Generator(device=dev).manual_seed(0)),
+                             o_sh)
+            torch.cuda.empty_cache()
+            batch = _train_tp_batch(cfg, dev)
+            _reset_counts()
+            heads.clear()
+            metrics, ms = [], []
+            for _ in range(TRAIN_TP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            with torch.no_grad():
+                small = [gather(x, sh.spec, mesh).float().cpu().numpy()
+                         for s, x, sh in zip(tree_leaves(o_specs["moments"]),
+                                             tree_leaves(opt["moments"]),
+                                             tree_leaves(o_sh["moments"]))
+                         if math.prod(s.shape) <= TRAIN_TP_SMALL]
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"moments{len(out)}.npz"), *small)
+            out.append({"arch": arch, "label": label, "metrics": metrics, "ms": ms,
+                        "counts": {k: dict(ops.KERNELS[k].launches_by_path)
+                                   for k in TRAIN_KERNELS},
+                        "heads": sorted(heads),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del params, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_tp(dev, smi: str) -> None:
+    """``[train-tp]``: the sharded train step on a (data 1, model 2) mesh of
+    two spawned processes, both on ``cuda:0``, over gloo (NCCL refuses two
+    ranks on one device): granite-3-2b at full width cut to 8 layers (bf16
+    activations, f32 parameters and AdamW state), batch 2 x 2048, 3 steps,
+    in Megatron TP, TP with sequence parallelism and FSDP; rwkv6-3b at full
+    width cut to 4 layers in TP.  First the one-process unsharded step
+    (``make_train_step(cfg, None)``) on the card from the same weights (the
+    model axis' padded vocabulary) and batch, 3 steps.  At every step each
+    rank's loss and ``grad_norm`` must be within :data:`TRAIN_TP_TOL` of
+    it, and after the last the AdamW moments of every leaf of at most
+    :data:`TRAIN_TP_SMALL` elements, gathered, within its third entry of
+    the leaf's norm (in norm); every K3 and K3b launch on ``tma`` over the rank's
+    16 query and 4 key/value heads (2 x 8 and 8 a step), every K4 launch on
+    ``ring`` and K4b on ``direct`` over its 20 heads (2 x 4 and 4 a step);
+    under FSDP (the reference's ``FSDP_RULES`` shard no heads) each rank's
+    K3 and K3b run on all 32 and 8.  The step times are two processes
+    taking turns on one card, not a multi-GPU time."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.optim import adamw
+
+    want = {}
+    for arch in TRAIN_TP_LAYERS:
+        cfg = _train_tp_cfg(arch)
+        step = make_train_step(cfg, None)[0]
+        params = init_params(T.model_param_specs(cfg, tp=2),
+                             torch.Generator(device=dev).manual_seed(0))
+        opt = adamw.init_state(params, adamw.AdamWConfig())
+        batch = _train_tp_batch(cfg, dev)
+        metrics = []
+        for _ in range(TRAIN_TP_STEPS):
+            params, opt, m = step(params, opt, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        small = [x.float().cpu().numpy() for x in tree_leaves(opt["moments"])
+                 if x.numel() <= TRAIN_TP_SMALL]
+        want[arch] = (metrics, small)
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="train_tp_")
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_train_tp_rank, args=(r, os.path.join(tmp, "store"), tmp))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TRAIN_TP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join(10)
+        if hung or [p.exitcode for p in procs] != [0, 0]:
+            raise AssertionError(f"[train-tp] ranks exited {[p.exitcode for p in procs]}"
+                                 f"{', hung' if hung else ''}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        moments = []
+        for i in range(len(TRAIN_TP_RUNS)):
+            with np.load(os.path.join(tmp, f"moments{i}.npz")) as z:
+                moments.append([z[f"arr_{j}"] for j in range(len(z.files))])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tol_loss, tol_gn, tol_mom = TRAIN_TP_TOL
+    for i, (arch, label, _) in enumerate(TRAIN_TP_RUNS):
+        cfg = _train_tp_cfg(arch)
+        runs = [rk[i] for rk in ranks]
+        want_metrics, want_small = want[arch]
+        n = cfg.n_layers * TRAIN_TP_STEPS
+        if arch == "rwkv6_3b":
+            expect = {"wkv6": {"ring": 2 * n}, "wkv6_bwd": {"direct": n}}
+            heads = [["K4", cfg.rwkv_n_heads // 2]]
+        else:
+            expect = {"flash_attention": {"tma": 2 * n}, "flash_attention_bwd": {"tma": n}}
+            split = 1 if label == "fsdp" else 2
+            heads = [["K3", cfg.n_heads // split, cfg.n_kv_heads // split]]
+        gap_loss = gap_gn = 0.0
+        for r, run in enumerate(runs):
+            counts = {k: {p: c for p, c in by.items() if c} for k, by in run["counts"].items()
+                      if any(by.values())}
+            if counts != expect or run["heads"] != heads:
+                raise AssertionError(f"[train-tp] {cfg.name} {label} rank {r}: launched {counts}, "
+                                     f"want {expect}; heads {run['heads']}, want {heads}")
+            for (l_r, g_r), (l_w, g_w) in zip(run["metrics"], want_metrics, strict=True):
+                gap_loss = max(gap_loss, abs(l_r - l_w) / abs(l_w))
+                gap_gn = max(gap_gn, abs(g_r - g_w) / abs(g_w))
+        if not (gap_loss <= tol_loss and gap_gn <= tol_gn):
+            raise AssertionError(f"[train-tp] {cfg.name} {label}: (loss, grad_norm) "
+                                 f"{[rn['metrics'] for rn in runs]}; one process {want_metrics}")
+        got_small = moments[i]
+        if [g.shape for g in got_small] != [w.shape for w in want_small]:
+            raise AssertionError(f"[train-tp] {cfg.name} {label}: moments' shapes "
+                                 f"{[g.shape for g in got_small]} vs {[w.shape for w in want_small]}")
+        gap_mom = max(float(np.linalg.norm(g - w)) / max(float(np.linalg.norm(w)), 1e-30)
+                      for g, w in zip(got_small, want_small))
+        if not gap_mom <= tol_mom:
+            raise AssertionError(f"[train-tp] {cfg.name} {label}: moments {gap_mom:.3e} of a "
+                                 f"leaf's norm from one process's (limit {tol_mom})")
+        print(f"[train-tp] {cfg.name} cut to {cfg.n_layers} layers, full width, {label} on a "
+              f"(data 1, model 2) mesh of 2 processes on one card over gloo, bf16 activations, "
+              f"batch {TRAIN_TP_BATCH[0]} x {TRAIN_TP_BATCH[1]}: (loss, grad_norm) rank 0 "
+              f"{runs[0]['metrics']} vs one process {want_metrics}; largest relative gaps over "
+              f"{TRAIN_TP_STEPS} steps and both ranks: loss {gap_loss:.3e}, grad_norm "
+              f"{gap_gn:.3e}; the {len(want_small)} AdamW moments of at most {TRAIN_TP_SMALL} "
+              f"elements {gap_mom:.3e} of a leaf's norm (limits {tol_loss:g}, {tol_gn:g}, "
+              f"{tol_mom:g}); launches a rank {expect} over heads {heads[0][1:]}; ms/step rank 0 "
+              f"{[round(x) for x in runs[0]['ms']]} rank 1 {[round(x) for x in runs[1]['ms']]} "
+              f"(two processes taking turns on one card, not a multi-GPU time); peak "
+              f"{max(rn['peak_gb'] for rn in runs):.1f} GB a process; {smi}")
+    print(f"[train-tp] both ranks in {wall:.1f} s (spawn, imports and every run)")
+
+
 def train_restart(dev) -> None:
     """``[train-restart]``: granite-3-2b cut to 2 full-width layers, batch 2 x
     256, 12 steps with a checkpoint every 5 and a failure injected before
@@ -2154,6 +2449,7 @@ def train_restart(dev) -> None:
     import tempfile
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models.params import count_params, tree_leaves
@@ -2161,7 +2457,7 @@ def train_restart(dev) -> None:
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
     tmp = tempfile.mkdtemp(prefix="train_restart_")
     try:
-        state_gb = 3 * 4 * count_params(make_train_step(cfg)[1]) / 1e9  # params, m, v
+        state_gb = 3 * 4 * count_params(make_train_step(cfg, None)[1]) / 1e9  # params, m, v
         free_gb = shutil.disk_usage(tmp).free / 1e9
         which = f"2 full-width layers ({state_gb:.1f} GB a checkpoint)"
         if free_gb < 4 * state_gb:
@@ -2169,15 +2465,16 @@ def train_restart(dev) -> None:
             which = (f"the reduced config: {free_gb:.1f} GB free under the temporary "
                      f"directory, below 4 checkpoints of the 2-layer cut")
         kw = dict(steps=12, global_batch=2, seq_len=256, log_every=1, seed=0, device=dev)
+        mesh = make_host_mesh()
         with contextlib.redirect_stdout(io.StringIO()):
-            p_ref, _, want = train(cfg, **kw)
+            p_ref, _, want = train(cfg, mesh, **kw)
             try:
-                train(cfg, ckpt_dir=tmp, ckpt_every=5, fail_at=7, **kw)
+                train(cfg, mesh, ckpt_dir=tmp, ckpt_every=5, fail_at=7, **kw)
                 raise AssertionError("[train-restart] the injected failure did not raise")
             except RuntimeError as e:
                 if "injected failure at step 7" not in str(e):
                     raise
-            p, o, got = train(cfg, ckpt_dir=tmp, ckpt_every=5, **kw)
+            p, o, got = train(cfg, mesh, ckpt_dir=tmp, ckpt_every=5, **kw)
         if int(o["step"]) != 12 or len(got) != 7:
             raise AssertionError(f"[train-restart] step {int(o['step'])}, losses {got}")
         rel = max(abs(a - b) / abs(b) for a, b in zip(got, want[5:]))
@@ -2522,7 +2819,7 @@ def profile_lm_step(cfg, dev, smi: str, batch: tuple[int, int] = (4, 128), warm:
     from repro_torch.models.params import init_params
 
     B, S = batch
-    step, p_specs, o_specs, _ = make_train_step(cfg, DistConfig(remat=False))
+    step, p_specs, o_specs, _ = make_train_step(cfg, None, DistConfig(remat=False))
     params = init_params(p_specs, torch.Generator(device=dev).manual_seed(0))
     opt = init_params(o_specs, torch.Generator(device=dev).manual_seed(0))
     it = batches(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab), dev)
@@ -3080,6 +3377,8 @@ def main() -> int:
     for k in ("flash_attention_bwd", "wkv6_bwd"):  # their main path is training's
         launches[k] = 0
         by_path[k] = dict.fromkeys(ops.KERNELS[k].launches_by_path, 0)
+    for arch in ("granite_3_2b", "rwkv6_3b"):
+        host_mesh_equal(arch, dev, smi)
     for arch, batch, steps in TRAIN_RUNS:
         run = train_full(arch, batch, steps, dev, smi)
         for k, counts in run["counts"].items():
@@ -3094,6 +3393,8 @@ def main() -> int:
     train_restart(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    train_tp(dev, smi)
+    mark("train-tp")
     train_cli()
     mark("train-cli")
 

@@ -3,8 +3,8 @@
 hundred steps on one device, with checkpointing + restart.  On the card
 each attention layer's forward is the CUDA flash-attention kernel and its
 backward the CUDA flash-attention backward, on their f32 paths (the plain
-versions with ``--device cpu``).  The reference's one-device mesh is not
-taken: the port's trainer runs on one device.
+versions with ``--device cpu``).  It trains on the host mesh, one process,
+as the reference does.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py [--steps 300] [--device cpu]
 
@@ -20,6 +20,7 @@ import tempfile
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import default_device
 from repro_torch.launch.steps import DistConfig
 from repro_torch.launch.train import train
@@ -45,7 +46,7 @@ def main(argv=None):
                     help="cuda (the default) or cpu, where the kernels' plain versions run")
     args = ap.parse_args(argv)
     _, _, losses = train(
-        CFG, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
+        CFG, make_host_mesh(), steps=args.steps, global_batch=args.batch, seq_len=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=100, log_every=20,
         dist=DistConfig(remat=False),
         device=default_device(None if args.device == "cuda" else "cpu"))

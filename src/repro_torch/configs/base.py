@@ -167,3 +167,22 @@ class ModelConfig:
             activation_dtype="float32",
             fsdp=False,
         )
+
+
+def pad_for_tp(cfg: "ModelConfig", tp: int) -> "ModelConfig":
+    """Pad head counts to the tensor-parallel degree — the standard
+    Megatron/vLLM scheme for TP > kv_heads (q heads rounded up, kv heads
+    rounded up as heads of their own).  tp=1 is the identity, so one device
+    sees the published geometry; a padded config is another model, whose
+    extra heads are drawn like the others."""
+    if tp <= 1:
+        return cfg
+    up = lambda n: ((n + tp - 1) // tp) * tp  # noqa: E731
+    H = up(cfg.n_heads)
+    K = H if cfg.n_kv_heads == cfg.n_heads else up(cfg.n_kv_heads)
+    rwkv_pad = up(cfg.rwkv_n_heads)
+    if (H, K, rwkv_pad) == (cfg.n_heads, cfg.n_kv_heads, cfg.rwkv_n_heads):
+        return cfg
+    # freeze head_dim before padding head counts (it may be derived from d)
+    return dataclasses.replace(cfg, head_dim=cfg.hd, n_heads=H, n_kv_heads=K,
+                               rwkv_heads_pad=rwkv_pad)

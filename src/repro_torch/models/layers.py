@@ -27,41 +27,69 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel import sharding as shd
 from .params import P
 
 NEG_INF = -1e30
 
 
+# logical axes whose blocks the model computes on where they lie (tensor,
+# expert and vocab parallelism); every other sharded dimension of a weight
+# is gathered before use (FSDP)
+LOCAL_AXES = frozenset({"heads", "kv_heads", "mlp", "rwkv_heads", "mamba_inner", "experts",
+                        "vocab"})
+
+
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Execution context: the activation dtype, the device mesh, the
-    decode and MoE strategies on it, and whether training rematerializes
-    each unit and each CE chunk (``remat``, the reference's
-    ``jax.checkpoint``; it changes no value).
+    """Execution context: the activation dtype, the device mesh and the
+    logical-axis rules on it, the decode and MoE strategies, and whether
+    training rematerializes each unit and each CE chunk (``remat``, the
+    reference's ``jax.checkpoint``; it changes no value).
 
     ``mesh`` is ``None`` on one device, or a
-    :class:`~repro_torch.launch.mesh.Mesh` with axes ("data", "model")
-    (``mesh.shape`` maps axis names to sizes), each process one rank of it.
-    Tensors go in and out of the model in SPMD form, each rank holding its
-    own block of what the reference's ``shard_map`` would see whole:
+    :class:`~repro_torch.launch.mesh.Mesh` (``mesh.shape`` maps axis names
+    to sizes), each process one rank of it.  Tensors go in and out of the
+    model in SPMD form, each rank holding its own blocks.
 
-    - activations are the rank's data block of the batch (over the data
-      axes that divide it, :func:`repro_torch.parallel.sharding.batch_block`),
-      replicated over "model" within it;
-    - parameters are whole on every rank;
+    With ``rules`` (the training path, :func:`repro_torch.launch.steps.
+    make_ctx`), every parameter is the rank's block under
+    :func:`repro_torch.parallel.sharding.spec_for` of its logical axes, and
+    the model computes as the reference's rule sets lay it out:
+
+    - activations are the rank's data block of the batch, replicated over
+      "model", or under sequence parallelism (``rules["seq"] == "model"``)
+      its slice of the sequence (:meth:`cs`);
+    - attention, MLA, the MLP, RWKV-6 and Mamba run on the rank's heads,
+      ``mlp`` or ``mamba_inner`` block (Megatron): the input is whole (under
+      sequence parallelism all-gathered over "model"), the row-parallel
+      output is summed over "model" (reduce-scattered over the sequence
+      under sequence parallelism);
+    - the embedding and the LM head are vocab-parallel;
+    - a weight's other sharded dimensions (FSDP's ``embed_fsdp``) are
+      all-gathered per layer before use (:meth:`gather_params`); expert
+      weights stay sharded, the expert-parallel MoE owns them.
+
+    Without ``rules`` (the serving paths of a mesh, until the sharded
+    serving steps move them onto ``DECODE_RULES``: ROADMAP item 9c)
+    parameters are whole on every rank and activations are the rank's data
+    block, replicated over "model":
+
     - the expert-parallel MoE (:func:`repro_torch.models.moe.moe_ep`,
       ``moe_ep_dedup``, chosen by :func:`~repro_torch.models.moe.moe_apply`
       when "model" is above 1 and the sequence at least as long) routes the
       rank's slice ``x[:, m S/tp:(m+1) S/tp]`` of its data block (rank m of
-      tp along "model", the reference's ``PS(bspec, "model")``) and
-      all-gathers the output over "model" before it returns;
+      tp along "model", the reference's ``PS(bspec, "model")``) over its
+      ``E/tp`` experts of the whole weights and all-gathers the output over
+      "model" before it returns (it does so with ``rules`` too, on the
+      rank's own expert block);
     - with ``decode_seqpar``, decode attention
       (:func:`decode_attn_seqpar`) holds each attention cache as the
       rank's ``(batch block, S/tp)`` shard
@@ -69,17 +97,78 @@ class Ctx:
       updated shard and the whole output of its batch block.
 
     ``moe_dedup`` sends a token once per destination rank, not once per
-    expert (the reference's field).  The reference's ``moe_dest_k`` is not
-    taken: no entry point builds a mesh yet (ROADMAP queue 1, item 9), and
-    the dedup path sizes its buffers by its default.  The reference's attention chunk sizes are not taken: they
-    pick one of two attention branches that compute the same function, and
-    the port sends both to one K3 call."""
+    expert, and ``moe_dest_k`` (the expected distinct destination ranks of
+    a token) sizes that path's buffers (the reference's fields).  The
+    reference's attention chunk sizes are not taken: they pick one of two
+    attention branches that compute the same function, and the port sends
+    both to one K3 call."""
 
     dtype: torch.dtype = torch.bfloat16
     mesh: Any = None
     decode_seqpar: bool = False        # shard each attention cache's sequence over "model"
     remat: bool = True
     moe_dedup: bool = False            # dedup EP dispatch (one send per shard)
+    rules: Mapping[str, object] | None = None
+    moe_dest_k: float | None = None    # expected distinct dest shards/token
+
+    @property
+    def sharded(self) -> bool:
+        """Parameters are blocks under ``rules`` on a mesh."""
+        return self.mesh is not None and self.rules is not None
+
+    @property
+    def tp(self) -> int:
+        """The size of the "model" axis (1 on one device)."""
+        return self.mesh.shape.get("model", 1) if self.mesh is not None else 1
+
+    @property
+    def seq_parallel(self) -> bool:
+        """Activations hold the rank's slice of the sequence over "model"."""
+        return self.sharded and self.tp > 1 and self.rules.get("seq") == "model"
+
+    def tp_sharded(self, name: str, size: int) -> bool:
+        """A dimension of logical axis ``name`` and ``size`` is split over
+        "model" (the rank computes on its block of it)."""
+        return (self.sharded and self.tp > 1
+                and shd.spec_for((name,), self.rules, self.mesh, (size,)) == ("model",))
+
+    def cs(self, x, *axes):
+        """``x`` (whole but for its batch block) to the layout ``axes``
+        have under the rules: the rank's block of each dimension they shard
+        (:func:`repro_torch.parallel.sharding.constraint`)."""
+        if not self.sharded or self.mesh.size == 1:
+            return x
+        return shd.constraint(x, axes, self.rules, self.mesh)
+
+    def gather_params(self, p, specs):
+        """The layer's weights ``p`` with every sharded dimension whose
+        logical axis is not computed on locally (:data:`LOCAL_AXES`: FSDP's
+        ``embed_fsdp``, over "model" and, for a config with ``fsdp``, over
+        "data") all-gathered; ``specs`` is the layer's :class:`P` tree.  The
+        gathers' backward reduce-scatters the gradients (ZeRO-3)."""
+        if not self.sharded or self.mesh.size == 1:
+            return p
+        if isinstance(p, dict):
+            return {k: self.gather_params(v, specs[k]) for k, v in p.items()}
+        spec = shd.spec_for(specs.axes, self.rules, self.mesh, specs.shape)
+        dims = [i for i, e in enumerate(spec) if e is not None and specs.axes[i] not in LOCAL_AXES]
+        return shd.gather(p, spec, self.mesh, dims) if dims else p
+
+    def seq_in(self, x):
+        """Into a tensor-parallel region: the whole sequence of ``x``
+        (all-gathered over "model" under sequence parallelism)."""
+        return self.mesh.all_gather(x, "model", 1) if self.seq_parallel else x
+
+    def seq_out(self, y, partial: bool):
+        """Out of a tensor-parallel region: ``y`` is the whole sequence,
+        ``partial`` when it is this rank's term of a sum over "model".
+        Returns the sum (reduce-scattered over the sequence under sequence
+        parallelism), or under sequence parallelism the rank's slice."""
+        if self.seq_parallel:
+            if partial:
+                return self.mesh.psum_scatter(y, "model", 1)
+            return shd.block(y, (None, "model"), self.mesh)
+        return self.mesh.psum(y, "model") if partial else y
 
 
 def _remat(ctx: Ctx) -> bool:
@@ -98,7 +187,7 @@ def _checkpoint(fn, *args):
 # ---------------------------------------------------------------------------
 
 def rmsnorm_params(d: int) -> dict:
-    return {"scale": P((d,), init="ones")}
+    return {"scale": P((d,), (None,), init="ones")}
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
@@ -135,16 +224,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def mlp_params(d: int, d_ff: int) -> dict:
     return {
-        "wi_gate": P((d, d_ff)),
-        "wi_up": P((d, d_ff)),
-        "wo": P((d_ff, d)),
+        "wi_gate": P((d, d_ff), ("embed_fsdp", "mlp")),
+        "wi_up": P((d, d_ff), ("embed_fsdp", "mlp")),
+        "wo": P((d_ff, d), ("mlp", "embed_fsdp")),
     }
 
 
-def mlp(p, x, ctx: Ctx):
+def mlp(p, x, ctx: Ctx, d_ff: int | None = None):
+    """SwiGLU.  ``d_ff``, the hidden width of the whole weights, says
+    whether ``p`` holds the rank's ``mlp`` block (column-parallel in,
+    row-parallel out, :meth:`Ctx.seq_out`); without it the weights are
+    whole."""
+    partial = d_ff is not None and ctx.tp_sharded("mlp", d_ff)
+    x = ctx.seq_in(x)
     h = x @ p["wi_gate"].to(x.dtype)
     u = x @ p["wi_up"].to(x.dtype)
-    return (F.silu(h) * u) @ p["wo"].to(x.dtype)
+    return ctx.seq_out((F.silu(h) * u) @ p["wo"].to(x.dtype), partial)
 
 
 # ---------------------------------------------------------------------------
@@ -170,15 +265,15 @@ def attention(q, k, v, *, causal: bool, logit_cap: float = 0.0):
 def attn_params(cfg) -> dict:
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
-        "wq": P((d, H, hd)),
-        "wk": P((d, K, hd)),
-        "wv": P((d, K, hd)),
-        "wo": P((H, hd, d)),
+        "wq": P((d, H, hd), ("embed_fsdp", "heads", "head_dim")),
+        "wk": P((d, K, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wv": P((d, K, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+        "wo": P((H, hd, d), ("heads", "head_dim", "embed_fsdp")),
     }
     if cfg.qkv_bias:
-        p["bq"] = P((H, hd), init="zeros")
-        p["bk"] = P((K, hd), init="zeros")
-        p["bv"] = P((K, hd), init="zeros")
+        p["bq"] = P((H, hd), ("heads", "head_dim"), init="zeros")
+        p["bk"] = P((K, hd), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = P((K, hd), ("kv_heads", "head_dim"), init="zeros")
     return p
 
 
@@ -205,14 +300,29 @@ def _qkv(p, x, cfg, ctx: Ctx):
     return q, k, v
 
 
+def _heads_sharded(cfg, ctx: Ctx) -> bool:
+    """The attention weights hold the rank's query and key/value heads
+    (both split over "model", or neither: ``pad_for_tp`` makes both
+    divide)."""
+    q = ctx.tp_sharded("heads", cfg.n_heads)
+    if q != ctx.tp_sharded("kv_heads", cfg.n_kv_heads):
+        raise ValueError(f"{cfg.n_heads} query and {cfg.n_kv_heads} key/value heads do not "
+                         f"both split over the model axis' {ctx.tp}")
+    return q
+
+
 def attn_block(p, x, cfg, ctx: Ctx, *, positions, causal=True):
-    """Full-sequence attention (prefill).  positions: (S,) or (B, S).
-    Returns (out, (k, v)) — the cache-ready keys/values."""
+    """Full-sequence attention (prefill, training).  positions: (S,) or
+    (B, S) over the whole sequence.  Returns (out, (k, v)) — the
+    cache-ready keys/values.  With the rank's heads (``rules``), K3 and K3b
+    see ``(B, S, H/tp, hd)`` and the GQA ratio ``H/K`` unchanged."""
+    sharded = _heads_sharded(cfg, ctx)
+    x = ctx.seq_in(x)
     q, k, v = _qkv(p, x, cfg, ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=causal, logit_cap=cfg.attn_logit_softcap)
-    return _out(o, p["wo"], x.dtype), (k, v)
+    return ctx.seq_out(_out(o, p["wo"], x.dtype), sharded), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +419,14 @@ def mla_params(cfg) -> dict:
     r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wq_a": P((d, r_q)),
+        "wq_a": P((d, r_q), ("embed_fsdp", "q_lora")),
         "q_norm": rmsnorm_params(r_q),
-        "wq_b": P((r_q, H, dn + dr)),
-        "wkv_a": P((d, r_kv + dr)),
+        "wq_b": P((r_q, H, dn + dr), ("q_lora", "heads", "head_dim")),
+        "wkv_a": P((d, r_kv + dr), ("embed_fsdp", "kv_lora")),
         "kv_norm": rmsnorm_params(r_kv),
-        "wk_b": P((r_kv, H, dn)),
-        "wv_b": P((r_kv, H, dv)),
-        "wo": P((H, dv, d)),
+        "wk_b": P((r_kv, H, dn), ("kv_lora", "heads", "head_dim")),
+        "wv_b": P((r_kv, H, dv), ("kv_lora", "heads", "head_dim")),
+        "wo": P((H, dv, d), ("heads", "head_dim", "embed_fsdp")),
     }
 
 
@@ -341,16 +451,19 @@ def mla_block(p, x, cfg, ctx: Ctx, *, positions):
     """Prefill MLA: K and V expanded from the latent, one K3 call at head dim
     ``qk_nope + qk_rope`` (v zero-padded up to it and the output cropped,
     as in the reference).  Returns (out, (latent, k_rope)) for caching."""
+    sharded = ctx.tp_sharded("heads", cfg.n_heads)
+    x = ctx.seq_in(x)
     B, S, _ = x.shape
-    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x, cfg, ctx, positions)
     latent, k_rope = _mla_latent(p, x, cfg, ctx, positions)
     k_nope = _proj(latent, p["wk_b"])
     v = _proj(latent, p["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
+    H = q.shape[2]                                  # the rank's heads
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
     o = attention(q, k, F.pad(v, (0, dn + dr - dv)), causal=True)[..., :dv]
-    return _out(o, p["wo"], x.dtype), (latent, k_rope)
+    return ctx.seq_out(_out(o, p["wo"], x.dtype), sharded), (latent, k_rope)
 
 
 def mla_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):

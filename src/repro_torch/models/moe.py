@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import dp_axes
+from . import layers as L
 from .layers import Ctx
 from .params import P
 
@@ -39,36 +40,46 @@ def moe_params(cfg, tp: int = 1) -> dict:
     d, f = cfg.d_model, cfg.moe_d_ff
     e_pad = padded_experts(cfg.n_experts, tp)
     p = {
-        "router": P((d, cfg.n_experts), init="small"),
-        "w_gate": P((e_pad, d, f)),
-        "w_up": P((e_pad, d, f)),
-        "w_down": P((e_pad, f, d)),
+        "router": P((d, cfg.n_experts), ("embed_fsdp", None), init="small"),
+        "w_gate": P((e_pad, d, f), ("experts", "embed_fsdp", "expert_mlp")),
+        "w_up": P((e_pad, d, f), ("experts", "embed_fsdp", "expert_mlp")),
+        "w_down": P((e_pad, f, d), ("experts", "expert_mlp", "embed_fsdp")),
     }
     if cfg.n_shared_experts:
         fs = cfg.moe_d_ff * cfg.n_shared_experts
         p["shared"] = {
-            "wi_gate": P((d, fs)),
-            "wi_up": P((d, fs)),
-            "wo": P((fs, d)),
+            "wi_gate": P((d, fs), ("embed_fsdp", "mlp")),
+            "wi_up": P((d, fs), ("embed_fsdp", "mlp")),
+            "wo": P((fs, d), ("mlp", "embed_fsdp")),
         }
     return p
 
 
-def _router(p, x2, cfg):
+def _router(p, x2, cfg, mesh=None, axes: tuple[str, ...] = ()):
     """x2: (T, D) -> (weights (T, k) in x2's dtype, idx (T, k), aux loss).
 
     The aux loss is the Switch-style load-balance term.  The expert counts
     are summed with ``index_add_`` (no host read, so a decode step that
-    routes stays capturable)."""
+    routes stays capturable).  With ``axes`` of ``mesh`` (the mesh axes
+    that split the tokens), its means are taken over every rank's tokens:
+    the aux loss of the whole batch."""
     logits = x2.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
-    me = probs.mean(dim=0)                                  # (E,)
     flat = idx.reshape(-1)
-    ce = torch.zeros_like(me).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=me.dtype, device=me.device)
-    ) / (x2.shape[0] * cfg.top_k)
+    counts = torch.zeros(probs.shape[1], dtype=probs.dtype, device=probs.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=probs.dtype, device=probs.device))
+    if axes:
+        n = math.prod(mesh.shape[a] for a in axes)
+        sums = probs.sum(dim=0)
+        for a in axes:
+            sums, counts = mesh.psum(sums, a), mesh.psum(counts, a)
+        me = sums / (x2.shape[0] * n)
+        ce = counts / (x2.shape[0] * n * cfg.top_k)
+    else:
+        me = probs.mean(dim=0)                              # (E,)
+        ce = counts / (x2.shape[0] * cfg.top_k)
     aux = cfg.n_experts * torch.sum(me * ce)
     return w.to(x2.dtype), idx, aux
 
@@ -87,6 +98,17 @@ def _shared_ffn(ps, x, dtype):
     return h @ ps["wo"].to(dtype)
 
 
+def _shared(p, x, cfg, ctx: Ctx):
+    """The shared experts on x (B, S, D) in the context's layout: the
+    tensor-parallel MLP (:func:`~.layers.mlp`) where ``rules`` split their
+    ``mlp`` block or the sequence; else whole, on every token."""
+    fs = cfg.moe_d_ff * cfg.n_shared_experts
+    if ctx.tp_sharded("mlp", fs) or ctx.seq_parallel:
+        return L.mlp(p["shared"], x, ctx, fs)
+    B, S, D = x.shape
+    return _shared_ffn(p["shared"], x.reshape(-1, D), x.dtype).reshape(B, S, D)
+
+
 def moe_ref(p, x, cfg, ctx: Ctx):
     """Exact (dropless) MoE: every expert computed for every token.
     x: (B, S, D) -> (out (B, S, D), aux loss).
@@ -94,25 +116,46 @@ def moe_ref(p, x, cfg, ctx: Ctx):
     The reference combines with a one-hot ``(T, k, E)`` einsum; here each
     token gathers its k chosen rows of the all-expert output and sums them
     weighted (``(T, k, D)``), the same sum without a ``(T, k, E, D)``
-    intermediate."""
+    intermediate.  With ``rules`` on a mesh, x is the rank's data block
+    (its whole sequence: the expert-parallel paths take sequences at least
+    as long as the model axis), the aux loss is the whole batch's, and
+    where the experts are the rank's block each token sums the outputs of
+    its chosen experts that are local and the sum is completed over
+    "model" (the reference's sharded decode combine)."""
+    x_in, x = x, ctx.seq_in(x)
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
-    w, idx, aux = _router(p, x2, cfg)
-    xb = x2.expand(p["w_gate"].shape[0], *x2.shape)
+    mesh = ctx.mesh if ctx.sharded else None
+    axes = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1) if mesh is not None else ()
+    w, idx, aux = _router(p, x2, cfg, mesh, axes)
+    e_loc = p["w_gate"].shape[0]
+    xb = x2.expand(e_loc, *x2.shape)
     all_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], xb, x.dtype)
     tok = torch.arange(x2.shape[0], device=x.device)[:, None]
-    out = torch.einsum("tk,tkd->td", w, all_out[idx, tok])
+    local = ctx.tp_sharded("experts", padded_experts(cfg.n_experts, ctx.tp))
+    if local:
+        li = idx - ctx.mesh.axis_index("model") * e_loc
+        mine = (li >= 0) & (li < e_loc)
+        w = torch.where(mine, w, 0)
+        idx = li.clamp(0, e_loc - 1)
+    out = torch.einsum("tk,tkd->td", w, all_out[idx, tok]).reshape(B, S, D)
+    if local or ctx.seq_parallel:
+        out = ctx.seq_out(out, local)
     if cfg.n_shared_experts:
-        out = out + _shared_ffn(p["shared"], x2, x.dtype)
-    return out.reshape(B, S, D), aux
+        out = out + _shared(p, x_in, cfg, ctx)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
 # expert parallel over the "model" axis: capacity buckets + all-to-all
 # ---------------------------------------------------------------------------
 
-def _local_tokens(x, mesh):
-    """The rank's sequence slice of its data block, and the slice's length."""
+def _local_tokens(x, ctx: Ctx):
+    """The rank's sequence slice of its data block, and the slice's length:
+    under sequence parallelism x already is it."""
+    if ctx.seq_parallel:
+        return x, x.shape[1]
+    mesh = ctx.mesh
     tp = mesh.shape["model"]
     B, S, D = x.shape
     if S % tp:
@@ -121,27 +164,33 @@ def _local_tokens(x, mesh):
     return x[:, m * Sl:(m + 1) * Sl], Sl
 
 
-def _local_experts(p, mesh):
-    """The rank's experts: its ``E/tp`` rows of the whole expert weights."""
+def _local_experts(p, ctx: Ctx):
+    """The rank's experts: with ``rules`` the expert weights are its
+    ``E/tp`` block already; else its rows of the whole weights."""
+    mesh = ctx.mesh
     tp, m = mesh.shape["model"], mesh.axis_index("model")
-    e_pad = p["w_gate"].shape[0]
+    ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+    if ctx.sharded:
+        return ws, ws[0].shape[0]
+    e_pad = ws[0].shape[0]
     if e_pad % tp:
         raise ValueError(f"{e_pad} experts do not shard over the model axis' {tp}")
     e_loc = e_pad // tp
-    return [p[k][m * e_loc:(m + 1) * e_loc] for k in ("w_gate", "w_up", "w_down")], e_loc
+    return [w[m * e_loc:(m + 1) * e_loc] for w in ws], e_loc
 
 
-def _finish(out_loc, aux, x, p, cfg, mesh):
-    """All-gather the sequence slices over "model", average the aux loss
-    over "model" and then each data axis (the reference's ``pmean``s), add
-    the shared experts on the whole data block."""
-    out = mesh.all_gather(out_loc, "model", dim=1)
+def _finish(out_loc, aux, x, p, cfg, ctx: Ctx):
+    """All-gather the sequence slices over "model" (under sequence
+    parallelism each rank keeps its own), average the aux loss over
+    "model" and then each data axis (the reference's ``pmean``s), add the
+    shared experts."""
+    mesh = ctx.mesh
+    out = out_loc if ctx.seq_parallel else mesh.all_gather(out_loc, "model", dim=1)
     aux = mesh.pmean(aux, "model")
     for a in dp_axes(mesh):
         aux = mesh.pmean(aux, a)
     if cfg.n_shared_experts:
-        B, S, D = x.shape
-        out = out + _shared_ffn(p["shared"], x.reshape(-1, D), x.dtype).reshape(B, S, D)
+        out = out + _shared(p, x, cfg, ctx)
     return out, aux
 
 
@@ -166,9 +215,9 @@ def moe_ep(p, x, cfg, ctx: Ctx, *, capacity_factor: float = 1.25, expert_perm=No
     bucketing."""
     mesh = ctx.mesh
     tp = mesh.shape["model"]
-    (w_gate, w_up, w_down), e_loc = _local_experts(p, mesh)
+    (w_gate, w_up, w_down), e_loc = _local_experts(p, ctx)
     e_pad = e_loc * tp
-    x_loc, Sl = _local_tokens(x, mesh)
+    x_loc, Sl = _local_tokens(x, ctx)
     B, _, D = x.shape
     dtype = x.dtype
     T, k = B * Sl, cfg.top_k
@@ -192,7 +241,7 @@ def moe_ep(p, x, cfg, ctx: Ctx, *, capacity_factor: float = 1.25, expert_perm=No
     ret = mesh.all_to_all(back, "model").reshape(e_pad * C, D)
     ret = torch.cat([ret, ret.new_zeros(1, D)])         # a drop reads the zero spare row
     out = (ret[slot] * w.reshape(-1)[:, None]).reshape(T, k, D).sum(1)
-    return _finish(out.reshape(B, Sl, D), aux, x, p, cfg, mesh)
+    return _finish(out.reshape(B, Sl, D), aux, x, p, cfg, ctx)
 
 
 def moe_ep_dedup(p, x, cfg, ctx: Ctx, *, expert_perm=None, dest_k: float | None = None,
@@ -212,12 +261,12 @@ def moe_ep_dedup(p, x, cfg, ctx: Ctx, *, expert_perm=None, dest_k: float | None 
     f32."""
     mesh = ctx.mesh
     tp = mesh.shape["model"]
-    (w_gate, w_up, w_down), e_loc = _local_experts(p, mesh)
+    (w_gate, w_up, w_down), e_loc = _local_experts(p, ctx)
     e_pad = e_loc * tp
     k = cfg.top_k
     if dest_k is None:
         dest_k = min(k, tp * (1.0 - (1.0 - 1.0 / tp) ** k))
-    x_loc, Sl = _local_tokens(x, mesh)
+    x_loc, Sl = _local_tokens(x, ctx)
     B, _, D = x.shape
     dtype, dev = x.dtype, x.device
     T = B * Sl
@@ -266,7 +315,7 @@ def moe_ep_dedup(p, x, cfg, ctx: Ctx, *, expert_perm=None, dest_k: float | None 
     back = mesh.all_to_all(row_out.reshape(tp, Cd, D).to(dtype), "model")
     ret = torch.cat([back.reshape(N, D), back.new_zeros(1, D)])
     out = ret[flat].reshape(T, tp, D).sum(1).to(dtype)
-    return _finish(out.reshape(B, Sl, D), aux, x, p, cfg, mesh)
+    return _finish(out.reshape(B, Sl, D), aux, x, p, cfg, ctx)
 
 
 def moe_apply(p, x, cfg, ctx: Ctx, *, expert_perm=None):
@@ -275,10 +324,12 @@ def moe_apply(p, x, cfg, ctx: Ctx, *, expert_perm=None):
     for a sequence at least that long; :func:`moe_ref` otherwise, on one
     device and in decode (the reference's decode path: each rank reads the
     whole experts once either way)."""
-    tp = ctx.mesh.shape.get("model", 1) if ctx.mesh is not None else 1
-    if tp > 1 and x.shape[1] >= tp:
+    tp = ctx.tp
+    S = x.shape[1] * (tp if ctx.seq_parallel else 1)       # the whole sequence
+    if tp > 1 and S >= tp:
         if ctx.moe_dedup:
-            return moe_ep_dedup(p, x, cfg, ctx, expert_perm=expert_perm)
+            return moe_ep_dedup(p, x, cfg, ctx, expert_perm=expert_perm,
+                                dest_k=ctx.moe_dest_k)
         return moe_ep(p, x, cfg, ctx, expert_perm=expert_perm)
     return moe_ref(p, x, cfg, ctx)
 

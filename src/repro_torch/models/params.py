@@ -1,12 +1,13 @@
 """Parameter specification: shapes, init recipes, and the two ways a tree
 of real tensors is made from them (the port of ``repro/models/params.py``).
 
-Models define their parameters as (nested dicts of) :class:`P` specs.
-``init_params`` draws real tensors from an explicit :class:`torch.Generator`
-with the reference's init rules; ``params_from_numpy`` carries the
-reference's own arrays across, so the parity tests run both packages on the
-same weights.  The logical sharding axes of the reference have no use on
-one device and are not kept.
+Models define their parameters as (nested dicts of) :class:`P` specs:
+shape, dtype, *logical axis names* and an init recipe.  ``init_params``
+draws real tensors from an explicit :class:`torch.Generator` with the
+reference's init rules; ``params_from_numpy`` carries the reference's own
+arrays across, so the parity tests run both packages on the same weights;
+``logical_axes`` is the axis-name tree that
+:mod:`repro_torch.parallel.sharding` maps onto a mesh.
 """
 
 from __future__ import annotations
@@ -20,12 +21,18 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class P:
-    """One parameter: shape, dtype and init recipe."""
+    """One parameter: shape, logical axes (one name or None per dim), dtype
+    and init recipe."""
 
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     dtype: torch.dtype = torch.float32
     init: str = "normal"  # normal | zeros | ones | embed | small
     scale: float | None = None  # override init stddev
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
@@ -134,6 +141,12 @@ def cast_params(tree, dtype: torch.dtype) -> dict:
     return walk(tree)
 
 
+def logical_axes(tree):
+    """Tree of logical-axis tuples, same structure as the spec tree."""
+    return tree_map(lambda s: s.axes, tree)
+
+
 def count_params(tree) -> int:
     """Elements in a spec tree."""
     return sum(math.prod(s.shape) for s in tree_leaves(tree))
+

@@ -1,5 +1,6 @@
 """RWKV-6 "Finch" mixer: linear attention with data-dependent decay (the port
-of ``repro/models/rwkv.py``, one device).
+of ``repro/models/rwkv.py``; on a mesh with ``rules``, tensor-parallel over
+the rank's heads).
 
 Per head (head size N): state S in R^{N x N},
     o_t = r_t @ (S_{t-1} + (u * k_t) v_t^T)
@@ -38,22 +39,22 @@ def rwkv_params(cfg) -> dict:
     N = cfg.rwkv_head_size
     return {
         # ddlerp: 5 interpolation anchors (r,k,v,g,w) + low-rank adapters
-        "mu_x": P((d,), init="zeros"),
-        "mu": P((5, d), init="zeros"),
-        "lora_a": P((d, 5, LORA_DIM), init="small"),
-        "lora_b": P((5, LORA_DIM, d), init="small"),
+        "mu_x": P((d,), (None,), init="zeros"),
+        "mu": P((5, d), (None, None), init="zeros"),
+        "lora_a": P((d, 5, LORA_DIM), ("embed_fsdp", None, None), init="small"),
+        "lora_b": P((5, LORA_DIM, d), (None, None, "embed_fsdp"), init="small"),
         # decay: w = exp(-exp(w0 + tanh(x A_w) B_w)) — per (head, channel)
-        "w0": P((H, N), init="zeros"),
-        "w_a": P((d, DECAY_LORA_DIM), init="small"),
-        "w_b": P((DECAY_LORA_DIM, H, N), init="small"),
-        "u": P((H, N), init="zeros"),   # bonus
-        "wr": P((d, H, N)),
-        "wk": P((d, H, N)),
-        "wv": P((d, H, N)),
-        "wg": P((d, H, N)),
-        "ln_out_scale": P((H * N,), init="ones"),
-        "ln_out_bias": P((H * N,), init="zeros"),
-        "wo": P((H, N, d)),
+        "w0": P((H, N), ("rwkv_heads", None), init="zeros"),
+        "w_a": P((d, DECAY_LORA_DIM), ("embed_fsdp", None), init="small"),
+        "w_b": P((DECAY_LORA_DIM, H, N), (None, "rwkv_heads", None), init="small"),
+        "u": P((H, N), ("rwkv_heads", None), init="zeros"),   # bonus
+        "wr": P((d, H, N), ("embed_fsdp", "rwkv_heads", None)),
+        "wk": P((d, H, N), ("embed_fsdp", "rwkv_heads", None)),
+        "wv": P((d, H, N), ("embed_fsdp", "rwkv_heads", None)),
+        "wg": P((d, H, N), ("embed_fsdp", "rwkv_heads", None)),
+        "ln_out_scale": P((H * N,), (None,), init="ones"),
+        "ln_out_bias": P((H * N,), (None,), init="zeros"),
+        "wo": P((H, N, d), ("rwkv_heads", None, "embed_fsdp")),
     }
 
 
@@ -72,7 +73,7 @@ def _ddlerp(p, x, x_prev):
 
 
 def _rkvgw(p, x, x_prev, cfg, ctx: Ctx):
-    H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    H, N = p["wr"].shape[1], cfg.rwkv_head_size       # H: the rank's heads
     mr, mk, mv, mg, mw = _ddlerp(p, x, x_prev)
     r = _proj(mr, p["wr"])
     k = _proj(mk, p["wk"])
@@ -106,17 +107,26 @@ def _wkv_step(state, r_t, k_t, v_t, w_t, u):
 
 
 def rwkv6_block(p, x, cfg, ctx: Ctx):
-    """Full-sequence mixer.  x: (B,S,d) -> (out, cache {"S","x_last"})."""
+    """Full-sequence mixer.  x: (B,S,d) -> (out, cache {"S","x_last"}).
+    With the rank's ``rwkv_heads`` block (``rules``), K4 and K4b run on its
+    heads, the output group norm takes its slice of the (replicated) scale
+    and bias, and the row-parallel output is summed over "model"."""
+    sharded = ctx.tp_sharded("rwkv_heads", cfg.rwkv_n_heads)
+    x = ctx.seq_in(x)
     B, S, d = x.shape
-    H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    H, N = p["wr"].shape[1], cfg.rwkv_head_size
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, g, w = _rkvgw(p, x, x_prev, cfg, ctx)
     # four contiguous (B, S, H, N) f32 tensors, handed to K4 as (B, H, S, N) views
     rf, kf, vf, wf = (t.float().contiguous().transpose(1, 2) for t in (r, k, v, w))
     o, state = ops.wkv6(rf, kf, vf, wf, p["u"].float())
     o = o.transpose(1, 2).reshape(B, S, H * N)
-    o = _group_norm(p, o, H).to(x.dtype) * g
-    out = _out(o.view(B, S, H, N), p["wo"], x.dtype)
+    norm = p
+    if sharded:
+        m = ctx.mesh.axis_index("model")
+        norm = {k_: p[k_][m * H * N:(m + 1) * H * N] for k_ in ("ln_out_scale", "ln_out_bias")}
+    o = _group_norm(norm, o, H).to(x.dtype) * g
+    out = ctx.seq_out(_out(o.view(B, S, H, N), p["wo"], x.dtype), sharded)
     return out, {"S": state, "x_last": x[:, -1].clone()}
 
 
@@ -124,7 +134,7 @@ def rwkv6_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     """One-token step.  x: (B,1,d); cache {"S": (B,H,N,N), "x_last": (B,d)}.
     ``pos`` is not read: the recurrence carries the position in its state."""
     B = x.shape[0]
-    H, N = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    H, N = p["wr"].shape[1], cfg.rwkv_head_size
     x_prev = cache["x_last"][:, None]
     r, k, v, g, w = _rkvgw(p, x, x_prev, cfg, ctx)
     state, o = _wkv_step(cache["S"], r[:, 0].float(), k[:, 0].float(), v[:, 0].float(),

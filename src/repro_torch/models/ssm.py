@@ -1,5 +1,6 @@
 """Mamba (S6 selective SSM) mixer, Jamba's attention-free layer (the port of
-``repro/models/ssm.py``, one device).
+``repro/models/ssm.py``; on a mesh with ``rules``, tensor-parallel over the
+rank's ``mamba_inner`` channels).
 
 Recurrence (diagonal, per channel c and state n):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
@@ -42,15 +43,15 @@ def mamba_params(cfg) -> dict:
     dc = cfg.mamba_d_conv
     dt_rank = math.ceil(d / 16)
     return {
-        "in_proj": P((d, 2 * di)),
-        "conv_w": P((dc, di), init="normal", scale=1.0 / math.sqrt(dc)),
-        "conv_b": P((di,), init="zeros"),
-        "x_proj": P((di, dt_rank + 2 * ds)),
-        "dt_proj": P((dt_rank, di)),
-        "dt_bias": P((di,), init="zeros"),
-        "A_log": P((di, ds), init="zeros"),
-        "D": P((di,), init="ones"),
-        "out_proj": P((di, d)),
+        "in_proj": P((d, 2 * di), ("embed_fsdp", "mamba_inner")),
+        "conv_w": P((dc, di), (None, "mamba_inner"), init="normal", scale=1.0 / math.sqrt(dc)),
+        "conv_b": P((di,), ("mamba_inner",), init="zeros"),
+        "x_proj": P((di, dt_rank + 2 * ds), ("mamba_inner", None)),
+        "dt_proj": P((dt_rank, di), (None, "mamba_inner")),
+        "dt_bias": P((di,), ("mamba_inner",), init="zeros"),
+        "A_log": P((di, ds), ("mamba_inner", None), init="zeros"),
+        "D": P((di,), ("mamba_inner",), init="ones"),
+        "out_proj": P((di, d), ("mamba_inner", "embed_fsdp")),
         # Jamba's extra norms on dt/B/C
         "dt_norm": rmsnorm_params(dt_rank),
         "b_norm": rmsnorm_params(ds),
@@ -58,12 +59,15 @@ def mamba_params(cfg) -> dict:
     }
 
 
-def _dt_bc(p, xs, cfg, dt_rank):
+def _dt_bc(p, xs, cfg, dt_rank, ctx: Ctx | None = None):
     """xs: (..., di) -> dt (..., di), B (..., ds), C (..., ds), all f32.  The
     dt norm and ``dt_proj`` run in the activation dtype, the softplus in
-    f32."""
+    f32.  With ``ctx``, xs and ``x_proj`` are the rank's channels, and their
+    partial products are summed over "model"."""
     ds = cfg.mamba_d_state
     dbc = xs @ p["x_proj"].to(xs.dtype)
+    if ctx is not None:
+        dbc = ctx.mesh.psum(dbc, "model")
     dt, b, c = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
     dt = rmsnorm(p["dt_norm"], dt, cfg.norm_eps)
     b = rmsnorm(p["b_norm"], b, cfg.norm_eps).float()
@@ -111,27 +115,48 @@ def scan(xf, dt, b, c, A, ctx: Ctx):
     return h, torch.cat(ys, 1)
 
 
+def _in_proj(p, x, cfg, ctx: Ctx):
+    """x @ in_proj -> (xs, z), each (B, S, di) or, with the rank's
+    ``mamba_inner`` block, its channels of each.  The block of ``in_proj``
+    the rules give a rank is a slice of its 2 di columns, which mixes xs's
+    and z's channels; it is all-gathered over "model" (backward: a
+    reduce-scatter) and the rank's xs and z columns taken."""
+    w = p["in_proj"]
+    if not ctx.tp_sharded("mamba_inner", cfg.mamba_d_inner):
+        return (x @ w.to(x.dtype)).chunk(2, dim=-1)
+    di, tp, m = cfg.mamba_d_inner, ctx.tp, ctx.mesh.axis_index("model")
+    w = ctx.mesh.all_gather(w, "model", 1)
+    n = di // tp
+    cols = torch.cat([w[:, m * n:(m + 1) * n], w[:, di + m * n:di + (m + 1) * n]], dim=1)
+    return (x @ cols.to(x.dtype)).chunk(2, dim=-1)
+
+
 def mamba_block(p, x, cfg, ctx: Ctx):
     """Full-sequence mixer.  x: (B, S, d) -> (out, state) where state is the
     decode-ready cache {"h": (B, di, ds) f32, "conv": (B, dc-1, di)}: the
     last ``dc - 1`` pre-convolution inputs in the activation dtype,
-    zero-padded on the left when S is shorter."""
+    zero-padded on the left when S is shorter.  With the rank's
+    ``mamba_inner`` block (``rules``) it runs on its channels: ``x_proj``'s
+    partial products are summed over "model" (dt, B and C are whole), and
+    so is the row-parallel output."""
+    sharded = ctx.tp_sharded("mamba_inner", cfg.mamba_d_inner)
+    x = ctx.seq_in(x)
     B, S, _ = x.shape
-    di, dc = cfg.mamba_d_inner, cfg.mamba_d_conv
+    dc = cfg.mamba_d_conv
     dt_rank = math.ceil(cfg.d_model / 16)
-    xz = x @ p["in_proj"].to(x.dtype)
-    xs, z = xz.chunk(2, dim=-1)
-    xs = F.silu(_conv_causal(p, xs))
-    dt, b, c = _dt_bc(p, xs, cfg, dt_rank)                    # (B,S,di),(B,S,ds)
+    pre, z = _in_proj(p, x, cfg, ctx)
+    di = pre.shape[-1]
+    xs = F.silu(_conv_causal(p, pre))
+    dt, b, c = _dt_bc(p, xs, cfg, dt_rank, ctx if sharded else None)  # (B,S,di),(B,S,ds)
     A = -torch.exp(p["A_log"].float())                        # (di, ds)
     xf = xs.float()
     h, y = scan(xf, dt, b, c, A, ctx)
     y = y + xf * p["D"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = ctx.seq_out(y @ p["out_proj"].to(x.dtype), sharded)
     n = min(S, dc - 1)
-    conv = xz.new_zeros(B, dc - 1, di)
-    conv[:, dc - 1 - n:] = xz[:, S - n:, :di]
+    conv = x.new_zeros(B, dc - 1, di)
+    conv[:, dc - 1 - n:] = pre[:, S - n:]
     return out, {"h": h, "conv": conv}
 
 

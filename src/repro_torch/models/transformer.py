@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..parallel.sharding import dp_axes
 from . import layers as L
 from . import moe as M
 from . import rwkv, ssm
@@ -37,7 +38,8 @@ _ENCODER = LayerSpec("attn", "dense")
 # parameter trees
 # ---------------------------------------------------------------------------
 
-def layer_param_specs(spec: LayerSpec, cfg: ModelConfig, cross: bool = False) -> dict:
+def layer_param_specs(spec: LayerSpec, cfg: ModelConfig, tp: int = 1, cross: bool = False
+                      ) -> dict:
     d = cfg.d_model
     p: dict = {"mixer_norm": L.rmsnorm_params(d)}
     if spec.mixer == "attn":
@@ -57,35 +59,43 @@ def layer_param_specs(spec: LayerSpec, cfg: ModelConfig, cross: bool = False) ->
     if spec.ffn == "dense":
         p["ffn"] = L.mlp_params(d, cfg.d_ff)
     else:
-        p["ffn"] = M.moe_params(cfg)
+        p["ffn"] = M.moe_params(cfg, tp)
     return p
 
 
 def _stack(tree, n: int):
     """Add a leading (n,) "layers" axis to every P in the tree."""
-    return tree_map(lambda s: P((n,) + s.shape, s.dtype, s.init, s.scale), tree)
+    return tree_map(lambda s: P((n,) + s.shape, ("layers",) + s.axes, s.dtype, s.init,
+                                s.scale), tree)
 
 
 def model_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
     d = cfg.d_model
     V = cfg.padded_vocab(tp)
     p: dict = {
-        "embed": P((V, d), init="embed"),
+        "embed": P((V, d), ("vocab", "embed_fsdp"), init="embed"),
         "final_norm": L.rmsnorm_params(d),
     }
     if not cfg.tie_embeddings:
-        p["unembed"] = P((d, V))
+        # the LM head stays vocab-sharded under every rule set (the
+        # vocab-parallel CE depends on it); its d axis stays replicated
+        p["unembed"] = P((d, V), (None, "vocab"))
     if cfg.prefix:
-        p["prefix"] = {f"p{i}": layer_param_specs(s, cfg, cross=cfg.enc_dec)
+        p["prefix"] = {f"p{i}": layer_param_specs(s, cfg, tp, cross=cfg.enc_dec)
                        for i, s in enumerate(cfg.prefix)}
-    unit = {f"l{i}": layer_param_specs(s, cfg, cross=cfg.enc_dec)
+    unit = {f"l{i}": layer_param_specs(s, cfg, tp, cross=cfg.enc_dec)
             for i, s in enumerate(cfg.unit)}
     p["unit"] = _stack(unit, cfg.n_units)
     if cfg.enc_dec:
-        p["enc_unit"] = _stack({"l0": layer_param_specs(_ENCODER, cfg)},
+        p["enc_unit"] = _stack({"l0": layer_param_specs(_ENCODER, cfg, tp)},
                                cfg.n_encoder_layers)
         p["enc_final_norm"] = L.rmsnorm_params(d)
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_specs(spec: LayerSpec, cfg: ModelConfig, tp: int, cross: bool) -> dict:
+    return layer_param_specs(spec, cfg, tp, cross=cross)
 
 
 def _unit(tree, i: int):
@@ -129,7 +139,9 @@ def _mixer_full(spec, p, h, cfg, ctx, positions, causal):
 
 
 def _cross_kv(p, enc_out, cfg, ctx):
-    """Cross-attention K/V from the encoder output (no rope)."""
+    """Cross-attention K/V from the encoder output (no rope; the whole
+    encoder sequence, all-gathered under sequence parallelism)."""
+    enc_out = ctx.seq_in(enc_out)
     k = L._proj(enc_out, p["wk"])
     v = L._proj(enc_out, p["wv"])
     if cfg.qkv_bias:
@@ -139,18 +151,21 @@ def _cross_kv(p, enc_out, cfg, ctx):
 
 
 def _cross_attend(p, x, kv, cfg, ctx):
-    """q from x (no rope), non-causal attention (K3) over the encoder K/V."""
+    """q from x (no rope), non-causal attention (K3) over the encoder K/V;
+    tensor-parallel as :func:`~repro_torch.models.layers.attn_block`."""
+    sharded = L._heads_sharded(cfg, ctx)
+    x = ctx.seq_in(x)
     q = L._proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     o = L.attention(q, kv[0], kv[1], causal=False)
-    return L._out(o, p["wo"], x.dtype)
+    return ctx.seq_out(L._out(o, p["wo"], x.dtype), sharded)
 
 
 def _ffn(spec, p, h, cfg, ctx, expert_perm=None):
     """-> (out, aux): the dense MLP (aux 0.0) or the MoE with its aux loss."""
     if spec.ffn == "dense":
-        return L.mlp(p["ffn"], h, ctx), 0.0
+        return L.mlp(p["ffn"], h, ctx, cfg.d_ff), 0.0
     return M.moe_apply(p["ffn"], h, cfg, ctx, expert_perm=expert_perm)
 
 
@@ -159,7 +174,13 @@ def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
     """Full-sequence layer.  Returns (x, cache, aux); with ``enc_out`` and
     cross-attention weights the cache is {"self": ..., "cross": {"k", "v"}}.
     ``expert_perm`` (logical expert -> physical slot) reaches the
-    expert-parallel MoE (:func:`~repro_torch.models.moe.moe_apply`)."""
+    expert-parallel MoE (:func:`~repro_torch.models.moe.moe_apply`).  With
+    ``ctx.rules``, the layer's weights are first gathered where FSDP
+    shards them (:meth:`~repro_torch.models.layers.Ctx.gather_params`;
+    expert weights stay sharded: the expert-parallel all-to-all owns their
+    distribution)."""
+    if ctx.sharded:
+        p = ctx.gather_params(p, _layer_specs(spec, cfg, ctx.tp, "cross" in p))
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     out, cache = _mixer_full(spec, p, h, cfg, ctx, positions, causal)
     x = x + out
@@ -209,6 +230,7 @@ def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torc
 def _encoder(params, enc_embeds, cfg, ctx: Ctx):
     x = enc_embeds.to(ctx.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    x = ctx.cs(x, "batch", "seq", "embed")
 
     def body(x, unit_p):
         return apply_layer(_ENCODER, unit_p["l0"], x, cfg, ctx, positions=positions,
@@ -220,8 +242,33 @@ def _encoder(params, enc_embeds, cfg, ctx: Ctx):
     return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
+def _vocab_block(W, cfg, ctx: Ctx, dim: int):
+    """(W with its non-vocab dims gathered, the first vocab id of the rank's
+    block, whether the vocab is split over "model") for the embedding
+    (``dim`` 0) or the LM head (``dim`` 1) of the padded vocabulary."""
+    V = cfg.padded_vocab(ctx.tp)
+    if not ctx.sharded:
+        return W, 0, False
+    axes = ("vocab", "embed_fsdp") if dim == 0 else (None, "vocab")
+    shape = (V, cfg.d_model) if dim == 0 else (cfg.d_model, V)
+    W = ctx.gather_params(W, P(shape, axes))
+    split = ctx.tp_sharded("vocab", V)
+    return W, (ctx.mesh.axis_index("model") * W.shape[dim] if split else 0), split
+
+
 def embed_tokens(params, tokens, cfg, ctx: Ctx):
-    return params["embed"][tokens.long()].to(ctx.dtype)
+    """The tokens' embeddings.  On a vocab-split table (``rules``) each rank
+    looks up the tokens in its block (zeros for the others) and the rows
+    are summed over "model".  (This is where the reference's sharded step
+    fails on jax 0.9.0: ``jnp.take`` of the vocab-sharded table, ROADMAP
+    section 3, fault 5.)"""
+    E, v0, split = _vocab_block(params["embed"], cfg, ctx, 0)
+    if not split:
+        return E[tokens.long()].to(ctx.dtype)
+    local = tokens.long() - v0
+    mine = (local >= 0) & (local < E.shape[0])
+    x = torch.where(mine[..., None], E[local.clamp(0, E.shape[0] - 1)].to(ctx.dtype), 0)
+    return ctx.mesh.psum(x, "model")
 
 
 def forward(params, batch, cfg: ModelConfig, ctx: Ctx, *, collect_cache=False):
@@ -236,6 +283,7 @@ def forward(params, batch, cfg: ModelConfig, ctx: Ctx, *, collect_cache=False):
         x = torch.cat([batch["patch_embeds"].to(ctx.dtype), x], dim=1)
     enc_out = _encoder(params, batch["enc_embeds"], cfg, ctx) if cfg.enc_dec else None
     positions = torch.arange(x.shape[1], device=x.device)
+    x = ctx.cs(x, "batch", "seq", "embed")
     aux_total = torch.zeros((), device=x.device)
     caches: dict = {}
     if cfg.prefix:
@@ -285,28 +333,52 @@ def chunked_ce(params, hidden, labels, mask, cfg, ctx: Ctx, chunk: int = 256):
     """Mean CE over masked positions; the logits never exist beyond one
     ``(B, chunk, V)`` slab, recomputed in the backward when ``ctx.remat``.
     Logits of the padded vocabulary are -1e30; ``cfg.logits_softcap`` caps
-    them with ``tanh``.  Returns (loss, n_tokens)."""
+    them with ``tanh``.  Returns (loss, n_tokens).
+
+    On a mesh (``rules``) the hidden states are the rank's data block (its
+    whole sequence, all-gathered under sequence parallelism), the CE is
+    vocab-parallel where the LM head's vocab is split over "model" (the
+    max and the sum of the exponentials taken over "model", the label's
+    logit from the rank that holds it), and the sum of the token losses
+    and the token count are summed over the data axes: the loss is
+    normalised by the global token count, as the reference's."""
+    hidden = ctx.seq_in(hidden)
     B, S, _ = hidden.shape
     W = _unembed_matrix(params, cfg)
+    W, v0, split = _vocab_block(W, cfg, ctx, 1)
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the CE chunk {chunk}")
-    vocab_pad = torch.arange(W.shape[1], device=hidden.device) >= cfg.vocab
+    V_loc = W.shape[1]
+    vocab_pad = v0 + torch.arange(V_loc, device=hidden.device) >= cfg.vocab
+    mesh = ctx.mesh
 
     def body(h_c, y_c, m_c):
         logits = (h_c @ W.to(h_c.dtype)).float()
         logits = logits.masked_fill(vocab_pad, L.NEG_INF)
         if cfg.logits_softcap:
             logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, y_c.long()[..., None])[..., 0]
+        if not split:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, y_c.long()[..., None])[..., 0]
+            return ((lse - ll) * m_c).sum()
+        mx = mesh.pmax(logits.amax(dim=-1), "model")
+        lse = mesh.psum(torch.exp(logits - mx[..., None]).sum(-1), "model").log() + mx
+        local = y_c.long() - v0
+        mine = (local >= 0) & (local < V_loc)
+        ll = logits.gather(-1, local.clamp(0, V_loc - 1)[..., None])[..., 0]
+        ll = mesh.psum(torch.where(mine, ll, 0.0), "model")
         return ((lse - ll) * m_c).sum()
 
     tot = torch.zeros((), device=hidden.device)
     for c0 in range(0, S, chunk):
         args = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
         tot = tot + (_checkpoint(body, *args) if _remat(ctx) else body(*args))
-    n_tok = mask.sum().clamp_min(1.0)
+    n_tok = mask.sum()
+    if ctx.sharded:
+        for a in dp_axes(mesh):
+            tot, n_tok = mesh.psum(tot, a), mesh.psum(n_tok, a)
+    n_tok = n_tok.clamp_min(1.0)
     return tot / n_tok, n_tok
 
 
@@ -463,23 +535,28 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
 
     def one(spec: LayerSpec) -> dict:
         if spec.mixer == "attn":
-            c = {"k": P((B, S, K, hd), bf16, "zeros"),
-                 "v": P((B, S, K, hd), bf16, "zeros")}
+            kv = ("batch", "cache_seq", "kv_heads", "head_dim")
+            c = {"k": P((B, S, K, hd), kv, bf16, "zeros"),
+                 "v": P((B, S, K, hd), kv, bf16, "zeros")}
         elif spec.mixer == "mla":
-            c = {"latent": P((B, S, cfg.kv_lora_rank), bf16, "zeros"),
-                 "k_rope": P((B, S, cfg.qk_rope_dim), bf16, "zeros")}
+            lat = ("batch", "cache_seq", None)
+            c = {"latent": P((B, S, cfg.kv_lora_rank), lat, bf16, "zeros"),
+                 "k_rope": P((B, S, cfg.qk_rope_dim), lat, bf16, "zeros")}
         elif spec.mixer == "mamba":
-            c = {"h": P((B, di, ds), torch.float32, "zeros"),
-                 "conv": P((B, cfg.mamba_d_conv - 1, di), bf16, "zeros")}
+            c = {"h": P((B, di, ds), ("batch", "mamba_inner", None), torch.float32, "zeros"),
+                 "conv": P((B, cfg.mamba_d_conv - 1, di), ("batch", None, "mamba_inner"), bf16,
+                           "zeros")}
         elif spec.mixer == "rwkv6":
-            c = {"S": P((B, H6, N6, N6), torch.float32, "zeros"),
-                 "x_last": P((B, cfg.d_model), bf16, "zeros")}
+            c = {"S": P((B, H6, N6, N6), ("batch", "rwkv_heads", None, None), torch.float32,
+                        "zeros"),
+                 "x_last": P((B, cfg.d_model), ("batch", None), bf16, "zeros")}
         else:
             raise ValueError(spec.mixer)
         if cfg.enc_dec:
+            ckv = ("batch", None, "kv_heads", "head_dim")
             c = {"self": c,
-                 "cross": {"k": P((B, cfg.encoder_seq, K, hd), bf16, "zeros"),
-                           "v": P((B, cfg.encoder_seq, K, hd), bf16, "zeros")}}
+                 "cross": {"k": P((B, cfg.encoder_seq, K, hd), ckv, bf16, "zeros"),
+                           "v": P((B, cfg.encoder_seq, K, hd), ckv, bf16, "zeros")}}
         return c
 
     out: dict = {}

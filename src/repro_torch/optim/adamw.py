@@ -1,6 +1,7 @@
 """AdamW with a configurable state dtype, global-norm clipping and optional
 int8 gradient compression with error feedback (the port of
-``repro/optim/adamw.py``, one device).
+``repro/optim/adamw.py``).  On a mesh each rank updates its blocks; the
+norm of the clip and the int8 scales are the whole tensors'.
 
 The state mirrors the parameter tree, as the reference's does: ``{"step":
 int32 scalar, "moments": {... leaf: {"m", "v"}}}`` plus ``"error"`` (bf16,
@@ -57,12 +58,13 @@ def init_state(params, cfg: AdamWConfig) -> dict:
 def state_specs(param_specs, cfg: AdamWConfig) -> dict:
     """The :class:`P` spec tree of the optimizer state (``init_params`` of it
     is :func:`init_state`)."""
-    st = {"step": P((), torch.int32, "zeros"),
-          "moments": tree_map(lambda s: {"m": P(s.shape, cfg.state_dtype, "zeros"),
-                                         "v": P(s.shape, cfg.state_dtype, "zeros")},
+    st = {"step": P((), (), torch.int32, "zeros"),
+          "moments": tree_map(lambda s: {"m": P(s.shape, s.axes, cfg.state_dtype, "zeros"),
+                                         "v": P(s.shape, s.axes, cfg.state_dtype, "zeros")},
                               param_specs)}
     if cfg.compress_int8:
-        st["error"] = tree_map(lambda s: P(s.shape, torch.bfloat16, "zeros"), param_specs)
+        st["error"] = tree_map(lambda s: P(s.shape, s.axes, torch.bfloat16, "zeros"),
+                               param_specs)
     return st
 
 
@@ -76,29 +78,58 @@ def _zip(params, *trees):
         yield (params, *trees)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+def _sharded_axes(spec, mesh) -> tuple[str, ...]:
+    from ..parallel.sharding import spec_axes
+
+    return tuple(a for a in mesh.axis_names if a in spec_axes(spec) and mesh.shape[a] > 1)
+
+
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.  With the leaves'
+    ``specs`` on ``mesh`` (each leaf the rank's block), each leaf's sum of
+    squares is summed over the axes it is sharded on, so a replicated leaf
+    counts once: the norm of the whole tree."""
     sq = [x.float().square().sum() for x in tree_leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
+    if specs is None:
+        return torch.stack(sq).sum().sqrt()
+    by_axes: dict = {}
+    for s, spec in zip(sq, tree_leaves(specs)):
+        by_axes.setdefault(_sharded_axes(spec, mesh), []).append(s)
+    total = []
+    for axes, parts in by_axes.items():
+        part = torch.stack(parts).sum()
+        for a in axes:
+            part = mesh.psum(part, a)
+        total.append(part)
+    return torch.stack(total).sum().sqrt()
 
 
-def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8 quantization; returns (q, scale)."""
-    scale = (g.abs().max() + 1e-12) / 127.0
+def _quantize_int8(g: torch.Tensor, amax=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization; returns (q, scale).
+    ``amax`` is the tensor's largest magnitude where ``g`` is a block of it."""
+    scale = ((g.abs().max() if amax is None else amax) + 1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_grads(grads, error) -> tuple[dict, dict]:
+def compress_grads(grads, error, specs=None, mesh=None) -> tuple[dict, dict]:
     """int8 compression with error feedback: the quantization residual is
     carried into the next step instead of being lost.  Returns (the
     dequantized gradients in their dtype, the new bf16 errors), two trees
-    of the gradients' structure."""
+    of the gradients' structure.  With ``specs`` on ``mesh`` each scale is
+    the whole tensor's (the blocks' largest magnitude over the axes the
+    leaf is sharded on)."""
     if isinstance(grads, dict):
-        parts = {k: compress_grads(grads[k], error[k]) for k in grads}
+        parts = {k: compress_grads(grads[k], error[k], None if specs is None else specs[k],
+                                   mesh) for k in grads}
         return {k: g for k, (g, _) in parts.items()}, {k: e for k, (_, e) in parts.items()}
     gf = grads.float() + error.float()
-    q, scale = _quantize_int8(gf)
+    amax = None
+    if specs is not None:
+        amax = gf.abs().max()
+        for a in _sharded_axes(specs, mesh):
+            amax = mesh.pmax(amax, a)
+    q, scale = _quantize_int8(gf, amax)
     deq = q.float() * scale
     return deq.to(grads.dtype), (gf - deq).to(torch.bfloat16)
 
@@ -115,13 +146,16 @@ def _slices(*ts):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """One AdamW step, in place.  Returns (params, state, {"grad_norm"})."""
-    gn = global_norm(grads)
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, specs=None, mesh=None):
+    """One AdamW step, in place.  Returns (params, state, {"grad_norm"}).
+    With the leaves' ``specs`` on ``mesh``, the trees are the rank's blocks
+    and the global norm is the whole tree's (:func:`global_norm`)."""
+    gn = global_norm(grads, specs, mesh)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
             if cfg.grad_clip > 0 else 1.0)
     if cfg.compress_int8:
-        grads, new_error = compress_grads(tree_map(lambda g: g * clip, grads), state["error"])
+        grads, new_error = compress_grads(tree_map(lambda g: g * clip, grads), state["error"],
+                                          specs, mesh)
         clip_applied = 1.0
     else:
         new_error = None

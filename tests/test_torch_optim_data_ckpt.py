@@ -28,6 +28,7 @@ import numpy as np
 from repro.ckpt.checkpoint import CheckpointManager as JCheckpointManager
 from repro.data import pipeline as jdata
 from repro.optim import adamw as jadamw
+from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.data import pipeline as tdata
 from repro_torch.models.params import P, params_from_numpy, tree_leaves
@@ -103,7 +104,7 @@ def test_state_specs_and_init_state_match_the_reference_tree():
     jp = jax.tree.map(jnp.asarray, _np_tree(np.random.default_rng(1)))
     jst = jadamw.init_state(jp, jcfg)
     tst = adamw.init_state(params_from_numpy(jp, CPU), tcfg)
-    specs = adamw.state_specs(_tree(P), tcfg)
+    specs = adamw.state_specs(_tree(lambda s: P(s, (None,) * len(s))), tcfg)
     carried = params_from_numpy(jst, CPU)
 
     def walk(a, b, c, d):
@@ -242,6 +243,43 @@ def test_async_save_copies_before_an_in_place_update(tmp_path):
     x.add_(1.0)
     mgr.wait()
     assert float(CheckpointManager(str(tmp_path)).restore()[1]["x"].abs().max()) == 0.0
+
+
+def test_checkpoint_save_clears_a_stale_temp_dir_and_keeps_latest(tmp_path):
+    """A failed earlier try's temp files are cleared before a step is
+    written; saving the step LATEST names again writes nothing; a step
+    directory LATEST does not name is replaced whole."""
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, {"x": torch.zeros(3)}, blocking=True)
+    stale = tmp_path / ".tmp_step_00000006"
+    stale.mkdir()
+    (stale / "shard_1.npz").write_bytes(b"stale")
+    mgr.save(6, {"x": torch.ones(3)}, blocking=True)
+    assert sorted(os.listdir(tmp_path / "step_00000006")) == ["MANIFEST.json", "shard_0.npz"]
+    written = os.stat(tmp_path / "step_00000006" / "MANIFEST.json").st_mtime_ns
+    mgr.save(6, {"x": torch.full((3,), 9.0)}, blocking=True)
+    assert os.stat(tmp_path / "step_00000006" / "MANIFEST.json").st_mtime_ns == written
+    step, got = mgr.restore(4)
+    mgr.save(5, got)            # a later step LATEST no longer names
+    mgr.wait()
+    mgr.save(6, {"x": torch.full((3,), 2.0)}, blocking=True)
+    assert mgr.latest_step() == 6
+    assert float(mgr.restore()[1]["x"].sum()) == 6.0
+    assert not [d for d in os.listdir(tmp_path) if d.startswith(".")]
+
+
+def test_checkpoint_wait_raises_when_a_rank_never_writes(tmp_path, monkeypatch):
+    """Rank 0 of two gives up on the missing rank's file after the timeout:
+    ``wait`` raises, and LATEST keeps the previous step."""
+    monkeypatch.setattr(ckpt_mod, "RANKS_TIMEOUT_S", 0.05)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"x": torch.ones(2)}, blocking=True)
+    mgr.world = 2
+    mgr.save(2, {"x": torch.ones(2)})
+    with pytest.raises(TimeoutError, match=r"ranks \[1\] wrote no checkpoint file"):
+        mgr.wait()
+    assert mgr.latest_step() == 1
+    mgr.wait()                  # the error is raised once
 
 
 # -- data and checkpoints across the two packages ---------------------------------

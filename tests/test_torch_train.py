@@ -23,8 +23,13 @@ the reference's own ``init_params`` arrays carried across by
 * remat on against off, bit-equal on the CPU;
 * train, crash at an injected step and restart from the checkpoint: the
   losses after the restart equal an uninterrupted run's at 1e-6 relative;
-* what raises: the mesh-only fields and flags (ROADMAP queue 1, item 9),
-  the card when CUDA is missing and the CPU was not asked for.
+* the mesh fields (``sharding_mode="fsdp"``, ``seq_parallel``,
+  ``moe_dedup``, ``moe_dest_k``) on the host mesh, bit-equal to the
+  mesh-free step; the CLI's ``--seq-parallel`` trains and its
+  ``--production-mesh`` raises for want of 256 ranks (the sharded steps
+  are ``tests/test_torch_train_mesh.py``'s);
+* what raises: the card when CUDA is missing and the CPU was not asked
+  for.
 """
 
 import pytest
@@ -45,6 +50,7 @@ from repro.optim import adamw as jadamw
 from repro_torch.configs import registry as treg
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as tT
 from repro_torch.models.params import params_from_numpy, tree_leaves
 
@@ -130,7 +136,7 @@ def test_lm_loss_and_grads_match_reference(family):
 
     tp = params_from_numpy(params, CPU)
     leaves = [t.requires_grad_() for t in tree_leaves(tp)]
-    ctx = tsteps.make_ctx(tcfg, "train", tsteps.DistConfig())
+    ctx = tsteps.make_ctx(tcfg, None, "train", tsteps.DistConfig())
     loss, m = tT.lm_loss(tp, _tbatch(batch), tcfg, ctx)
     grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
@@ -157,7 +163,7 @@ def test_each_softcap_moves_the_reduced_loss(cap):
     for cfg in (plain, capped):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         tree = tsteps._rebuild(params, iter(leaves))
-        loss, _ = tT.lm_loss(tree, batch, cfg, tsteps.make_ctx(cfg, "train",
+        loss, _ = tT.lm_loss(tree, batch, cfg, tsteps.make_ctx(cfg, None, "train",
                                                                 tsteps.DistConfig()))
         out.append((loss, torch.autograd.grad(loss, leaves)))
     (loss, grads), (capped_loss, capped_grads) = out
@@ -169,7 +175,7 @@ def test_each_softcap_moves_the_reduced_loss(cap):
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_train_step_matches_reference(family):
     jcfg, tcfg, params, opt, batch, new_p, new_o, jm = _reference(family)
-    step, p_specs, o_specs, ctx = tsteps.make_train_step(tcfg, tsteps.DistConfig())
+    step, p_specs, o_specs, ctx = tsteps.make_train_step(tcfg, None, tsteps.DistConfig())
     assert ctx.remat and ctx.dtype == torch.float32
     tp, to, tm = step(params_from_numpy(params, CPU), params_from_numpy(opt, CPU),
                       _tbatch(batch))
@@ -188,13 +194,13 @@ def test_remat_on_and_off_are_bit_equal(arch):
     recomputes the same values: the loss and every gradient bit-equal on the
     CPU (rwkv6's through ``ops.WKV6`` and its plain backward)."""
     _, tcfg = _cfgs(arch)
-    step, p_specs, _, _ = tsteps.make_train_step(tcfg)
+    step, p_specs, _, _ = tsteps.make_train_step(tcfg, None)
     from repro_torch.models.params import init_params
     params = init_params(p_specs, torch.Generator().manual_seed(0))
     batch = _tbatch(_np_batch(tcfg))
     out = []
     for remat in (True, False):
-        ctx = tsteps.make_ctx(tcfg, "train", tsteps.DistConfig(remat=remat))
+        ctx = tsteps.make_ctx(tcfg, None, "train", tsteps.DistConfig(remat=remat))
         assert ctx.remat is remat
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         it = iter(leaves)
@@ -215,11 +221,12 @@ def test_train_crash_and_restart_on_cpu(tmp_path):
     in an order that changes from run to run."""
     _, cfg = _cfgs("granite_3_2b")
     kw = dict(steps=12, global_batch=2, seq_len=16, log_every=1, device="cpu")
-    p_ref, _, want = ttrain.train(cfg, **kw)
+    mesh = make_host_mesh()
+    p_ref, _, want = ttrain.train(cfg, mesh, **kw)
     ckpt = str(tmp_path / "ckpt")
     with pytest.raises(RuntimeError, match="injected failure at step 7"):
-        ttrain.train(cfg, ckpt_dir=ckpt, ckpt_every=5, fail_at=7, **kw)
-    p, o, got = ttrain.train(cfg, ckpt_dir=ckpt, ckpt_every=5, **kw)
+        ttrain.train(cfg, mesh, ckpt_dir=ckpt, ckpt_every=5, fail_at=7, **kw)
+    p, o, got = ttrain.train(cfg, mesh, ckpt_dir=ckpt, ckpt_every=5, **kw)
     assert int(o["step"]) == 12 and len(got) == 7
     np.testing.assert_allclose(got, want[5:], rtol=1e-6, atol=0)
     for a, b in zip(tree_leaves(p), tree_leaves(p_ref)):
@@ -236,24 +243,46 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--seq-parallel"])
-def test_cli_mesh_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.main(["--smoke", "--device", "cpu", flag])
+def test_cli_mesh_flags(flag, capsys):
+    """``--seq-parallel`` trains (on the host mesh, where it changes no
+    value); ``--production-mesh`` raises for want of its 256 ranks."""
+    argv = ["--smoke", "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu", flag]
+    if flag == "--production-mesh":
+        with pytest.raises(ValueError, match="needs a process group of 256 ranks"):
+            ttrain.main(argv)
+    else:
+        ttrain.main(argv)
+        assert "step     2 loss" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("field", [dict(sharding_mode="fsdp"), dict(seq_parallel=True),
                                    dict(moe_dedup=True), dict(moe_dest_k=1.5)])
-def test_mesh_only_dist_fields_raise(field):
-    _, cfg = _cfgs("granite_3_2b")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsteps.make_train_step(cfg, tsteps.DistConfig(**field))
+def test_mesh_dist_fields_run_on_the_host_mesh(field):
+    """Each field that lays a step out on a mesh builds a step on the host
+    mesh, whose loss, ``grad_norm`` and updated parameters equal the
+    mesh-free step's bit for bit (deepseek-moe's reduced config, so the MoE
+    fields reach an MoE layer)."""
+    _, cfg = _cfgs("deepseek_moe_16b")
+    dist = tsteps.DistConfig(**field)
+    from repro_torch.models.params import init_params
+    out = []
+    for mesh in (None, make_host_mesh()):
+        step, p_specs, o_specs, ctx = tsteps.make_train_step(cfg, mesh, dist)
+        assert ctx.moe_dedup == dist.moe_dedup and ctx.moe_dest_k == dist.moe_dest_k
+        params = init_params(p_specs, torch.Generator().manual_seed(0))
+        opt = init_params(o_specs, torch.Generator().manual_seed(1))
+        out.append(step(params, opt, _tbatch(_np_batch(cfg))))
+    (p0, _, m0), (p1, _, m1) = out
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(m0[k], m1[k])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
 
 
 def test_train_asks_for_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = _cfgs("granite_3_2b")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ttrain.train(cfg, steps=1, global_batch=2, seq_len=16)
+        ttrain.train(cfg, make_host_mesh(), steps=1, global_batch=2, seq_len=16)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         ttrain.main(["--smoke", "--steps", "1"])
 
@@ -261,7 +290,7 @@ def test_train_asks_for_the_card_unless_the_cpu_is_asked_for(monkeypatch):
 def test_prefill_and_decode_steps_are_the_models():
     _, cfg = _cfgs("granite_3_2b")
     prefill, p_specs, _ = tsteps.make_prefill_step(cfg, cache_len=S + 2)
-    decode, _, c_specs, ctx = tsteps.make_decode_step(cfg, tsteps.DistConfig(), B, S + 2)
+    decode, _, c_specs, ctx = tsteps.make_decode_step(cfg, None, tsteps.DistConfig(), B, S + 2)
     from repro_torch.models.params import init_params
     params = init_params(p_specs, torch.Generator().manual_seed(0))
     batch = {"tokens": _tbatch(_np_batch(cfg))["tokens"]}

@@ -380,14 +380,14 @@ def test_remat_runs_the_mixer_forward_twice_and_its_backward_once_per_layer(monk
     monkeypatch.setattr(ops.WKV6, "backward", staticmethod(count_bwd))
     cfg = dataclasses.replace(get_config("rwkv6_3b").smoke(), n_layers=3,
                               activation_dtype="float32")
-    _, p_specs, _, _ = tsteps.make_train_step(cfg)
+    _, p_specs, _, _ = tsteps.make_train_step(cfg, None)
     params = init_params(p_specs, torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g),
              "labels": torch.randint(0, cfg.vocab, (2, 16), generator=g)}
     for remat, want in ((True, (6, 3)), (False, (3, 3))):
         calls.update(forward=0, backward=0)
-        ctx = tsteps.make_ctx(cfg, "train", tsteps.DistConfig(remat=remat))
+        ctx = tsteps.make_ctx(cfg, None, "train", tsteps.DistConfig(remat=remat))
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         loss, _ = tT.lm_loss(tsteps._rebuild(params, iter(leaves)), batch, cfg, ctx)
         torch.autograd.grad(loss, leaves)
