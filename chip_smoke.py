@@ -190,7 +190,19 @@ prints no result):
    within 3e-2 in norm after the last, K3 and K3b on ``tma`` over the rank's 16 of 32 query and 4 of 8
    key/value heads (all of them under FSDP), K4 on ``ring`` and K4b on
    ``direct`` over its 20 of 40 heads, each run's ms a step (two processes
-   taking turns on one card); ``[train-cli]``, ``python -m
+   taking turns on one card); ``[serve-tp]``, the sharded serving steps on
+   the same mesh of two processes: granite-3-2b cut to 8 layers,
+   rwkv6-3b and granite-moe-3b-a800m to 4, full width, bf16, a prefill of
+   2 x 2048 under ``TRAIN_RULES``, its caches moved to ``DECODE_RULES``'
+   sequence shards, 32 greedy steps, each rank's logits within
+   ``SERVE_TP_LIMIT`` of one process's largest at every step up to the
+   first where the greedy tokens part (and that one a near tie), K3 and
+   K4 launches and heads a rank asserted, prefill ms, decode ms a step and
+   peak GB a rank; ``[dryrun]``, ``repro_torch.launch.dryrun.lower_cell``
+   of three cells in a subprocess that sees no CUDA device (a fake process
+   group of the production mesh, ``meta`` tensors), each ``ok`` with its
+   roofline terms, and ``launch/mesh.py::HBM_PER_CHIP`` equal to the
+   card's memory; ``[train-cli]``, ``python -m
    repro_torch.launch.train --arch granite_3_2b --smoke --steps 4`` and the
    same with ``--arch rwkv6_3b``, which must exit 0;
 16. ``[examples]``: the five ``examples/*_torch.py`` twins' ``main`` in
@@ -2434,6 +2446,297 @@ def train_tp(dev, smi: str) -> None:
     print(f"[train-tp] both ranks in {wall:.1f} s (spawn, imports and every run)")
 
 
+# [serve-tp]: (arch, layers) served by two processes on one card, a (data 1,
+# model 2) mesh over gloo: a prefill of SERVE_TP_BATCH, then SERVE_TP_STEPS
+# greedy decode steps
+SERVE_TP_RUNS = (("granite_3_2b", 8), ("rwkv6_3b", 4), ("granite_moe_3b_a800m", 4))
+SERVE_TP_BATCH = (2, 2048)
+SERVE_TP_STEPS = 32
+SERVE_TP_TIMEOUT_S = 300
+# the largest gap between a rank's logits and one process's, relative to the
+# one process's largest |logit|, at every step up to the first where the
+# greedy tokens part (bf16 activations summed in another order); PERF.md's
+# Findings give it, written before the first run
+SERVE_TP_LIMIT = 5e-2
+
+
+def _serve_tp_cfg(arch: str, layers: int):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _serve_tp_weights(cfg, dev):
+    """The whole weights of the (data 1, model 2) mesh's padded config, drawn
+    on the card in the activation dtype (the norm scales and the RWKV and
+    Mamba vectors in f32), the same on every process."""
+    from repro_torch.configs.base import pad_for_tp
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    return init_params(T.model_param_specs(pad_for_tp(cfg, 2), tp=2),
+                       torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+
+
+def _serve_tp_tokens(cfg, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randint(0, cfg.vocab, SERVE_TP_BATCH, generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def _serve_tp_run(prefill, decode, params, tokens, vocab) -> dict:
+    """Prefill, then greedy decode: the logits of each step (f32, on the
+    host), the prefill's ms and the decode steps' ms.  An untimed prefill
+    and decode step go first (a process's first K3, K4, cuBLAS and gloo
+    calls), and K3's and K4's counts are set to 0 after them."""
+    with torch.inference_mode():
+        cache, logits = prefill(params, {"tokens": tokens})
+        decode(params, cache, logits[:, :vocab].argmax(-1), tokens.shape[1])
+        del cache, logits
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_prefill = (time.perf_counter() - t0) * 1e3
+        out = [logits[:, :vocab].float().cpu()]
+        t0 = time.perf_counter()
+        for i in range(SERVE_TP_STEPS):
+            logits, cache = decode(params, cache, logits[:, :vocab].argmax(-1),
+                                   tokens.shape[1] + i)
+            out.append(logits[:, :vocab].float().cpu())
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) * 1e3 / SERVE_TP_STEPS
+    return {"logits": torch.stack(out), "prefill_ms": t_prefill, "decode_ms": t_decode}
+
+
+def _serve_tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of ``[serve-tp]``'s two ranks, both on ``cuda:0``, over gloo:
+    each model of :data:`SERVE_TP_RUNS` from the whole weights drawn on the
+    card, cut into this rank's blocks, served by ``make_prefill_step`` and
+    ``make_decode_step``; writes the logits, the times, the launches by
+    path, the head counts K3 and K4 saw and the peak memory."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import DistConfig, make_decode_step, make_prefill_step
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import shard_tree, tree_shardings
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        heads: set = set()
+        attention, wkv6 = L.attention, ops.wkv6
+
+        def seen_attention(q, k, v, **kw):
+            heads.add(("K3", q.shape[2], k.shape[2]))
+            return attention(q, k, v, **kw)
+
+        def seen_wkv6(r, *a, **kw):
+            heads.add(("K4", r.shape[1]))
+            return wkv6(r, *a, **kw)
+
+        L.attention, ops.wkv6 = seen_attention, seen_wkv6
+        out = []
+        for arch, layers in SERVE_TP_RUNS:
+            cfg = _serve_tp_cfg(arch, layers)
+            cache_len = SERVE_TP_BATCH[1] + SERVE_TP_STEPS
+            prefill, p_specs, ctx = make_prefill_step(cfg, mesh, cache_len=cache_len)
+            decode, _, _, dctx = make_decode_step(cfg, mesh, DistConfig(), SERVE_TP_BATCH[0],
+                                                  cache_len)
+            params = shard_tree(_serve_tp_weights(cfg, dev),
+                                tree_shardings(p_specs, mesh, ctx.rules))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            heads.clear()
+            run = _serve_tp_run(prefill, decode, params, _serve_tp_tokens(cfg, dev), cfg.vocab)
+            if rank == 0:
+                torch.save(run["logits"], os.path.join(out_dir, f"logits{len(out)}.pt"))
+            out.append({"arch": arch, "prefill_ms": run["prefill_ms"],
+                        "decode_ms": run["decode_ms"], "seqpar": dctx.seq_sharded_cache,
+                        "counts": {k: {p: n for p, n in by.items() if n}
+                                   for k, by in _counts().items() if any(by.values())},
+                        "heads": sorted(heads),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del params, prefill, decode
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _first_parting(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The first step whose greedy tokens differ on some row (the number of
+    steps where none does)."""
+    differ = (got.argmax(-1) != want.argmax(-1)).any(-1)
+    return int(differ.nonzero()[0]) if bool(differ.any()) else len(differ)
+
+
+def serve_tp(dev, smi: str) -> None:
+    """``[serve-tp]``: the sharded serving steps on a (data 1, model 2) mesh
+    of two spawned processes, both on ``cuda:0``, over gloo: granite-3-2b
+    cut to 8 layers (K3 on each rank's 16 query and 4 key/value heads),
+    rwkv6-3b cut to 4 (K4 on 20 heads) and granite-moe-3b-a800m cut to 4
+    (K3 on 12/4 heads, the expert-parallel MoE in the prefill), at full
+    width in bf16: a prefill of 2 x 2048 under ``TRAIN_RULES``, its caches
+    moved to ``DECODE_RULES``' sequence shards, then 32 greedy steps.  Each
+    is held against one process on the same weights
+    (``make_prefill_step(cfg, None)``), each after an untimed warm-up
+    prefill and step: at every step up to the first whose
+    greedy tokens part, a rank's logits within :data:`SERVE_TP_LIMIT` of
+    the largest |logit|, and where they part, the one process's top two
+    logits within that limit of each other (a near tie).  Each rank's K3 and
+    K4 launches (one a layer, in the prefill) are asserted.  The times are
+    two processes taking turns on one card, not a multi-GPU time."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.steps import DistConfig, make_decode_step, make_prefill_step
+
+    want = []
+    for arch, layers in SERVE_TP_RUNS:
+        cfg = _serve_tp_cfg(arch, layers)
+        cache_len = SERVE_TP_BATCH[1] + SERVE_TP_STEPS
+        prefill = make_prefill_step(cfg, None, cache_len=cache_len)[0]
+        decode = make_decode_step(cfg, None, DistConfig(), SERVE_TP_BATCH[0], cache_len)[0]
+        torch.cuda.reset_peak_memory_stats()
+        run = _serve_tp_run(prefill, decode, _serve_tp_weights(cfg, dev),
+                            _serve_tp_tokens(cfg, dev), cfg.vocab)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        want.append(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="serve_tp_")
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_serve_tp_rank, args=(r, os.path.join(tmp, "store"), tmp))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SERVE_TP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join(10)
+        if hung or [p.exitcode for p in procs] != [0, 0]:
+            raise AssertionError(f"[serve-tp] ranks exited {[p.exitcode for p in procs]}"
+                                 f"{', hung' if hung else ''}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        logits = [torch.load(os.path.join(tmp, f"logits{i}.pt")) for i in range(len(want))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for i, (arch, layers) in enumerate(SERVE_TP_RUNS):
+        cfg = _serve_tp_cfg(arch, layers)
+        got, one = logits[i], want[i]["logits"]
+        scale = float(one.abs().max())
+        part = _first_parting(got, one)
+        upto = min(part + 1, len(one))
+        gap = float((got[:upto] - one[:upto]).abs().max()) / scale
+        if part < len(one):
+            rows = got[part].argmax(-1) != one[part].argmax(-1)
+            top2 = one[part][rows].topk(2, dim=-1).values
+            tie = float((top2[..., 0] - top2[..., 1]).max()) / scale
+            if tie > SERVE_TP_LIMIT:
+                raise AssertionError(f"[serve-tp] {cfg.name}: greedy tokens part at step {part} "
+                                     f"where one process's top two logits are {tie:.3e} of the "
+                                     f"largest apart (limit {SERVE_TP_LIMIT})")
+        if not gap <= SERVE_TP_LIMIT:
+            raise AssertionError(f"[serve-tp] {cfg.name}: logits {gap:.3e} of the largest from "
+                                 f"one process's (limit {SERVE_TP_LIMIT})")
+        kname = "wkv6" if arch == "rwkv6_3b" else "flash_attention"
+        path = "ring" if kname == "wkv6" else "tma"
+        heads = ([["K4", cfg.rwkv_n_heads // 2]] if kname == "wkv6"
+                 else [["K3", cfg.n_heads // 2, cfg.n_kv_heads // 2]])
+        expect = {kname: {path: cfg.n_layers}}
+        for r, run in enumerate(ranks):
+            if run[i]["counts"] != expect or run[i]["heads"] != heads or not run[i]["seqpar"]:
+                raise AssertionError(f"[serve-tp] {cfg.name} rank {r}: launched "
+                                     f"{run[i]['counts']}, want {expect}; heads {run[i]['heads']},"
+                                     f" want {heads}; sequence-sharded caches {run[i]['seqpar']}")
+        print(f"[serve-tp] {cfg.name} cut to {cfg.n_layers} layers, full width, bf16, on a "
+              f"(data 1, model 2) mesh of 2 processes on one card over gloo: prefill "
+              f"{SERVE_TP_BATCH[0]} x {SERVE_TP_BATCH[1]} (TRAIN_RULES), caches moved to "
+              f"sequence shards, {SERVE_TP_STEPS} greedy steps (DECODE_RULES); largest logit gap "
+              f"{gap:.3e} of the largest |logit| ({scale:.2f}) over steps 0-{upto - 1} "
+              f"(limit {SERVE_TP_LIMIT}); greedy tokens equal for "
+              f"{min(part, len(one))}/{len(one)} steps; launches a rank {expect} over heads "
+              f"{heads[0][1:]}; prefill ms rank 0 {ranks[0][i]['prefill_ms']:.1f} rank 1 "
+              f"{ranks[1][i]['prefill_ms']:.1f} (one process {want[i]['prefill_ms']:.1f}); decode "
+              f"ms a step rank 0 {ranks[0][i]['decode_ms']:.1f} rank 1 "
+              f"{ranks[1][i]['decode_ms']:.1f} (one process, eager, {want[i]['decode_ms']:.1f}); "
+              f"peak GB rank 0 {ranks[0][i]['peak_gb']:.2f} rank 1 {ranks[1][i]['peak_gb']:.2f} "
+              f"(one process {want[i]['peak_gb']:.2f}); two processes taking turns on one card, "
+              f"not a multi-GPU time; {smi}")
+    print(f"[serve-tp] both ranks in {wall:.1f} s (spawn, imports and every run)")
+
+
+# [dryrun]: cells traced on the host, without the card (arch, shape, multi-pod)
+DRYRUN_CELLS = (("granite_3_2b", "train_4k", False), ("deepseek_moe_16b", "prefill_32k", True),
+                ("rwkv6_3b", "long_500k", False))
+DRYRUN_TIMEOUT_S = 240
+
+
+def dryrun_phase() -> None:
+    """``[dryrun]``: ``repro_torch.launch.dryrun.lower_cell`` of three cells
+    in a subprocess with no CUDA device visible (the fake process group of
+    the production mesh, ``meta`` tensors), each ``ok`` with its terms; and
+    the card's memory against the constant the dry run's fit check reads."""
+    from repro_torch.launch.mesh import HBM_PER_CHIP
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] torch.cuda.get_device_properties(0).total_memory = {total}; "
+          f"launch/mesh.py HBM_PER_CHIP = {HBM_PER_CHIP}")
+    if total != HBM_PER_CHIP:
+        raise AssertionError(f"[dryrun] HBM_PER_CHIP {HBM_PER_CHIP} is not this card's {total}")
+    code = ("import json, sys, time\n"
+            "from repro_torch.launch import dryrun as D\n"
+            f"for arch, shape, mp in {DRYRUN_CELLS!r}:\n"
+            "    t0 = time.time()\n"
+            "    rec = D.lower_cell(arch, shape, multi_pod=mp)\n"
+            "    rec['wall_s'] = round(time.time() - t0, 1)\n"
+            "    print(json.dumps(rec), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                       env=env, timeout=DRYRUN_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"[dryrun] exited {r.returncode}: {r.stderr[-3000:]}")
+    recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    if [(x["arch"], x["shape"], x["multi_pod"], x["status"]) for x in recs] != \
+            [(a, s, mp, "ok") for a, s, mp in DRYRUN_CELLS]:
+        raise AssertionError(f"[dryrun] records {recs}")
+    for x in recs:
+        t = x["terms"]
+        print(f"[dryrun] {x['arch']} {x['shape']} on {x['n_chips']} fake ranks "
+              f"({'multi-pod' if x['multi_pod'] else 'pod'}), torch {torch.__version__}, no "
+              f"CUDA: compute {t['compute_s'] * 1e3:.3f} ms, memory {t['memory_s'] * 1e3:.3f} ms,"
+              f" collectives {t['collective_s'] * 1e3:.3f} ms (per axis bytes "
+              f"{x['collectives']['per_axis']}), dominant {x['dominant']}, roofline fraction "
+              f"{x['roofline_fraction']:.3f}, peak live {x['peak_live_bytes_analytic'] / 1e9:.2f} "
+              f"GB (fits {x['fits_hbm_analytic']}), useful FLOPs ratio "
+              f"{x['useful_flops_ratio']:.3f}, {x['op_count']} ops traced in {x['t_lower_s']} s "
+              f"({x['wall_s']} s with the mesh); analytic counts at one H100's peaks, not times")
+    print(f"[dryrun] subprocess in {time.perf_counter() - t0:.1f} s")
+
+
 def train_restart(dev) -> None:
     """``[train-restart]``: granite-3-2b cut to 2 full-width layers, batch 2 x
     256, 12 steps with a checkpoint every 5 and a failure injected before
@@ -3395,6 +3698,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_tp(dev, smi)
     mark("train-tp")
+    serve_tp(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("serve-tp")
+    dryrun_phase()
+    mark("dryrun")
     train_cli()
     mark("train-cli")
 

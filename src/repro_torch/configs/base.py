@@ -6,7 +6,8 @@ A :class:`ModelConfig` fully describes one architecture: geometry, the layer
 with its parameters stacked on a leading axis), MoE/MLA/SSM hyperparameters
 and numerics.  The 10 assigned architectures live in sibling modules,
 registered in :mod:`repro_torch.configs.registry`.  The classes are copied
-verbatim, so every config equals the reference's field for field.
+verbatim, so every config equals the reference's field for field; so are
+the assigned input shapes (:data:`SHAPES`) the dry run lowers.
 """
 
 from __future__ import annotations
@@ -186,3 +187,29 @@ def pad_for_tp(cfg: "ModelConfig", tp: int) -> "ModelConfig":
     # freeze head_dim before padding head counts (it may be derived from d)
     return dataclasses.replace(cfg, head_dim=cfg.hd, n_heads=H, n_kv_heads=K,
                                rwkv_heads_pad=rwkv_pad)
+
+
+# The assigned input-shape set (LM family): seq_len x global_batch ------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether this (arch, shape) cell runs; reason if skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("skip: pure full-attention arch — 512k dense-attention "
+                       "decode has no sub-quadratic path in published form")
+    return True, ""

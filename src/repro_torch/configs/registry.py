@@ -1,9 +1,11 @@
-"""Architecture registry and random batches (the port of
-``repro/configs/registry.py``, without its ``jax`` stand-ins).
+"""Architecture registry, input specs and random batches (the port of
+``repro/configs/registry.py``).
 
 ``get_config(name)`` returns the exact published geometry (``arch+variant``:
-with the fields of :data:`VARIANTS`); ``make_batch`` draws real tensors from
-an explicit :class:`torch.Generator`.
+with the fields of :data:`VARIANTS`); ``input_specs`` returns ``meta``
+tensors (the dry run's stand-ins: shapes and dtypes, no allocation) and
+``make_batch`` real tensors drawn from an explicit :class:`torch.Generator`,
+for each assigned shape.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import importlib
 
 import torch
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
 ARCH_IDS = [
     "rwkv6_3b",
@@ -63,6 +65,44 @@ def get_config(name: str) -> ModelConfig:
     return cfg
 
 
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def _batch_shapes(cfg: ModelConfig, seq: int, batch: int, with_labels: bool) -> dict:
+    """name -> (shape, dtype) for a full-sequence batch of ``seq`` positions."""
+    out: dict = {}
+    s_text = seq
+    if cfg.vlm:
+        s_text = seq - cfg.n_patches
+        out["patch_embeds"] = ((batch, cfg.n_patches, cfg.d_model), torch.bfloat16)
+    if cfg.enc_dec:
+        out["enc_embeds"] = ((batch, cfg.encoder_seq, cfg.d_model), torch.bfloat16)
+    out["tokens"] = ((batch, s_text), torch.int32)
+    if with_labels:
+        out["labels"] = ((batch, s_text), torch.int32)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The global batch of a train or prefill shape as ``meta`` tensors
+    (decode cells build their cache specs with ``transformer.cache_specs``)."""
+    shapes = _batch_shapes(cfg, shape.seq_len, shape.global_batch,
+                           with_labels=shape.kind == "train")
+    return {k: torch.empty(s, dtype=d, device="meta") for k, (s, d) in shapes.items()}
+
+
+def cells(arch_ids=None, shape_names=None):
+    """All (arch, shape, applicable, reason) cells in assignment order."""
+    out = []
+    for a in (arch_ids or ARCH_IDS):
+        cfg = get_config(a)
+        for s in (shape_names or SHAPES):
+            ok, reason = shape_applicable(cfg, SHAPES[s])
+            out.append((a, s, ok, reason))
+    return out
+
+
 def make_batch(cfg: ModelConfig, seq: int, batch: int, *, train: bool,
                generator: torch.Generator) -> dict:
     """A random batch of ``seq`` positions on the generator's device, drawn
@@ -72,16 +112,11 @@ def make_batch(cfg: ModelConfig, seq: int, batch: int, *, train: bool,
     ``normal x 0.02`` in bf16), then int32 ``tokens`` in ``[0, vocab)`` (and
     ``labels`` when ``train``)."""
     device = generator.device
-    embeds = []
-    s_text = seq
-    if cfg.vlm:
-        s_text = seq - cfg.n_patches
-        embeds.append(("patch_embeds", (batch, cfg.n_patches, cfg.d_model)))
-    if cfg.enc_dec:
-        embeds.append(("enc_embeds", (batch, cfg.encoder_seq, cfg.d_model)))
-    out = {name: (torch.randn(shape, generator=generator, device=device) * 0.02).to(
-        torch.bfloat16) for name, shape in embeds}
-    for name in ("tokens", "labels") if train else ("tokens",):
-        out[name] = torch.randint(0, cfg.vocab, (batch, s_text), generator=generator,
-                                  device=device, dtype=torch.int32)
+    out = {}
+    for name, (shape, dtype) in _batch_shapes(cfg, seq, batch, with_labels=train).items():
+        if dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab, shape, generator=generator, device=device,
+                                      dtype=dtype)
+        else:
+            out[name] = (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
     return out

@@ -5,11 +5,24 @@ switch that sends CUDA tensors anywhere else.
 Attention under autograd goes through :class:`FlashAttention`, whose
 forward is K3 writing the log-sum-exp rows and whose backward is K3b; the
 RWKV-6 recurrence through :class:`WKV6`, whose forward is K4 and whose
-backward is K4b (on the CPU, the plain versions of all four)."""
+backward is K4b (on the CPU, the plain versions of all four).
+
+On a ``meta`` tensor (the dry run, :mod:`repro_torch.launch.dryrun`) K3,
+K3b, K4 and K4b are each one ``torch.library`` custom op
+(``torch.ops.repro_torch.*``) whose fake gives the outputs' shapes and
+dtypes without computing them, so a traced step sees each kernel as one
+region, as the reference's walkers see a ``fusedkernel`` region: its FLOPs
+from a formula (:data:`REGION_FLOPS`, registered with
+``torch.utils.flop_counter``) and its memory traffic as its inputs and
+outputs.  A CUDA or CPU tensor goes straight to the kernel or the plain
+version, without the op's dispatch."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref as _ref
 from .flash_attention import HEAD_DIMS
@@ -35,6 +48,108 @@ def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ref.matadd(a, b)
 
 
+def _on_cuda(*ts) -> bool:
+    return any(t is not None and t.is_cuda for t in ts)
+
+
+def _region(name: str, schema: str, fake):
+    """Makes ``fn`` the custom op ``repro_torch::name`` (``schema``, with
+    ``fake`` giving its outputs' shapes) for ``meta`` tensors only: a CUDA
+    or CPU tensor calls ``fn`` itself, since the op's dispatch costs more
+    host time a call than the kernel's launch."""
+    def wrap(fn):
+        op = torch.library.custom_op(f"repro_torch::{name}", fn, mutates_args=(), schema=schema)
+        op.register_fake(fake)
+
+        def call(*args):
+            return op(*args) if args[0].is_meta else fn(*args)
+        return call
+    return wrap
+
+
+@_region("flash_attention",
+         "(Tensor q, Tensor k, Tensor v, bool causal, int? kv_len, float cap) -> Tensor",
+         lambda q, k, v, causal, kv_len, cap: q.new_empty(q.shape))
+def _k3(q, k, v, causal, kv_len, cap):
+    if _on_cuda(q, k, v):
+        return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+    return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+
+
+@_region("flash_attention_fwd",
+         "(Tensor q, Tensor k, Tensor v, bool causal, int? kv_len, float cap) "
+         "-> (Tensor, Tensor)",
+         lambda q, k, v, causal, kv_len, cap: (
+             q.new_empty(q.shape), q.new_empty(q.shape[:-1], dtype=torch.float32)))
+def _k3_lse(q, k, v, causal, kv_len, cap):
+    if _on_cuda(q, k, v):
+        return _flash_fwd_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+    return _ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+
+
+@_region("flash_attention_bwd",
+         "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, bool causal, "
+         "int? kv_len, float cap) -> (Tensor, Tensor, Tensor)",
+         lambda q, k, v, o, lse, dout, causal, kv_len, cap: (
+             q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)))
+def _k3b(q, k, v, o, lse, dout, causal, kv_len, cap):
+    kw = dict(causal=causal, kv_len=kv_len, cap=cap)
+    if _on_cuda(q):
+        return _flash_bwd_kernel(q, k, v, o, lse, dout, **kw)
+    return _ref.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+
+
+@_region("wkv6", "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u) -> (Tensor, Tensor)",
+         lambda r, k, v, w, u: (r.new_empty(r.shape), r.new_empty(
+             (*r.shape[:2], r.shape[3], r.shape[3]), dtype=torch.float32)))
+def _k4(r, k, v, w, u):
+    if _on_cuda(r, k, v, w, u):
+        return _wkv6_kernel(r, k, v, w, u)
+    return _ref.wkv6(r, k, v, w, u)
+
+
+@_region("wkv6_bwd",
+         "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor do, Tensor? dstate) "
+         "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+         lambda r, k, v, w, u, do, dstate: tuple(t.new_empty(t.shape) for t in (r, k, v, w, u)))
+def _k4b(r, k, v, w, u, do, dstate):
+    if _on_cuda(r):
+        return _wkv6_bwd_kernel(r, k, v, w, u, do, dstate)
+    return _ref.wkv6_bwd(r, k, v, w, u, do, dstate)
+
+
+def _pairs(q_shape, k_shape) -> int:
+    """Query-key pairs of an attention call, every block counted: the
+    whole ``Sq x Sk`` square a head, causal or not."""
+    B, H, Sq, _ = q_shape
+    return B * H * Sq * k_shape[2]
+
+
+# FLOPs of each kernel region from its inputs' shapes: K3 4 hd a query-key
+# pair (the scores and P V), K3b 10 hd (the scores again, dP, dq, dk, dv),
+# as the reference's walker counts its ``fusedkernel`` regions' dots over
+# every block; K4 7 N^2 a (b, h, step) (k v^T, u k v^T + S, r (.), w S +
+# k v^T), K4b 14 N^2 (the state recomputed, dr, dk, dv, dw and the state's
+# gradient)
+REGION_FLOPS = {
+    "flash_attention": lambda q, k, *_: 4 * _pairs(q, k) * q[-1],
+    "flash_attention_fwd": lambda q, k, *_: 4 * _pairs(q, k) * q[-1],
+    "flash_attention_bwd": lambda q, k, *_: 10 * _pairs(q, k) * q[-1],
+    "wkv6": lambda r, *_: 7 * math.prod(r) * r[-1],
+    "wkv6_bwd": lambda r, *_: 14 * math.prod(r) * r[-1],
+}
+
+
+def _flop_formula(fn):
+    def formula(*args, out_shape=None, **kwargs):
+        return fn(*args)
+    return formula
+
+
+for _name, _fn in REGION_FLOPS.items():
+    register_flop_formula(getattr(torch.ops.repro_torch, _name))(_flop_formula(_fn))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None,
                     cap: float = 0.0) -> torch.Tensor:
@@ -44,9 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :class:`FlashAttention`; otherwise the serving call, with no LSE."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, kv_len, cap)
-    if q.is_cuda or k.is_cuda or v.is_cuda:
-        return _flash_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
-    return _ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+    return _k3(q, k, v, causal, kv_len, float(cap))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -59,22 +172,15 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, kv_len: int | None, cap: float):
-        if q.is_cuda or k.is_cuda or v.is_cuda:
-            o, lse = _flash_fwd_kernel(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
-        else:
-            o, lse = _ref.flash_attention_fwd(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
+        o, lse = _k3_lse(q, k, v, causal, kv_len, float(cap))
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.kv_len, ctx.cap = causal, kv_len, cap
+        ctx.causal, ctx.kv_len, ctx.cap = causal, kv_len, float(cap)
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        kw = dict(causal=ctx.causal, kv_len=ctx.kv_len, cap=ctx.cap)
-        if q.is_cuda:
-            grads = _flash_bwd_kernel(q, k, v, o, lse, dout, **kw)
-        else:
-            grads = _ref.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        grads = _k3b(q, k, v, o, lse, dout, ctx.causal, ctx.kv_len, ctx.cap)
         return (*grads, None, None, None)
 
 
@@ -85,9 +191,7 @@ def wkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
     ts = (r, k, v, w, u)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return WKV6.apply(*ts)
-    if any(t.is_cuda for t in ts):
-        return _wkv6_kernel(*ts)
-    return _ref.wkv6(*ts)
+    return _k4(*ts)
 
 
 class WKV6(torch.autograd.Function):
@@ -100,18 +204,14 @@ class WKV6(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u)
-        if any(t.is_cuda for t in (r, k, v, w, u)):
-            return _wkv6_kernel(r, k, v, w, u)
-        return _ref.wkv6(r, k, v, w, u)
+        return _k4(r, k, v, w, u)
 
     @staticmethod
     def backward(ctx, do, dstate):
         r, k, v, w, u = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(r)
-        if r.is_cuda:
-            return _wkv6_bwd_kernel(r, k, v, w, u, do, dstate)
-        return _ref.wkv6_bwd(r, k, v, w, u, do, dstate)
+        return _k4b(r, k, v, w, u, do, dstate)
 
 
 KERNELS = {"matmul": _matmul_kernel, "matadd": _matadd_kernel,

@@ -1,6 +1,7 @@
 """Device meshes over ``torch.distributed`` (the port of
 ``repro/launch/mesh.py``): the reference's production meshes, its host mesh,
-and ``make_mesh`` for any shape.
+``make_mesh`` for any shape, and the roofline constants of one GPU that the
+dry run's terms divide by.
 
 A :class:`Mesh` names the axes of a ``DeviceMesh`` built over the process
 group the caller started, and keeps the reference's view of it: ``shape``
@@ -215,3 +216,16 @@ def make_host_mesh() -> Mesh:
     """The 1-rank (data 1, model 1) mesh of one process, which needs no
     process group: every collective on it is the identity."""
     return Mesh({"data": 1, "model": 1})
+
+
+# Roofline constants of one NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit:
+# NVIDIA's data sheet, dense rates.  The production meshes lay "model" and
+# "data" over NVLink 4 and "pod" over InfiniBand.
+PEAK_FLOPS_BF16 = 989e12          # bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                  # bytes/s
+NVLINK_BW = 450e9                 # bytes/s each way per GPU (NVLink 4, 18 links)
+IB_BW = 50e9                      # bytes/s per GPU (one 400 Gb/s NDR port)
+LINK_BW = {"model": NVLINK_BW, "data": NVLINK_BW, "pod": IB_BW}
+# torch.cuda.get_device_properties(0).total_memory on an
+# "NVIDIA H100 80GB HBM3, 700.00 W" card (chip_smoke.py's [dryrun] prints it)
+HBM_PER_CHIP = 85_017_493_504

@@ -3,24 +3,24 @@
 from a config, and the shardings of their trees from the logical-axis
 rules.
 
-``make_train_step(cfg, mesh, dist)`` with ``mesh=None`` is the one-device
-step.  On a :class:`~repro_torch.launch.mesh.Mesh` each process is one rank
-and holds its blocks of the parameters, the optimizer state and the batch
+Each factory with ``mesh=None`` gives the one-device step.  On a
+:class:`~repro_torch.launch.mesh.Mesh` each process is one rank and holds
+its blocks of the parameters, the optimizer state, the caches and the batch
 (:func:`repro_torch.parallel.sharding.tree_shardings`,
-:func:`shardings_for_batch`; the trainer cuts them with
-:func:`repro_torch.parallel.sharding.shard_tree`), and the step is
-explicit SPMD: Megatron tensor parallelism over "model" (or ZeRO-3 with
+:func:`shardings_for_batch`; cut with
+:func:`repro_torch.parallel.sharding.shard_tree`), and the step is explicit
+SPMD: Megatron tensor parallelism over "model" (or ZeRO-3 with
 ``sharding_mode="fsdp"``), sequence parallelism with ``seq_parallel``, the
 expert-parallel MoE, data parallelism over "pod" and "data", each where the
-reference's rule sets put it (:class:`~repro_torch.models.layers.Ctx`).  On
-the host mesh (every axis of size 1) it computes what the one-device step
-does, bit for bit.
+reference's rule sets put it (:class:`~repro_torch.models.layers.Ctx`).
+Prefill (``TRAIN_RULES``) and decode (``DECODE_RULES``) share one parameter
+layout; decode shards each attention cache's sequence over "model".  On the
+host mesh (every axis of size 1) each step computes what the one-device
+step does, bit for bit.
 
-:class:`DistConfig` keeps the reference's fields.  ``q_chunk`` and
-``kv_chunk`` are not taken: they pick between attention branches that
-compute the same function, and the port sends both to one K3 call.
-Sharded serving steps (a prefill or decode step on a mesh with an axis
-above 1) are not ported yet (ROADMAP queue 1, item 9c): they raise.
+:class:`DistConfig` keeps the reference's fields but ``q_chunk`` and
+``kv_chunk``: they pick between attention branches that compute the same
+function, and the port sends both to one K3 call.
 """
 
 from __future__ import annotations
@@ -46,8 +46,6 @@ class DistConfig:
     seq_parallel: bool = False
     decode_seqpar: bool = True  # flash-decode cache seq-sharding
     remat: bool = True
-    q_chunk: int = 512
-    kv_chunk: int = 1024
     compress_int8: bool = False
     moe_dedup: bool = False
     moe_dest_k: float | None = None
@@ -56,6 +54,11 @@ class DistConfig:
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _tp(mesh) -> int:
+    """The size of the "model" axis (1 without a mesh)."""
+    return shd.model_size(mesh) if mesh is not None else 1
 
 
 def make_ctx(cfg: ModelConfig, mesh, phase: str, dist: DistConfig) -> Ctx:
@@ -151,7 +154,7 @@ def make_train_step(cfg: ModelConfig, mesh, dist: DistConfig = DistConfig(),
     so the step is the unsharded step's."""
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         lr=dist.lr, state_dtype=_dtype(cfg.optstate_dtype), compress_int8=dist.compress_int8)
-    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    tp = _tp(mesh)
     cfg = pad_for_tp(cfg, tp)
     ctx = make_ctx(cfg, mesh, "train", dist)
     param_specs = T.model_param_specs(cfg, tp=tp)
@@ -200,23 +203,40 @@ def _rebuild(tree, leaves):
 # ---------------------------------------------------------------------------
 
 
-def _one_device(mesh, what: str) -> None:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(f"a sharded {what} step is not ported yet (ROADMAP queue 1, "
-                                  f"item 9c); this mesh is {mesh.shape}")
+def _decode_rules(cfg: ModelConfig, mesh, dist: DistConfig, cache_len: int) -> dict:
+    """Decode's rule set: ``DECODE_RULES``, each attention cache's
+    sequence over "model" where ``decode_seqpar`` asks and the model axis
+    divides ``cache_len``, else the caches split by heads."""
+    rules = shd.rules_for(cfg, "decode")
+    if not (dist.decode_seqpar and cache_len % shd.model_size(mesh) == 0):
+        rules["cache_seq"] = None
+    return rules
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None, dist: DistConfig = DistConfig(),
                       cache_len: int | None = None):
     """Returns (prefill_step, param_specs, ctx); ``prefill_step(params,
-    batch)`` is :func:`~repro_torch.models.transformer.prefill`.  ``mesh``
-    is None or the host mesh."""
-    _one_device(mesh, "prefill")
+    batch)`` is :func:`~repro_torch.models.transformer.prefill` of the
+    config padded for the model axis, returning (caches, logits).
+
+    On a mesh ``params`` and ``batch`` are the rank's blocks (as for the
+    train step), the logits are its data block's over the whole padded
+    vocabulary, and the caches are its blocks in the layout
+    :func:`make_decode_step` reads (:func:`~repro_torch.models.transformer.
+    shard_caches`: one all-to-all over "model" per attention cache)."""
+    tp = _tp(mesh)
+    cfg = pad_for_tp(cfg, tp)
     ctx = make_ctx(cfg, mesh, "prefill", dist)
-    param_specs = T.model_param_specs(cfg, tp=1)
+    param_specs = T.model_param_specs(cfg, tp=tp)
 
     def prefill_step(params, batch):
-        return T.prefill(params, batch, cfg, ctx, cache_len=cache_len)
+        caches, logits = T.prefill(params, batch, cfg, ctx, cache_len=cache_len)
+        if tp > 1:
+            S = cache_len or batch["tokens"].shape[1] + (
+                batch["patch_embeds"].shape[1] if cfg.vlm else 0)
+            caches = T.shard_caches(caches, T.cache_specs(cfg, 1, S, tp=tp), mesh, ctx.rules,
+                                    _decode_rules(cfg, mesh, dist, S))
+        return caches, logits
 
     return prefill_step, param_specs, ctx
 
@@ -224,14 +244,28 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, dist: DistConfig = DistConfig
 def make_decode_step(cfg: ModelConfig, mesh, dist: DistConfig, batch: int, cache_len: int):
     """Returns (decode_step, param_specs, cache_specs, ctx);
     ``decode_step(params, cache, tokens, pos)`` is
-    :func:`~repro_torch.models.transformer.decode_step`.  ``mesh`` is None or
-    the host mesh."""
-    _one_device(mesh, "decode")
+    :func:`~repro_torch.models.transformer.decode_step` of the config padded
+    for the model axis.  On a mesh the parameters are laid out as for
+    prefill, each cache is the rank's block under the returned context's
+    rules (``DECODE_RULES``: each attention cache's sequence over "model"),
+    and ``tokens`` and the logits (over the whole padded vocabulary) are
+    its data block's."""
+    tp = _tp(mesh)
+    cfg = pad_for_tp(cfg, tp)
     ctx = make_ctx(cfg, mesh, "decode", dist)
-    param_specs = T.model_param_specs(cfg, tp=1)
-    cache_spec_tree = T.cache_specs(cfg, batch, cache_len)
+    if mesh is not None:
+        rules = _decode_rules(cfg, mesh, dist, cache_len)
+        ctx = dataclasses.replace(ctx, rules=rules,
+                                  decode_seqpar=rules["cache_seq"] == "model")
+    param_specs = T.model_param_specs(cfg, tp=tp)
+    cache_spec_tree = T.cache_specs(cfg, batch, cache_len, tp=tp)
 
     def decode_step(params, cache, tokens, pos):
         return T.decode_step(params, cache, tokens, pos, cfg, ctx)
 
     return decode_step, param_specs, cache_spec_tree, ctx
+
+
+def replicated(mesh) -> shd.NamedSharding:
+    """A tensor whole on every rank of ``mesh``."""
+    return shd.NamedSharding(mesh, ())

@@ -56,11 +56,10 @@ class Ctx:
 
     ``mesh`` is ``None`` on one device, or a
     :class:`~repro_torch.launch.mesh.Mesh` (``mesh.shape`` maps axis names
-    to sizes), each process one rank of it.  Tensors go in and out of the
-    model in SPMD form, each rank holding its own blocks.
-
-    With ``rules`` (the training path, :func:`repro_torch.launch.steps.
-    make_ctx`), every parameter is the rank's block under
+    to sizes), each process one rank of it, with the ``rules`` of the phase
+    (:func:`repro_torch.launch.steps.make_ctx`).  Tensors go in and out of
+    the model in SPMD form, each rank holding its own blocks: every
+    parameter is the rank's block under
     :func:`repro_torch.parallel.sharding.spec_for` of its logical axes, and
     the model computes as the reference's rule sets lay it out:
 
@@ -71,30 +70,23 @@ class Ctx:
       ``mlp`` or ``mamba_inner`` block (Megatron): the input is whole (under
       sequence parallelism all-gathered over "model"), the row-parallel
       output is summed over "model" (reduce-scattered over the sequence
-      under sequence parallelism);
+      under sequence parallelism); in decode too;
     - the embedding and the LM head are vocab-parallel;
     - a weight's other sharded dimensions (FSDP's ``embed_fsdp``) are
       all-gathered per layer before use (:meth:`gather_params`); expert
-      weights stay sharded, the expert-parallel MoE owns them.
-
-    Without ``rules`` (the serving paths of a mesh, until the sharded
-    serving steps move them onto ``DECODE_RULES``: ROADMAP item 9c)
-    parameters are whole on every rank and activations are the rank's data
-    block, replicated over "model":
-
-    - the expert-parallel MoE (:func:`repro_torch.models.moe.moe_ep`,
-      ``moe_ep_dedup``, chosen by :func:`~repro_torch.models.moe.moe_apply`
-      when "model" is above 1 and the sequence at least as long) routes the
-      rank's slice ``x[:, m S/tp:(m+1) S/tp]`` of its data block (rank m of
-      tp along "model", the reference's ``PS(bspec, "model")``) over its
-      ``E/tp`` experts of the whole weights and all-gathers the output over
-      "model" before it returns (it does so with ``rules`` too, on the
-      rank's own expert block);
-    - with ``decode_seqpar``, decode attention
-      (:func:`decode_attn_seqpar`) holds each attention cache as the
-      rank's ``(batch block, S/tp)`` shard
-      (:func:`repro_torch.models.transformer.shard_caches`) and returns its
-      updated shard and the whole output of its batch block.
+      weights stay sharded: the expert-parallel MoE
+      (:func:`repro_torch.models.moe.moe_ep`, ``moe_ep_dedup``, chosen by
+      :func:`~repro_torch.models.moe.moe_apply` when "model" is above 1 and
+      the sequence at least as long) routes the rank's slice
+      ``x[:, m S/tp:(m+1) S/tp]`` of its data block over its own ``E/tp``
+      experts and all-gathers the output over "model";
+    - with ``decode_seqpar`` (``DECODE_RULES``' ``cache_seq``), each
+      attention cache is the rank's ``(batch block, S/tp)`` sequence shard
+      holding every key/value head, and decode attention
+      (:func:`decode_attn_seqpar`, MLA's :func:`mla_decode_block`) gathers
+      the rank's query heads over "model", attends over its shard and
+      combines the partial softmaxes; without it the caches hold the rank's
+      heads, whole along the sequence.
 
     ``moe_dedup`` sends a token once per destination rank, not once per
     expert, and ``moe_dest_k`` (the expected distinct destination ranks of
@@ -105,16 +97,15 @@ class Ctx:
 
     dtype: torch.dtype = torch.bfloat16
     mesh: Any = None
-    decode_seqpar: bool = False        # shard each attention cache's sequence over "model"
+    decode_seqpar: bool = False        # each attention cache's sequence over "model"
     remat: bool = True
     moe_dedup: bool = False            # dedup EP dispatch (one send per shard)
     rules: Mapping[str, object] | None = None
     moe_dest_k: float | None = None    # expected distinct dest shards/token
 
-    @property
-    def sharded(self) -> bool:
-        """Parameters are blocks under ``rules`` on a mesh."""
-        return self.mesh is not None and self.rules is not None
+    def __post_init__(self):
+        if self.mesh is not None and self.rules is None:
+            raise ValueError("a Ctx on a mesh needs the rules that lay out its parameters")
 
     @property
     def tp(self) -> int:
@@ -124,19 +115,24 @@ class Ctx:
     @property
     def seq_parallel(self) -> bool:
         """Activations hold the rank's slice of the sequence over "model"."""
-        return self.sharded and self.tp > 1 and self.rules.get("seq") == "model"
+        return self.tp > 1 and self.rules.get("seq") == "model"
+
+    @property
+    def seq_sharded_cache(self) -> bool:
+        """Each attention cache is the rank's shard of the sequence."""
+        return self.decode_seqpar and self.tp > 1
 
     def tp_sharded(self, name: str, size: int) -> bool:
         """A dimension of logical axis ``name`` and ``size`` is split over
         "model" (the rank computes on its block of it)."""
-        return (self.sharded and self.tp > 1
+        return (self.tp > 1
                 and shd.spec_for((name,), self.rules, self.mesh, (size,)) == ("model",))
 
     def cs(self, x, *axes):
         """``x`` (whole but for its batch block) to the layout ``axes``
         have under the rules: the rank's block of each dimension they shard
         (:func:`repro_torch.parallel.sharding.constraint`)."""
-        if not self.sharded or self.mesh.size == 1:
+        if self.mesh is None or self.mesh.size == 1:
             return x
         return shd.constraint(x, axes, self.rules, self.mesh)
 
@@ -146,7 +142,7 @@ class Ctx:
         ``embed_fsdp``, over "model" and, for a config with ``fsdp``, over
         "data") all-gathered; ``specs`` is the layer's :class:`P` tree.  The
         gathers' backward reduce-scatters the gradients (ZeRO-3)."""
-        if not self.sharded or self.mesh.size == 1:
+        if self.mesh is None or self.mesh.size == 1:
             return p
         if isinstance(p, dict):
             return {k: self.gather_params(v, specs[k]) for k, v in p.items()}
@@ -355,59 +351,95 @@ def decode_attn_dense(q, ck, cv, k_new, v_new, pos: torch.Tensor, *, logit_cap: 
     return o.reshape(B, H, hd).to(q.dtype), (ck, cv)
 
 
+def _gather_heads(ctx: Ctx, *ts):
+    """Each of ``ts`` (B, the rank's heads, ...) with every rank's heads,
+    in rank order along dim 1: one all-gather over "model"."""
+    B, tp = ts[0].shape[0], ctx.tp
+    widths = [t.shape[1] for t in ts]
+    got = ctx.mesh.all_gather(torch.cat(ts, dim=1), "model", 1)
+    parts = got.view(B, tp, sum(widths), *got.shape[2:]).split(widths, dim=2)
+    return [p.reshape(B, tp * w, *p.shape[3:]) for p, w in zip(parts, widths)]
+
+
+def _write_owned(c, new, pos: torch.Tensor, off: int):
+    """Write ``new`` (B, ...) at global position ``pos`` of the sequence
+    shard ``c`` (B, S_loc, ...) that starts at ``off``, in place, only where
+    this rank owns ``pos`` (the others write back what they hold); no host
+    read."""
+    S_loc = c.shape[1]
+    lpos = pos - off
+    owned = ((lpos >= 0) & (lpos < S_loc)).view(1, *[1] * (c.dim() - 1))
+    li = lpos.clamp(0, S_loc - 1)
+    c.index_copy_(1, li, torch.where(owned, new[:, None].to(c.dtype), c.index_select(1, li)))
+
+
+def _shard_softmax(s, off: int, pos: torch.Tensor, mesh):
+    """Partial softmax of the logits ``s`` (..., S_loc) of a sequence shard
+    starting at ``off``, positions past ``pos`` masked: (the weights
+    ``exp(s - m)`` under the max ``m`` over "model", their sum over
+    "model")."""
+    s = s.masked_fill(off + torch.arange(s.shape[-1], device=s.device) > pos, NEG_INF)
+    m = mesh.pmax(s.amax(dim=-1), "model")
+    pexp = torch.exp(s - m[..., None])
+    return pexp, mesh.psum(pexp.sum(dim=-1), "model")
+
+
 def decode_attn_seqpar(q, ck, cv, k_new, v_new, pos: torch.Tensor, *, ctx: Ctx,
                        logit_cap: float = 0.0):
     """Flash decode over a cache whose sequence is sharded over "model":
-    q (B, H, hd) and the new k, v (B, K, hd) of the rank's batch block;
-    ck, cv (B, S/tp, K, hd), the rank's shard of positions
-    ``[m S/tp, (m+1) S/tp)``.  Each rank scores its shard (a partial
-    softmax), and the global max, the sums of the weights and the weighted
-    values are combined over "model"; only the (B, H, hd) partials cross
-    between ranks, not the cache.  Returns (o (B, H, hd), (ck, cv)).
+    q (B, H/tp, hd) and the new k, v (B, K/tp, hd), the rank's heads of its
+    batch block (from its ``wq``/``wk``/``wv`` blocks); ck, cv
+    (B, S/tp, K, hd), the rank's shard of positions ``[m S/tp, (m+1) S/tp)``
+    holding every key/value head.  The query and the new key and value are
+    gathered over "model" (every head); each rank scores its shard (a
+    partial softmax), and the global max, the sums of the weights and the
+    weighted values are combined over "model" (the reference's
+    ``shard_map`` body): only (B, H, hd) partials cross between ranks, not
+    the cache.  Returns (o (B, H/tp, hd), the rank's heads for its
+    row-parallel ``wo``; (ck, cv)).
 
     The new key and value are written at ``pos`` (a one-element ``long``
     tensor) only on the rank that owns it, in place, as
     :func:`decode_attn_dense` writes (no host read); positions past
     ``pos`` are masked."""
     mesh = ctx.mesh
+    Hl = q.shape[1]
+    q, k_new, v_new = _gather_heads(ctx, q, k_new, v_new)
     B, S_loc, K, hd = ck.shape
     H = q.shape[1]
     G = H // K
-    off = mesh.axis_index("model") * S_loc
-    lpos = pos - off
-    owned = ((lpos >= 0) & (lpos < S_loc)).view(1, 1, 1, 1)
-    li = lpos.clamp(0, S_loc - 1)
-    ck.index_copy_(1, li, torch.where(owned, k_new[:, None].to(ck.dtype), ck.index_select(1, li)))
-    cv.index_copy_(1, li, torch.where(owned, v_new[:, None].to(cv.dtype), cv.index_select(1, li)))
+    m = mesh.axis_index("model")
+    off = m * S_loc
+    _write_owned(ck, k_new, pos, off)
+    _write_owned(cv, v_new, pos, off)
     qg = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), ck.float()) / math.sqrt(hd)
     if logit_cap > 0:
         s = logit_cap * torch.tanh(s / logit_cap)
-    s = s.masked_fill(off + torch.arange(S_loc, device=s.device) > pos, NEG_INF)
-    m = mesh.pmax(s.amax(dim=-1), "model")
-    pexp = torch.exp(s - m[..., None])
-    l_sum = mesh.psum(pexp.sum(dim=-1), "model")
+    pexp, l_sum = _shard_softmax(s, off, pos, mesh)
     o = torch.einsum("bkgs,bskh->bkgh", pexp.to(cv.dtype).float(), cv.float())
     o = mesh.psum(o, "model") / l_sum.clamp_min(1e-30)[..., None]
-    return o.reshape(B, H, hd).to(q.dtype), (ck, cv)
+    return o.reshape(B, H, hd)[:, m * Hl:(m + 1) * Hl].to(q.dtype), (ck, cv)
 
 
 def attn_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
-    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}, each the rank's
-    sequence shard under ``ctx.decode_seqpar`` on a "model" axis above 1
-    (:func:`decode_attn_seqpar`); pos: a one-element ``long`` tensor.
-    Returns (out (B,1,d), cache)."""
+    """x: (B, 1, d).  cache: {"k": (B,S,K,hd), "v": ...}, on a mesh the
+    rank's sequence shard (every head, :func:`decode_attn_seqpar`) where
+    ``ctx.seq_sharded_cache``, else its heads; pos: a one-element ``long``
+    tensor.  On the rank's heads, with the row-parallel output summed over
+    "model".  Returns (out (B,1,d), cache)."""
+    sharded = _heads_sharded(cfg, ctx)
     q, k, v = _qkv(p, x, cfg, ctx)               # (B,1,H,hd)/(B,1,K,hd)
     posv = pos.view(1, 1).expand(x.shape[0], 1)
     q = apply_rope(q, posv, cfg.rope_theta)[:, 0]
     k = apply_rope(k, posv, cfg.rope_theta)[:, 0]
-    if ctx.decode_seqpar and ctx.mesh is not None and ctx.mesh.shape.get("model", 1) > 1:
+    if ctx.seq_sharded_cache:
         o, (ck, cv) = decode_attn_seqpar(q, cache["k"], cache["v"], k, v[:, 0], pos, ctx=ctx,
                                          logit_cap=cfg.attn_logit_softcap)
     else:
         o, (ck, cv) = decode_attn_dense(q, cache["k"], cache["v"], k, v[:, 0], pos,
                                         logit_cap=cfg.attn_logit_softcap)
-    return _out(o, p["wo"], x.dtype)[:, None], {"k": ck, "v": cv}
+    return ctx.seq_out(_out(o, p["wo"], x.dtype)[:, None], sharded), {"k": ck, "v": cv}
 
 
 # ---------------------------------------------------------------------------
@@ -470,23 +502,45 @@ def mla_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     """Absorbed-weight MLA decode: the query scored in latent space against
     the compact cache {"latent": (B, S, r_kv), "k_rope": (B, S, dr)}, which
     is written at ``pos`` (a one-element ``long`` tensor) in place and
-    returned; like :func:`decode_attn_dense`, nothing is read on the host."""
+    returned; like :func:`decode_attn_dense`, nothing is read on the host.
+    On the rank's heads, the row-parallel output summed over "model"; where
+    ``ctx.seq_sharded_cache`` the cache is the rank's sequence shard, and
+    the latent queries are gathered over "model" and the partial softmaxes
+    combined, as :func:`decode_attn_seqpar` does."""
+    sharded = ctx.tp_sharded("heads", cfg.n_heads)
     B = x.shape[0]
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     posv = pos.view(1, 1).expand(B, 1)
     q_nope, q_rope = _mla_q(p, x, cfg, ctx, posv)          # (B, 1, H, .)
     latent_new, k_rope_new = _mla_latent(p, x, cfg, ctx, posv)
     cl, cr = cache["latent"], cache["k_rope"]
-    cl.index_copy_(1, pos, latent_new.to(cl.dtype))
-    cr.index_copy_(1, pos, k_rope_new.to(cr.dtype))
-    S = cl.shape[1]
     # absorb wk_b into the query: q_lat (B, H, r_kv)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"].to(x.dtype))
+    q_rope = q_rope[:, 0]
+    if ctx.seq_sharded_cache:
+        Hl = q_lat.shape[1]
+        m = ctx.mesh.axis_index("model")
+        off = m * cl.shape[1]
+        r_kv = q_lat.shape[-1]
+        q_lat, q_rope = _gather_heads(ctx, torch.cat([q_lat, q_rope], -1))[0].split(
+            [r_kv, q_rope.shape[-1]], -1)
+        _write_owned(cl, latent_new[:, 0], pos, off)
+        _write_owned(cr, k_rope_new[:, 0], pos, off)
+    else:
+        cl.index_copy_(1, pos, latent_new.to(cl.dtype))
+        cr.index_copy_(1, pos, k_rope_new.to(cr.dtype))
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cl.float())
-         + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), cr.float())) * (
+         + torch.einsum("bhk,bsk->bhs", q_rope.float(), cr.float())) * (
         1.0 / math.sqrt(dn + dr))
-    s = s.masked_fill(torch.arange(S, device=s.device) > pos, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", w, cl.to(x.dtype))
+    if ctx.seq_sharded_cache:
+        pexp, l_sum = _shard_softmax(s, off, pos, ctx.mesh)
+        o_lat = torch.einsum("bhs,bsr->bhr", pexp.to(x.dtype), cl.to(x.dtype)).float()
+        o_lat = ctx.mesh.psum(o_lat, "model") / l_sum.clamp_min(1e-30)[..., None]
+        o_lat = o_lat[:, m * Hl:(m + 1) * Hl].to(x.dtype)
+    else:
+        s = s.masked_fill(torch.arange(cl.shape[1], device=s.device) > pos, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhs,bsr->bhr", w, cl.to(x.dtype))
     o = torch.einsum("bhr,rhk->bhk", o_lat, p["wv_b"].to(x.dtype))
-    return _out(o, p["wo"], x.dtype)[:, None], {"latent": cl, "k_rope": cr}
+    out = ctx.seq_out(_out(o, p["wo"], x.dtype)[:, None], sharded)
+    return out, {"latent": cl, "k_rope": cr}

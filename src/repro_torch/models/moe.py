@@ -9,8 +9,8 @@ the reference's expert-parallel paths for a sequence at least that long:
 :func:`moe_ep_dedup` (one send per (token, destination rank)), each over
 ``torch.distributed`` all-to-alls on the "model" axis, each process one
 rank holding its blocks as :class:`~.layers.Ctx` sets out; experts are
-sharded over "model" (rank m computes experts ``[m E/tp, (m+1) E/tp)`` of
-the whole weights every rank holds), and ``expert_perm`` (a placement from
+sharded over "model" (rank m holds and computes experts ``[m E/tp,
+(m+1) E/tp)``), and ``expert_perm`` (a placement from
 :mod:`repro_torch.core.placement`) maps each logical expert to its physical
 slot.  The reference has no Pallas kernel here, so plain tensor code is the
 port.
@@ -116,16 +116,16 @@ def moe_ref(p, x, cfg, ctx: Ctx):
     The reference combines with a one-hot ``(T, k, E)`` einsum; here each
     token gathers its k chosen rows of the all-expert output and sums them
     weighted (``(T, k, D)``), the same sum without a ``(T, k, E, D)``
-    intermediate.  With ``rules`` on a mesh, x is the rank's data block
-    (its whole sequence: the expert-parallel paths take sequences at least
-    as long as the model axis), the aux loss is the whole batch's, and
-    where the experts are the rank's block each token sums the outputs of
-    its chosen experts that are local and the sum is completed over
-    "model" (the reference's sharded decode combine)."""
+    intermediate.  On a mesh, x is the rank's data block (its whole
+    sequence: the expert-parallel paths take sequences at least as long as
+    the model axis), the aux loss is the whole batch's, and where the
+    experts are the rank's block each token sums the outputs of its chosen
+    experts that are local and the sum is completed over "model" (the
+    reference's sharded decode combine)."""
     x_in, x = x, ctx.seq_in(x)
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
-    mesh = ctx.mesh if ctx.sharded else None
+    mesh = ctx.mesh
     axes = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1) if mesh is not None else ()
     w, idx, aux = _router(p, x2, cfg, mesh, axes)
     e_loc = p["w_gate"].shape[0]
@@ -164,21 +164,6 @@ def _local_tokens(x, ctx: Ctx):
     return x[:, m * Sl:(m + 1) * Sl], Sl
 
 
-def _local_experts(p, ctx: Ctx):
-    """The rank's experts: with ``rules`` the expert weights are its
-    ``E/tp`` block already; else its rows of the whole weights."""
-    mesh = ctx.mesh
-    tp, m = mesh.shape["model"], mesh.axis_index("model")
-    ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
-    if ctx.sharded:
-        return ws, ws[0].shape[0]
-    e_pad = ws[0].shape[0]
-    if e_pad % tp:
-        raise ValueError(f"{e_pad} experts do not shard over the model axis' {tp}")
-    e_loc = e_pad // tp
-    return [w[m * e_loc:(m + 1) * e_loc] for w in ws], e_loc
-
-
 def _finish(out_loc, aux, x, p, cfg, ctx: Ctx):
     """All-gather the sequence slices over "model" (under sequence
     parallelism each rank keeps its own), average the aux loss over
@@ -215,7 +200,8 @@ def moe_ep(p, x, cfg, ctx: Ctx, *, capacity_factor: float = 1.25, expert_perm=No
     bucketing."""
     mesh = ctx.mesh
     tp = mesh.shape["model"]
-    (w_gate, w_up, w_down), e_loc = _local_experts(p, ctx)
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]   # the rank's E/tp experts
+    e_loc = w_gate.shape[0]
     e_pad = e_loc * tp
     x_loc, Sl = _local_tokens(x, ctx)
     B, _, D = x.shape
@@ -261,7 +247,8 @@ def moe_ep_dedup(p, x, cfg, ctx: Ctx, *, expert_perm=None, dest_k: float | None 
     f32."""
     mesh = ctx.mesh
     tp = mesh.shape["model"]
-    (w_gate, w_up, w_down), e_loc = _local_experts(p, ctx)
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]   # the rank's E/tp experts
+    e_loc = w_gate.shape[0]
     e_pad = e_loc * tp
     k = cfg.top_k
     if dest_k is None:

@@ -6,6 +6,7 @@ shape, dtype, *logical axis names* and an init recipe.  ``init_params``
 draws real tensors from an explicit :class:`torch.Generator` with the
 reference's init rules; ``params_from_numpy`` carries the reference's own
 arrays across, so the parity tests run both packages on the same weights;
+``eval_specs`` stands ``meta`` tensors in for them (the dry run);
 ``logical_axes`` is the axis-name tree that
 :mod:`repro_torch.parallel.sharding` maps onto a mesh.
 """
@@ -58,11 +59,12 @@ def init_array(spec: P, generator: torch.Generator) -> torch.Tensor:
     return x.mul_(std).to(spec.dtype)
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf (anything but a dict) of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf (anything but a dict) of a nested dict, and
+    to the leaves at the same places of the trees in ``rest``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -139,6 +141,20 @@ def cast_params(tree, dtype: torch.dtype) -> dict:
                 for k, v in t.items()}
 
     return walk(tree)
+
+
+def eval_specs(tree, param_dtype: torch.dtype | None = None):
+    """A tree of ``meta`` tensors of the specs' shapes and dtypes (floating
+    ones in ``param_dtype`` where given): the dry run's stand-ins, which
+    allocate nothing."""
+
+    def make(spec: P):
+        dt = spec.dtype
+        if param_dtype is not None and dt.is_floating_point:
+            dt = param_dtype
+        return torch.empty(spec.shape, dtype=dt, device="meta")
+
+    return tree_map(make, tree)
 
 
 def logical_axes(tree):

@@ -17,7 +17,7 @@ Receptance/key/value/gate/decay come from a data-dependent token shift
   gradient of the reference's checkpointed scan; on the CPU, its plain
   version).
 * ``rwkv6_decode_block``: a single recurrence step against the cached state,
-  plain tensor code.
+  plain tensor code (on a mesh, on the rank's heads).
 """
 
 from __future__ import annotations
@@ -121,24 +121,33 @@ def rwkv6_block(p, x, cfg, ctx: Ctx):
     rf, kf, vf, wf = (t.float().contiguous().transpose(1, 2) for t in (r, k, v, w))
     o, state = ops.wkv6(rf, kf, vf, wf, p["u"].float())
     o = o.transpose(1, 2).reshape(B, S, H * N)
-    norm = p
-    if sharded:
-        m = ctx.mesh.axis_index("model")
-        norm = {k_: p[k_][m * H * N:(m + 1) * H * N] for k_ in ("ln_out_scale", "ln_out_bias")}
-    o = _group_norm(norm, o, H).to(x.dtype) * g
+    o = _group_norm(_norm_block(p, H * N, ctx, sharded), o, H).to(x.dtype) * g
     out = ctx.seq_out(_out(o.view(B, S, H, N), p["wo"], x.dtype), sharded)
     return out, {"S": state, "x_last": x[:, -1].clone()}
 
 
+def _norm_block(p, width: int, ctx: Ctx, sharded: bool):
+    """The output group norm's scale and bias (replicated) for the rank's
+    ``width`` channels where its heads are a block of them."""
+    if not sharded:
+        return p
+    m = ctx.mesh.axis_index("model")
+    return {k: p[k][m * width:(m + 1) * width] for k in ("ln_out_scale", "ln_out_bias")}
+
+
 def rwkv6_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     """One-token step.  x: (B,1,d); cache {"S": (B,H,N,N), "x_last": (B,d)}.
-    ``pos`` is not read: the recurrence carries the position in its state."""
+    ``pos`` is not read: the recurrence carries the position in its state.
+    On the rank's heads (and its block of the state), as
+    :func:`rwkv6_block`."""
+    sharded = ctx.tp_sharded("rwkv_heads", cfg.rwkv_n_heads)
     B = x.shape[0]
     H, N = p["wr"].shape[1], cfg.rwkv_head_size
     x_prev = cache["x_last"][:, None]
     r, k, v, g, w = _rkvgw(p, x, x_prev, cfg, ctx)
     state, o = _wkv_step(cache["S"], r[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
                          w[:, 0], p["u"].float())
-    o = _group_norm(p, o.reshape(B, 1, H * N), H).to(x.dtype) * g
-    out = _out(o.view(B, 1, H, N), p["wo"], x.dtype)
+    o = _group_norm(_norm_block(p, H * N, ctx, sharded), o.reshape(B, 1, H * N), H)
+    o = o.to(x.dtype) * g
+    out = ctx.seq_out(_out(o.view(B, 1, H, N), p["wo"], x.dtype), sharded)
     return out, {"S": state, "x_last": x[:, 0].to(cache["x_last"].dtype)}

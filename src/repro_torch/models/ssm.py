@@ -20,7 +20,7 @@ The reference has no kernel for it: it runs the recurrence as a chunked
   chunk here is short instead.  Under autograd with ``ctx.remat`` each chunk
   is checkpointed, as the reference's ``jax.checkpoint(chunk_step)``.
 * ``mamba_decode_block``: one step against the cached state and the last
-  ``d_conv - 1`` pre-convolution inputs.
+  ``d_conv - 1`` pre-convolution inputs (on a mesh, on the rank's channels).
 """
 
 from __future__ import annotations
@@ -94,8 +94,8 @@ def _scan_chunk(h, xc, dtc, bc, cc, A):
     da = torch.exp(dtc[..., None] * A)                        # (B,T,di,ds)
     dbx = (dtc * xc)[..., None] * bc[:, :, None, :]           # (B,T,di,ds)
     hs = []
-    for t in range(xc.shape[1]):
-        h = da[:, t] * h + dbx[:, t]
+    for da_t, dbx_t in zip(da.unbind(1), dbx.unbind(1)):
+        h = da_t * h + dbx_t
         hs.append(h)
     return h, torch.einsum("btis,bts->bti", torch.stack(hs, 1), cc)
 
@@ -115,18 +115,24 @@ def scan(xf, dt, b, c, A, ctx: Ctx):
     return h, torch.cat(ys, 1)
 
 
-def _in_proj(p, x, cfg, ctx: Ctx):
+def _in_proj(p, x, cfg, ctx: Ctx, *, decode: bool = False):
     """x @ in_proj -> (xs, z), each (B, S, di) or, with the rank's
     ``mamba_inner`` block, its channels of each.  The block of ``in_proj``
     the rules give a rank is a slice of its 2 di columns, which mixes xs's
-    and z's channels; it is all-gathered over "model" (backward: a
-    reduce-scatter) and the rank's xs and z columns taken."""
+    and z's channels, so a rank's xs and z columns are gathered over
+    "model" (backward: a reduce-scatter) and taken: over a sequence the
+    block itself, (d, 2 di / tp), fewer bytes than the product when
+    B S > d; in ``decode`` the rank's product x @ block, (B, 1, 2 di / tp),
+    fewer than the block when B < d."""
     w = p["in_proj"]
     if not ctx.tp_sharded("mamba_inner", cfg.mamba_d_inner):
         return (x @ w.to(x.dtype)).chunk(2, dim=-1)
     di, tp, m = cfg.mamba_d_inner, ctx.tp, ctx.mesh.axis_index("model")
-    w = ctx.mesh.all_gather(w, "model", 1)
     n = di // tp
+    if decode:
+        y = ctx.mesh.all_gather(x @ w.to(x.dtype), "model", x.dim() - 1)
+        return y[..., m * n:(m + 1) * n], y[..., di + m * n:di + (m + 1) * n]
+    w = ctx.mesh.all_gather(w, "model", 1)
     cols = torch.cat([w[:, m * n:(m + 1) * n], w[:, di + m * n:di + (m + 1) * n]], dim=1)
     return (x @ cols.to(x.dtype)).chunk(2, dim=-1)
 
@@ -163,21 +169,23 @@ def mamba_block(p, x, cfg, ctx: Ctx):
 def mamba_decode_block(p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor):
     """One-token step.  x: (B, 1, d); cache {"h": (B, di, ds), "conv":
     (B, dc-1, di)} -> (out (B, 1, d), new cache).  The convolution runs over
-    ``[cache["conv"], x]`` in the cache's dtype; ``pos`` is not read."""
+    ``[cache["conv"], x]`` in the cache's dtype; ``pos`` is not read.  On the
+    rank's ``mamba_inner`` channels (and its block of the cache), as
+    :func:`mamba_block`."""
+    sharded = ctx.tp_sharded("mamba_inner", cfg.mamba_d_inner)
     dt_rank = math.ceil(cfg.d_model / 16)
-    xz = x[:, 0] @ p["in_proj"].to(x.dtype)
-    xs, z = xz.chunk(2, dim=-1)
+    xs, z = (t[:, 0] for t in _in_proj(p, x, cfg, ctx, decode=True))
     hist = torch.cat([cache["conv"], xs[:, None].to(cache["conv"].dtype)], dim=1)
     w = p["conv_w"].to(x.dtype)                               # (dc, di)
     cdt = torch.promote_types(hist.dtype, w.dtype)
     xs = torch.einsum("bci,ci->bi", hist.to(cdt), w.to(cdt)) + p["conv_b"].to(x.dtype)
     xs = F.silu(xs)
-    dt, b, c = _dt_bc(p, xs, cfg, dt_rank)                    # (B,di),(B,ds)
+    dt, b, c = _dt_bc(p, xs, cfg, dt_rank, ctx if sharded else None)   # (B,di),(B,ds)
     A = -torch.exp(p["A_log"].float())
     da = torch.exp(dt[..., None] * A)
     h = da * cache["h"] + (dt * xs.float())[..., None] * b[:, None, :]
     y = torch.einsum("bis,bs->bi", h, c)
     y = y + xs.float() * p["D"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = (y @ p["out_proj"].to(x.dtype))[:, None]
+    out = ctx.seq_out((y @ p["out_proj"].to(x.dtype))[:, None], sharded)
     return out, {"h": h, "conv": hist[:, 1:]}

@@ -1,8 +1,8 @@
 """Block-pattern transformer assembly (the port of
-``repro/models/transformer.py``): serving and training on one device, and
-prefill and decode on a mesh, each process one rank (the contract is
-:class:`~repro_torch.models.layers.Ctx`'s; :func:`shard_caches` gives a
-rank its shard of the attention caches for sequence-parallel decode).
+``repro/models/transformer.py``): serving and training on one device or on
+a mesh, each process one rank holding its blocks of the parameters (the
+contract is :class:`~repro_torch.models.layers.Ctx`'s; :func:`shard_caches`
+moves the caches prefill leaves from its layout to the one decode reads).
 
 A model is {embedding -> [prefix layers] -> repeating *units* of layers ->
 final norm -> LM head}, each layer = {mixer in attn|mla|mamba|rwkv6} + {ffn
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..parallel import sharding as shd
 from ..parallel.sharding import dp_axes
 from . import layers as L
 from . import moe as M
@@ -179,8 +180,7 @@ def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
     shards them (:meth:`~repro_torch.models.layers.Ctx.gather_params`;
     expert weights stay sharded: the expert-parallel all-to-all owns their
     distribution)."""
-    if ctx.sharded:
-        p = ctx.gather_params(p, _layer_specs(spec, cfg, ctx.tp, "cross" in p))
+    p = ctx.gather_params(p, _layer_specs(spec, cfg, ctx.tp, "cross" in p))
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     out, cache = _mixer_full(spec, p, h, cfg, ctx, positions, causal)
     x = x + out
@@ -197,7 +197,10 @@ def apply_layer(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, positions, causal=True,
 def apply_layer_decode(spec: LayerSpec, p, x, cfg, ctx: Ctx, *, cache, pos: torch.Tensor,
                        expert_perm=None):
     """One-token layer step; ``pos`` is a one-element ``long`` tensor.
-    Returns (x, new_cache, aux)."""
+    Returns (x, new_cache, aux).  On a mesh the layer's weights are first
+    gathered where FSDP's ``embed_fsdp`` shards them, as in
+    :func:`apply_layer`."""
+    p = ctx.gather_params(p, _layer_specs(spec, cfg, ctx.tp, "cross" in p))
     self_cache = cache["self"] if "cross" in p else cache
     h = L.rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -247,7 +250,7 @@ def _vocab_block(W, cfg, ctx: Ctx, dim: int):
     block, whether the vocab is split over "model") for the embedding
     (``dim`` 0) or the LM head (``dim`` 1) of the padded vocabulary."""
     V = cfg.padded_vocab(ctx.tp)
-    if not ctx.sharded:
+    if ctx.mesh is None:
         return W, 0, False
     axes = ("vocab", "embed_fsdp") if dim == 0 else (None, "vocab")
     shape = (V, cfg.d_model) if dim == 0 else (cfg.d_model, V)
@@ -375,7 +378,7 @@ def chunked_ce(params, hidden, labels, mask, cfg, ctx: Ctx, chunk: int = 256):
         args = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
         tot = tot + (_checkpoint(body, *args) if _remat(ctx) else body(*args))
     n_tok = mask.sum()
-    if ctx.sharded:
+    if mesh is not None:
         for a in dp_axes(mesh):
             tot, n_tok = mesh.psum(tot, a), mesh.psum(n_tok, a)
     n_tok = n_tok.clamp_min(1.0)
@@ -404,9 +407,11 @@ def lm_loss(params, batch, cfg: ModelConfig, ctx: Ctx):
 
 
 def logits_for(params, x_last, cfg, ctx: Ctx):
-    """x_last: (B, d) -> (B, V) f32 logits over the padded vocabulary."""
-    W = _unembed_matrix(params, cfg)
-    return (x_last @ W.to(x_last.dtype)).float()
+    """x_last: (B, d) -> (B, V) f32 logits over the padded vocabulary; on a
+    vocab-split LM head each rank's block, all-gathered over "model"."""
+    W, _, split = _vocab_block(_unembed_matrix(params, cfg), cfg, ctx, 1)
+    logits = (x_last @ W.to(x_last.dtype)).float()
+    return ctx.mesh.all_gather(logits, "model", 1) if split else logits
 
 
 def prefill(params, batch, cfg, ctx: Ctx, *, cache_len: int | None = None):
@@ -414,16 +419,20 @@ def prefill(params, batch, cfg, ctx: Ctx, *, cache_len: int | None = None):
 
     The self-attention caches are padded to length ``cache_len`` (>= the
     sequence's length, the VLM's patches included) so decode can continue
-    in place."""
+    in place.  On a mesh they are in the prefill's layout (each rank's
+    heads of its data block; :func:`shard_caches` moves them to decode's)."""
     hidden, caches, _ = forward(params, batch, cfg, ctx, collect_cache=True)
-    S = hidden.shape[1]
+    x_last = hidden[:, -1:]
+    if ctx.seq_parallel:                    # the last position is on the last rank
+        x_last = ctx.mesh.all_gather(x_last, "model", 1)[:, -1:]
+    S = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1] if cfg.vlm else 0)
     if cache_len is not None:
         if cache_len < S:
             raise ValueError(f"cache_len {cache_len} < prompt length {S} (incl. modality "
                              f"prefix tokens)")
         if cache_len > S:
             caches = _grow_caches(caches, cache_len - S)
-    return caches, logits_for(params, hidden[:, -1], cfg, ctx)
+    return caches, logits_for(params, x_last[:, 0], cfg, ctx)
 
 
 def _grow_caches(caches, extra: int):
@@ -451,33 +460,31 @@ def _grow_caches(caches, extra: int):
     return walk(caches)
 
 
-def shard_caches(caches, mesh):
-    """This rank's sequence shard of every self-attention cache ("k", "v",
-    (..., S, K, hd)), positions ``[m S/tp, (m+1) S/tp)`` for rank m of tp
-    along "model": the layout decode reads under ``ctx.decode_seqpar``
-    (:func:`~repro_torch.models.layers.decode_attn_seqpar`).  Fresh
-    tensors; the cross-attention caches, MLA's latent caches and the
-    recurrent states stay whole, as the reference shards only the
-    self-attention caches."""
-    tp, m = mesh.shape["model"], mesh.axis_index("model")
+def shard_caches(caches, specs, mesh, src_rules, dst_rules):
+    """The caches of a prefill on ``mesh``, each rank's blocks under
+    ``src_rules`` (the prefill's: the rank's heads, the whole sequence),
+    moved to its blocks under ``dst_rules`` (decode's: under
+    ``DECODE_RULES`` each attention cache is the rank's sequence shard,
+    holding every key/value head): one all-to-all over "model" a cache that
+    moves its split from the heads to the sequence, a slice where it was
+    whole (MLA's latent cache), nothing where the split stays (the
+    recurrent states, the cross-attention caches).  ``specs`` is the cache
+    spec tree (:func:`cache_specs`) whose logical axes name each leaf's
+    dimensions; the batch is laid out alike under both rule sets and does
+    not move."""
+    tp = mesh.shape.get("model", 1)
 
-    def walk(tree):
-        out = {}
-        for name, leaf in tree.items():
-            if name == "cross":
-                out[name] = leaf
-            elif isinstance(leaf, dict):
-                out[name] = walk(leaf)
-            elif name in ("k", "v"):
-                S = leaf.shape[-3]
-                if S % tp:
-                    raise ValueError(f"cache length {S} does not shard over {tp} ranks")
-                out[name] = leaf[..., m * (S // tp):(m + 1) * (S // tp), :, :].clone()
-            else:
-                out[name] = leaf
-        return out
+    def one(x, spec):
+        src = shd.spec_for(spec.axes, src_rules, mesh)
+        # the global shape where "model" matters (its batch dimension is the
+        # rank's block, which places only the data axes)
+        shape = [n * tp if "model" in shd.entry_axes(e) else n
+                 for n, e in zip(x.shape, src + (None,) * x.dim())]
+        src = shd.spec_for(spec.axes, src_rules, mesh, shape)
+        dst = shd.spec_for(spec.axes, dst_rules, mesh, shape)
+        return shd.reshard(x, src, dst, mesh)
 
-    return walk(caches)
+    return tree_map(one, caches, specs)
 
 
 def _write_back(cache: dict, new: dict) -> None:
@@ -504,7 +511,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx, *, exper
         pos = pos.view(1)
     else:
         pos = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
-    x = params["embed"][tokens.long()[:, None]].to(ctx.dtype)
+    x = embed_tokens(params, tokens[:, None], cfg, ctx)
     for i, spec in enumerate(cfg.prefix):
         c = cache["prefix"][f"p{i}"]
         x, nc, _ = apply_layer_decode(spec, params["prefix"][f"p{i}"], x, cfg, ctx,
@@ -526,8 +533,10 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, ctx: Ctx, *, exper
 # cache construction
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg: ModelConfig, B: int, S: int) -> dict:
-    """Spec tree (P) for a decode cache of capacity S."""
+def cache_specs(cfg: ModelConfig, B: int, S: int, tp: int = 1) -> dict:
+    """Spec tree (P) for a decode cache of capacity S.  ``tp`` is the
+    reference's argument, which it does not read either: the config is the
+    one already padded for it (:func:`repro_torch.configs.base.pad_for_tp`)."""
     K, hd = cfg.n_kv_heads, cfg.hd
     di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
     H6, N6 = cfg.rwkv_n_heads, cfg.rwkv_head_size

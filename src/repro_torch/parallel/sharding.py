@@ -201,6 +201,40 @@ def gather(x: torch.Tensor, spec: tuple, mesh, dims: Sequence[int] | None = None
     return x
 
 
+def _dim_of(spec: tuple, axis: str) -> int | None:
+    """The dimension whose entry of ``spec`` is ``axis`` alone (None where
+    no entry names it)."""
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if axis in axes:
+            if len(axes) > 1:
+                raise ValueError(f"{axis!r} shares dim {dim} of {spec} with other axes")
+            return dim
+    return None
+
+
+def reshard(x: torch.Tensor, src: tuple, dst: tuple, mesh, axis: str = "model"
+            ) -> torch.Tensor:
+    """This rank's block under ``dst`` from its block ``x`` under ``src``,
+    where the two specs differ only in where ``axis`` splits the tensor:
+    from one dimension to another one all-to-all over ``axis`` (each rank
+    sends block j of the new dimension to coordinate j and concatenates
+    what it receives along the old one), onto a dimension that was whole
+    a slice."""
+    i, j = _dim_of(src, axis), _dim_of(dst, axis)
+    n = mesh.shape[axis]
+    if i == j or n == 1:
+        return x
+    if j is None:
+        raise ValueError(f"{axis!r} splits dim {i} of {src} and none of {dst}")
+    if i is None:
+        return block(x, tuple(axis if d == j else None for d in range(j + 1)), mesh).clone()
+    if x.shape[j] % n:
+        raise ValueError(f"dim {j} of {tuple(x.shape)} does not split over {n}")
+    parts = x.unflatten(j, (n, x.shape[j] // n)).movedim(j, 0).contiguous()
+    return torch.cat(mesh.all_to_all(parts, axis).unbind(0), dim=i)
+
+
 def constraint(x, axes: Sequence[str | None], rules: Mapping[str, object] | None, mesh=None):
     """Where an activation's layout changes: ``x`` holds the rank's block of
     the batch ("batch" is the data block every activation enters with) and
@@ -237,6 +271,11 @@ def rules_for(cfg, phase: str = "train", *, seq_parallel: bool = False,
 def dp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel mesh axes present in this mesh."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def model_size(mesh) -> int:
+    """The size of the "model" axis (1 where the mesh has none)."""
+    return mesh.shape.get("model", 1)
 
 
 def batch_block(mesh, B: int) -> slice:

@@ -7,8 +7,10 @@ Four CPU processes, gloo, rendezvous through a ``file://`` store under
 ``tmp_path``, form a (data 2, model 2) mesh (and, for decode with a middle
 shard, a (data 1, model 4) one; and a (data 4, model 1) one, where
 ``moe_apply`` takes ``moe_ref``).  Each rank runs every case once on its own
-blocks (``Ctx``'s contract) and saves them; the tests below read the saved
-blocks.  The ranks are joined under one time limit: a rank that hangs fails
+blocks under ``DECODE_RULES`` (``Ctx``'s contract: its ``E/tp`` experts,
+its ``mlp`` block of the shared expert, its query and key/value heads, its
+sequence shard of each cache) and saves them; the tests below read the
+saved blocks.  The ranks are joined under one time limit: a rank that hangs fails
 the module, it never runs the suite into its own limit.
 
 The references: ``moe_ref``, ``decode_attn_dense`` and the unsharded
@@ -48,13 +50,15 @@ from repro.models.params import init_params as jinit_params
 from repro_torch.configs import registry as treg
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.placement import place_experts
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as tL
 from repro_torch.models import moe as tM
 from repro_torch.models import transformer as tT
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import params_from_numpy
-from repro_torch.parallel.sharding import batch_block, dp_axes
+from repro_torch.parallel.sharding import (DECODE_RULES, batch_block, dp_axes, shard_tree,
+                                           tree_shardings)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -68,14 +72,16 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # slot of each logical expert
 PERM_EP = [3, 2, 1, 0, 7, 6, 5, 4]
 PERM_DEDUP = [0, 4, 1, 5, 2, 6, 3, 7]
-# decode: (B, S, K, G, hd); positions in the first, a middle and the last
-# shard of the (1, 4) mesh (shards of 16); caps 0 and 5
-DECODE = (4, 64, 2, 2, 16)
-DECODE_POS = (5, 37, 63)
+# decode: (B, S, K, G, hd), 4 key/value heads to split over the (1, 4)
+# line; positions in the first shard of the (1, 4) mesh (shards of 16: the
+# others attend over none of theirs), at the first of its third (a shard
+# boundary), in a middle one and at the last; caps 0 and 5
+DECODE = (4, 64, 4, 2, 16)
+DECODE_POS = (5, 32, 37, 63)
 DECODE_CAPS = (0.0, 5.0)
-# the 2-layer MoE model: 2 prompts of 6 tokens, a cache of 16, 4 greedy
-# decode steps (positions 6-9 cross from the first cache shard of 8 into
-# the second).  Each rank routes 1 x 3 tokens, fewer than the capacity's
+# the 2-layer MoE model through the sharded serving steps: 2 prompts of 6
+# tokens, a cache of 16, 4 greedy decode steps (positions 6-9 cross from the
+# first cache shard of 8 into the second).  Each rank routes 1 x 3 tokens, fewer than the capacity's
 # floor of 4, so no expert can overflow and the EP prefill is dropless,
 # like the unsharded reference
 MODEL_B, MODEL_S, MODEL_CACHE, MODEL_STEPS = 2, 6, 16, 4
@@ -143,10 +149,16 @@ def _rank(rank: int, store: str, inputs_path: str, out_dir: str, model_cfg) -> N
         out = {"axes": torch.tensor([mesh.axis_index("data"), mesh.axis_index("model"),
                                      line.axis_index("model"), col.axis_index("data")])}
         x = inp["x"][batch_block(mesh, inp["x"].shape[0])]
-        ctx = Ctx(dtype=torch.float32, mesh=mesh)
+        ctx = Ctx(dtype=torch.float32, mesh=mesh, rules=DECODE_RULES)
         cfg2, cfg3 = (_moe_cfg(ModelConfig, LayerSpec, k) for k in (2, 3))
-        p, pe, pd = inp["moe"], inp["moe_perm_ep"], inp["moe_perm_dedup"]
-        pp, place = inp["moe_place"], inp["place_perm"]
+
+        def blocks(p, m):
+            """The rank's blocks of the whole MoE weights on mesh ``m``."""
+            return shard_tree(p, tree_shardings(tM.moe_params(cfg2, tp=m.shape["model"]), m,
+                                                DECODE_RULES))
+
+        p, pe, pd = (blocks(inp[k], mesh) for k in ("moe", "moe_perm_ep", "moe_perm_dedup"))
+        pp, place = blocks(inp["moe_place"], mesh), inp["place_perm"]
         with torch.inference_mode():
             out["ep8"] = tM.moe_ep(p, x, cfg2, ctx, capacity_factor=8.0)
             out["ep125"] = tM.moe_ep(p, x, cfg2, ctx, capacity_factor=1.25)
@@ -163,9 +175,10 @@ def _rank(rank: int, store: str, inputs_path: str, out_dir: str, model_cfg) -> N
             out["apply_dedup"] = tM.moe_apply(p, x, cfg3, dataclasses.replace(ctx, moe_dedup=True))
             out["apply_decode"] = tM.moe_apply(p, x[:, :1], cfg2, ctx)
             xc = inp["x"][batch_block(col, inp["x"].shape[0])]
-            cctx = Ctx(dtype=torch.float32, mesh=col)
-            out["apply_col"] = tM.moe_apply(p, xc, cfg2, cctx)
-            out["apply_col_dedup"] = tM.moe_apply(p, xc, cfg3,
+            cctx = Ctx(dtype=torch.float32, mesh=col, rules=DECODE_RULES)
+            pc = blocks(inp["moe"], col)
+            out["apply_col"] = tM.moe_apply(pc, xc, cfg2, cctx)
+            out["apply_col_dedup"] = tM.moe_apply(pc, xc, cfg3,
                                                   dataclasses.replace(cctx, moe_dedup=True))
 
             for name, m in (("mesh", mesh), ("line", line)):
@@ -175,10 +188,14 @@ def _rank(rank: int, store: str, inputs_path: str, out_dir: str, model_cfg) -> N
                     for pos in DECODE_POS:
                         for cap in DECODE_CAPS:
                             q, ck, cv, kn, vn = (t[blk] for t in inp[f"decode_B{B}"])
-                            S_loc = ck.shape[1] // tp
+                            # the rank's query and key/value heads, its sequence shard
+                            Hl, Kl, S_loc = q.shape[1] // tp, kn.shape[1] // tp, ck.shape[1] // tp
+                            q = q[:, mi * Hl:(mi + 1) * Hl]
+                            kn, vn = (t[:, mi * Kl:(mi + 1) * Kl] for t in (kn, vn))
                             ck = ck[:, mi * S_loc:(mi + 1) * S_loc].clone()
                             cv = cv[:, mi * S_loc:(mi + 1) * S_loc].clone()
-                            dctx = Ctx(dtype=torch.float32, mesh=m, decode_seqpar=True)
+                            dctx = Ctx(dtype=torch.float32, mesh=m, rules=DECODE_RULES,
+                                       decode_seqpar=True)
                             o, (ck2, cv2) = tL.decode_attn_seqpar(
                                 q, ck, cv, kn, vn, torch.tensor([pos]), ctx=dctx, logit_cap=cap)
                             assert ck2 is ck and cv2 is cv   # written in place
@@ -187,16 +204,17 @@ def _rank(rank: int, store: str, inputs_path: str, out_dir: str, model_cfg) -> N
             counts = {"moe_ep": 0, "decode_attn_seqpar": 0}
             _counted(tM, "moe_ep", counts)
             _counted(tL, "decode_attn_seqpar", counts)
-            mctx = Ctx(dtype=torch.float32, mesh=mesh, decode_seqpar=True)
+            prefill, p_specs, pctx = tsteps.make_prefill_step(model_cfg, mesh,
+                                                              cache_len=MODEL_CACHE)
+            decode, _, _, _ = tsteps.make_decode_step(model_cfg, mesh, tsteps.DistConfig(),
+                                                      MODEL_B, MODEL_CACHE)
+            params = shard_tree(inp["model"], tree_shardings(p_specs, mesh, pctx.rules))
             tokens = inp["tokens"][batch_block(mesh, MODEL_B)]
-            cache, logits = tT.prefill(inp["model"], {"tokens": tokens}, model_cfg, mctx,
-                                       cache_len=MODEL_CACHE)
+            cache, logits = prefill(params, {"tokens": tokens})
             n_ep = counts["moe_ep"]
-            cache = tT.shard_caches(cache, mesh)
             steps = [logits]
             for i in range(MODEL_STEPS):
-                logits, cache = tT.decode_step(inp["model"], cache, logits.argmax(-1),
-                                               MODEL_S + i, model_cfg, mctx)
+                logits, cache = decode(params, cache, logits.argmax(-1), MODEL_S + i)
                 steps.append(logits)
             out["model_logits"] = torch.stack(steps)
             out["model_cache_k"] = cache["unit"]["l0"]["k"]
@@ -407,7 +425,9 @@ def test_graph_partition_placement_keeps_the_output_and_cuts_dispatch(run):
 
 def test_moe_apply_dispatches_as_the_reference(run):
     """On a "model" axis of 2: ``moe_ep`` for a sequence of 8 (the same
-    bits), ``moe_ep_dedup`` under ``moe_dedup``, ``moe_ref`` for one token."""
+    bits), ``moe_ep_dedup`` under ``moe_dedup``, ``moe_ref`` for one token
+    (each rank's experts, the combine summed over "model": the one-device
+    ``moe_ref`` at 1e-5)."""
     for r, res in enumerate(run["ranks"]):
         for key, want in (("apply", "ep125"), ("apply_dedup", "dd125")):
             assert torch.equal(res[key][0], res[want][0]) and torch.equal(res[key][1],
@@ -417,20 +437,24 @@ def test_moe_apply_dispatches_as_the_reference(run):
         x = run["inputs"]["x"][blk, :1]
         with torch.inference_mode():
             want = tM.moe_ref(p, x, _moe_cfg(ModelConfig, LayerSpec, 2), Ctx(dtype=torch.float32))
-        assert torch.equal(res["apply_decode"][0], want[0])
+        np.testing.assert_allclose(res["apply_decode"][0].numpy(), want[0].numpy(), **EP_TOL)
 
 
 def test_moe_apply_on_a_model_axis_of_one_is_moe_ref(run):
     """On a (data 4, model 1) mesh each rank routes its own row through
-    ``moe_ref``, bit for bit, under ``moe_dedup`` too."""
+    ``moe_ref``, its output bit for bit, under ``moe_dedup`` too; the aux
+    loss is the whole batch's (its means taken over "data"), as the one
+    device's over the 4 rows, up to the sum order."""
     p = run["inputs"]["moe"]
     for r, res in enumerate(run["ranks"]):
         x = run["inputs"]["x"][r:r + 1]
         for key, k in (("apply_col", 2), ("apply_col_dedup", 3)):
+            cfg = _moe_cfg(ModelConfig, LayerSpec, k)
             with torch.inference_mode():
-                want = tM.moe_ref(p, x, _moe_cfg(ModelConfig, LayerSpec, k),
-                                  Ctx(dtype=torch.float32))
-            assert all(torch.equal(a, b) for a, b in zip(res[key], want)), (r, key)
+                want, _ = tM.moe_ref(p, x, cfg, Ctx(dtype=torch.float32))
+                _, want_aux = tM.moe_ref(p, run["inputs"]["x"], cfg, Ctx(dtype=torch.float32))
+            assert torch.equal(res[key][0], want), (r, key)
+            np.testing.assert_allclose(float(res[key][1]), float(want_aux), rtol=1e-6)
 
 
 @pytest.mark.parametrize("mesh", ["mesh", "line"])
@@ -440,8 +464,10 @@ def test_moe_apply_on_a_model_axis_of_one_is_moe_ref(run):
 def test_decode_attn_seqpar_matches_dense(run, mesh, B, pos, cap):
     """The (2, 2) mesh (shards of 32; the batch of 4 split over "data", a
     batch of 1 replicated) and the (1, 4) line (shards of 16: positions 5,
-    37 and 63 in the first, a middle and the last): ``o`` against
-    ``decode_attn_dense`` at 2e-4, the shards of the written cache at 1e-5."""
+    32, 37 and 63 in the first, at the start of the third, in a middle one
+    and in the last), each rank with its query and key/value heads: its
+    heads of ``o`` against ``decode_attn_dense`` at 2e-4, the shards of the
+    written cache at 1e-5."""
     q, ck, cv, kn, vn = (jnp.asarray(a) for a in _decode_inputs(B))
     o, (dk, dv) = jL.decode_attn_dense(q, ck, cv, kn, vn, jnp.int32(pos), logit_cap=cap)
     o, dk, dv = np.asarray(o), np.asarray(dk), np.asarray(dv)
@@ -453,7 +479,8 @@ def test_decode_attn_seqpar_matches_dense(run, mesh, B, pos, cap):
         blk = _data_block(run, r, B) if mesh == "mesh" and B % 2 == 0 else slice(0, B)
         got_o, got_k, got_v = (t.numpy() for t in res[f"dec_{mesh}_B{B}_{pos}_{cap:g}"])
         shard = slice(mi * S_loc, (mi + 1) * S_loc)
-        np.testing.assert_allclose(got_o, o[blk], **MOE_TOL)
+        Hl = o.shape[1] // tp
+        np.testing.assert_allclose(got_o, o[blk, mi * Hl:(mi + 1) * Hl], **MOE_TOL)
         np.testing.assert_allclose(got_k, dk[blk, shard], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got_v, dv[blk, shard], rtol=1e-5, atol=1e-5)
         seen.add((blk.start, mi))
@@ -462,9 +489,11 @@ def test_decode_attn_seqpar_matches_dense(run, mesh, B, pos, cap):
 
 def test_moe_model_prefill_and_decode_across_ranks(run):
     """A 2-layer reduced granite-moe-3b-a800m in f32, the reference's
-    parameters: its prefill takes the EP path (S 6 >= tp 2) once a layer,
-    its decode steps ``decode_attn_seqpar`` once a layer over caches
-    sharded over "model", and ``moe_ref`` (one token).  Logits of the
+    parameters cut into each rank's blocks, through ``make_prefill_step``
+    and ``make_decode_step`` on the (2, 2) mesh: its prefill takes the EP
+    path (S 6 >= tp 2) once a layer and hands decode its caches sequence-
+    sharded over "model", its decode steps ``decode_attn_seqpar`` once a
+    layer and ``moe_ref`` on the rank's experts (one token).  Logits of the
     prefill and of 4 greedy steps against the port's one-process run and
     the reference's unsharded prefill + ``decode_step`` at 1e-4, greedy
     tokens equal."""

@@ -194,15 +194,18 @@ def _gather_tree(tree, shardings):
     return g.clone() if g is tree else g
 
 
-def _run_ranks(tmp, inputs_path, meanwhile) -> None:
-    """Start the 4 ranks, call ``meanwhile()``, join the ranks under one
-    time limit and kill any left."""
+def _run_ranks(tmp, inputs_path, meanwhile, target=None, timeout_s=RANK_TIMEOUT_S) -> None:
+    """Start the 4 ranks (``target``, by default this module's ``_rank``,
+    called as ``target(rank, store, inputs_path, out_dir)``), call
+    ``meanwhile()``, join the ranks under one time limit and kill any
+    left."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(r, str(tmp / "store"), str(inputs_path), str(tmp)))
+    procs = [ctx.Process(target=target or _rank,
+                         args=(r, str(tmp / "store"), str(inputs_path), str(tmp)))
              for r in range(WORLD)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + RANK_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     meanwhile()
     try:
         for p in procs:
@@ -212,7 +215,7 @@ def _run_ranks(tmp, inputs_path, meanwhile) -> None:
         for p in hung:
             p.kill()
             p.join(10)
-    assert not hung, f"{len(hung)} ranks still running after {RANK_TIMEOUT_S} s"
+    assert not hung, f"{len(hung)} ranks still running after {timeout_s} s"
     assert [p.exitcode for p in procs] == [0] * WORLD, [p.exitcode for p in procs]
 
 
