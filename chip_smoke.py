@@ -11,7 +11,9 @@ prints no result):
    together) and print ``ptxas``'s registers, spills and shared memory
    (static and dynamic) of each kernel, and whether ``ptxas`` serialised its
    ``wgmma``s; K3 and K3b are built uncapped and with a logit cap (a
-   template flag); a K1 ``wgmma``, K3, K3b or K4 specialisation, capped or
+   template flag), K3 at head dims 32, 64, 96 and 128 and its ``split``
+   pair (a partial and a merge kernel) at the same four; a K1 ``wgmma``,
+   K3 (the split pair too), K3b or K4 specialisation, capped or
    not, or a K4b kernel that
    spills, or one missing, or a bf16 K3b kernel whose ``wgmma``s ``ptxas``
    serialised, fails the run;
@@ -26,21 +28,26 @@ prints no result):
    path the wrapper took: ``direct`` on contiguous operands, ``copy`` on
    transposed views, strided slices and halves of a reshaped transpose;
 4. K3 (flash attention) against its plain version, each case with the path
-   the wrapper took (``tma`` in bf16, ``fp32``, ``copy``, ``pad``): f32 and
-   bf16 at head dims 32, 64 and 128, causal and not, ``kv_len`` < Sk and 0,
-   Sq != Sk both ways, GQA 32/8 and 24/8, ragged S = 33 and 77, and the
-   granite-3-2b and minitron-4b prefill shapes, on the model's strided (B,
+   the wrapper took (``tma`` in bf16, ``split`` in bf16 at Sq <= 4,
+   ``fp32``, ``copy``, ``pad``): f32 and
+   bf16 at head dims 32, 64, 96 and 128, causal and not, ``kv_len`` < Sk and 0,
+   Sq != Sk both ways, GQA 32/8 and 24/8, ragged S = 33, 77 and 130, and the
+   granite-3-2b, minitron-4b and minicpm3-4b (hd 96, 40 heads over 40)
+   prefill shapes, on the model's strided (B,
    S, H, hd) views; whisper-large-v3's shapes: one query over 1500 encoder
-   frames (its decode cross-attention), its 416-token prompt over them and
-   1500 x 1500 (its encoder), not causal; head dims 4, 16 and 96
-   zero-padded (``pad``) in both dtypes, 96 also at minicpm3-4b's MLA
-   prefill shape (40 heads over 40); a bf16 view whose last dimension is
+   frames (its decode cross-attention, ``split``), its 416-token prompt over
+   them and
+   1500 x 1500 (its encoder), not causal; the ``split`` path at Sq 1 to 4,
+   head dims 32, 64, 96 and 128, GQA 32/8, causal, ``kv_len`` < Sk and 0,
+   a second launch bit-equal; head dims 4 and 16
+   zero-padded (``pad``) in both dtypes; a bf16 view whose last dimension is
    strided, copied (``copy``); and capped (cap 5 over q and k 3 times unit
    normal, so the logits reach ~15) on every path: granite-3-2b's prefill
    shape, GQA 32/8, causal and not, ``kv_len`` < Sk and 0, Sq != Sk, head
    dims 32, 64, 128 and 96; then ``[K3-lse]``: the log-sum-exp rows K3
    writes for training (``flash_attention_fwd``) against the plain
-   version's on the ``tma``, ``fp32`` and ``pad`` paths, uncapped and
+   version's on the ``tma``, ``split``, ``fp32`` and ``pad`` paths, uncapped
+   and
    capped, the output bit-identical to a launch without them; and
    ``[K3b]``: the CUDA
    flash-attention backward's dq, dk and dv against its plain version, each
@@ -128,10 +135,10 @@ prints no result):
    the attention layer, two MoE).  Before each of the first eight,
    ``[init]``: its weights drawn leaf by leaf in bf16 bit-equal to the f32
    tree cast afterwards.  Counters set to 0 just before each model: K3 must
-   have run once per attention layer of the prefill, on ``tma`` (on
-   ``pad`` for minicpm3-4b's head dim 96), and for whisper also once per
-   encoder layer and once per cross-attention in the prefill and in each
-   decode step (through the graph's replays); K4 32 times, all on its
+   have run once per attention layer of the prefill, on ``tma`` (minicpm3-4b's
+   head dim 96 too), and for whisper also once per
+   encoder layer and once per cross-attention in the prefill (``tma``) and in each
+   decode step (``split``, through the graph's replays); K4 32 times, all on its
    ``ring`` path; every decode step one replay of the captured CUDA graph;
    each ``[serve]`` line with the greedy tokens' sha256.  Then one prefill
    and 4 eager decode steps of granite-3-2b, rwkv6-3b,
@@ -283,7 +290,7 @@ REPLACES = {
 SERVE = dict(n_requests=8, prompt_len=2048, decode_len=32)
 K3_SHAPE = (8, 32, 8, 2048, 64)    # B, H, K, S, hd
 K3_MINITRON = (8, 24, 8, 2048, 128)
-K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, zero-padded to 128
+K3_MINICPM3 = (8, 40, 40, 2048, 96)  # MLA: qk_nope 64 + qk_rope 32, built at 96
 K3_WHISPER = (8, 20, 20, 1500, 64)   # the encoder over its 1500 frames, not causal
 K3_WHISPER_F32 = (2, 20, 20, 1500, 64)  # the same in the f32 cuts (batch 2), not causal
 K3_COMMAND_R = (8, 64, 8, 2048, 128)
@@ -341,7 +348,8 @@ PREFILL_SPLIT = ("jamba_1_5_large_398b",)
 PROFILE_KEY = {"flash_attention": "flash_fwd", "wkv6": "wkv6"}  # in the kernels' names
 # the device kernels of each wrapper, by a part of their names (torch.profiler)
 KERNEL_KEYS = {"flash_attention_bwd": ("bwd_dq", "bwd_dkdv", "bwd_rowstats", "flash_bwd_tf32"),
-               "flash_attention": ("flash_fwd<", "flash_fwd_tf32<"), "wkv6_bwd": ("wkv6_bwd",),
+               "flash_attention": ("flash_fwd<", "flash_fwd_tf32<", "flash_fwd_split<",
+                                   "flash_fwd_merge<"), "wkv6_bwd": ("wkv6_bwd",),
                "wkv6": ("wkv6_ring",)}
 # special-function (MUFU) operations an SM issues a clock (Hopper)
 MUFU_PER_SM_CLOCK = 16
@@ -502,8 +510,11 @@ def _row_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
 
 
-def check_flash(flash, ref, gen) -> tuple[float, float]:
-    """-> max |error| at the main path's shape, uncapped and capped.  Tolerances: the test
+def check_flash(flash, ref, gen) -> tuple[float, float, float]:
+    """-> max |error| at the main path's shape, uncapped and capped, and on
+    the ``split`` path at whisper-large-v3's decode cross-attention (one
+    query over 1500 frames), whose cases also hold a second launch bit-equal
+    to the first.  Tolerances: the test
     suite's elementwise 2e-5 in f32 and 2e-2 in bf16 (rtol = atol), and per
     query row |got - plain| / |plain| (2-norms over hd) below 1e-4 in f32
     and 1e-2 in bf16.  A causal row averages up to S values of unit-normal
@@ -513,7 +524,9 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
     fewer than 32 values, see below).  The capped cases (cap 5 over q and k
     3 times unit normal) are held to the plain capped version at the same
     tolerances."""
-    main_err = capped_err = None
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, SPLIT_MAX_SQ
+
+    main_err = capped_err = split_err = None
     B0, H0, K0, S0, hd0 = K3_SHAPE
     Bm, Hm, Km, Sm, hdm = K3_MINITRON
     cases = [  # B, H, K, Sq, Sk, hd, dtype, causal, kv_len
@@ -554,17 +567,28 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
         (8, 20, 20, 416, 1500, 64, torch.bfloat16, False, None),
         (8, 20, 20, 1500, 1500, 64, torch.bfloat16, False, None),
         (2, 20, 20, 1500, 1500, 64, torch.float32, False, None),
-        # minicpm3-4b's MLA prefill: head dim 96 over 40 heads, zero-padded
+        # minicpm3-4b's MLA prefill: head dim 96 over 40 heads, built
         (8, 40, 40, 2048, 2048, 96, torch.bfloat16, True, None),
         (2, 40, 40, 512, 512, 96, torch.float32, True, None),
+        # the split path (bf16, Sq <= SPLIT_MAX_SQ): Sq 2 to 4, GQA 32/8,
+        # causal (top-left: row i sees keys 0..i), kv_len < Sk and 0, head
+        # dims 32, 96 and 128, Sk not a multiple of a tile, and one key
+        (8, 32, 8, 2, 1500, 64, torch.bfloat16, False, None),
+        (2, 32, 8, 3, 777, 64, torch.bfloat16, True, None),
+        (2, 32, 8, 4, 2048, 128, torch.bfloat16, False, 1000),
+        (2, 20, 20, 1, 1500, 64, torch.bfloat16, True, 0),
+        (2, 8, 2, 4, 130, 96, torch.bfloat16, False, 77),
+        (2, 8, 8, 1, 4099, 32, torch.bfloat16, False, None),
+        (1, 4, 4, 4, 1, 64, torch.bfloat16, True, None),
         # the other served prefills: granite-moe-3b-a800m, llava-next-mistral-7b
         # (576 patches + 1472 text tokens) and deepseek-moe-16b
         (8, 24, 8, 2048, 2048, 64, torch.bfloat16, True, None),
         (8, 32, 8, 2048, 2048, 128, torch.bfloat16, True, None),
         (8, 16, 16, 2048, 2048, 128, torch.bfloat16, True, None),
     ]
-    # head dims that are not built, zero-padded up to the next built one
-    # (minicpm3-4b's MLA attends at 96), and a bf16 view TMA cannot address
+    # head dims that are not built, zero-padded up to the next built one,
+    # the built 96 (minicpm3-4b's MLA) at the same ragged shape, and a bf16
+    # view TMA cannot address
     for hd in (4, 16, 96):
         for dt in (torch.float32, torch.bfloat16):
             cases.append((2, 4, 2, 130, 130, hd, dt, True, None))
@@ -573,7 +597,8 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
     cases = [(*c, 0.0) for c in cases]
     # capped (a model's attn_logit_softcap) on every path: granite-3-2b's
     # prefill shape, GQA 32/8, causal and not, kv_len < Sk and 0, Sq != Sk
-    # both ways, head dims 32, 64, 128 and 96 (pad), a strided view (copy)
+    # both ways, head dims 32, 64, 128 and 96, a strided view (copy), one
+    # query and four (split)
     bf16, f32 = torch.bfloat16, torch.float32
     cases += [(*c, CHECK_CAP) for c in (
         (B0, H0, K0, S0, S0, hd0, bf16, True, None),
@@ -590,7 +615,10 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
         (2, 4, 4, 192, 64, 128, bf16, True, None),
         (2, 40, 40, 512, 512, 96, bf16, True, None),
         (2, 4, 2, 130, 130, 96, f32, True, None),
-        (1, 4, 4, 128, 128, 64, bf16, True, "strided"))]
+        (1, 4, 4, 128, 128, 64, bf16, True, "strided"),
+        (8, 20, 20, 1, 1500, 64, bf16, False, None),
+        (2, 32, 8, 4, 1000, 128, bf16, True, None),
+        (2, 8, 2, 3, 300, 96, bf16, False, 0))]
     for B, H, K, Sq, Sk, hd, dt, causal, kv_len, cap in cases:
         x = CHECK_CAP_INPUTS if cap else 1.0
         if kv_len == "strided":  # a strided last dimension: the copy path
@@ -604,11 +632,18 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
         got, taken = paths_taken(flash, lambda: flash(q, k, v, causal=causal, kv_len=kv_len,
                                                       cap=cap))
         want = ref.flash_attention(q, k, v, causal=causal, kv_len=kv_len, cap=cap)
-        want_path = ("pad" if hd not in (32, 64, 128) else "fp32" if dt == torch.float32
-                     else "copy" if q.stride(-1) != 1 else "tma")
+        want_path = ("pad" if hd not in HEAD_DIMS else "fp32" if dt == torch.float32
+                     else "copy" if q.stride(-1) != 1 else "split" if Sq <= SPLIT_MAX_SQ
+                     else "tma")
         if taken != [want_path]:
             raise AssertionError(f"flash_attention hd{hd} {dt}: paths {taken}, "
                                  f"want {want_path}")
+        again = ""
+        if want_path == "split":  # no atomics: the merge order is fixed
+            if not torch.equal(got, flash(q, k, v, causal=causal, kv_len=kv_len, cap=cap)):
+                raise AssertionError(f"flash_attention split B{B} H{H}/K{K} Sq{Sq} Sk{Sk}: "
+                                     f"two launches on the same inputs differ")
+            again = "; a second launch bit-equal"
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"flash_attention: {got.shape} {got.dtype}")
@@ -632,17 +667,20 @@ def check_flash(flash, ref, gen) -> tuple[float, float]:
               + (f" cap={cap:g} (q, k x{x:g})" if cap else "")
               + f" last-dim stride {q.stride(-1)} "
               f"path={taken[0]} max_abs_err={err} (rtol=atol={tol:g}) "
-              f"max_row_rel_err={row_err:.3e} (< {row_tol:g}) ok")
+              f"max_row_rel_err={row_err:.3e} (< {row_tol:g}){again} ok")
         if main_err is None:
             main_err = err
         if cap and capped_err is None:
             capped_err = err
-    return main_err, capped_err
+        if (B, H, K, Sq, Sk, hd, cap) == (8, 20, 20, 1, 1500, 64, 0.0):
+            split_err = err
+    return main_err, capped_err, split_err
 
 
 def check_flash_lse(gen) -> None:
     """``[K3-lse]``: K3's log-sum-exp rows (``flash_attention_fwd``) against
-    the plain version's, on the ``tma``, ``fp32`` and ``pad`` paths, causal
+    the plain version's, on the ``tma``, ``split``, ``fp32`` and ``pad`` paths,
+    causal
     or not, GQA, ``kv_len`` < Sk, uncapped and capped (cap 5 over q and k 3
     times unit normal: the LSE of the capped logits); the output
     bit-identical to a launch without the LSE.  Tolerance rtol = atol = 1e-5 in f32 and 1e-4 in bf16:
@@ -659,8 +697,13 @@ def check_flash_lse(gen) -> None:
         (2, 8, 2, 130, 130, 32, torch.bfloat16, False, None, "tma"),
         (2, 32, 8, 512, 512, 64, torch.float32, True, None, "fp32"),
         (2, 8, 2, 130, 190, 128, torch.float32, False, 77, "fp32"),
-        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "pad"),
+        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "tma"),
         (2, 8, 2, 130, 130, 16, torch.float32, True, None, "pad"),
+        (2, 8, 2, 130, 130, 16, torch.bfloat16, False, 77, "pad"),
+        (8, 20, 20, 1, 1500, 64, torch.bfloat16, False, None, "split"),
+        (2, 32, 8, 4, 1000, 128, torch.bfloat16, True, None, "split"),
+        (2, 8, 2, 3, 300, 96, torch.bfloat16, False, 77, "split"),
+        (2, 8, 2, 2, 300, 32, torch.bfloat16, False, 0, "split"),
     ]
     cases = [(*c, 0.0) for c in cases] + [(*c, CHECK_CAP) for c in (
         (2, 32, 8, 2048, 2048, 64, torch.bfloat16, True, None, "tma"),
@@ -668,7 +711,10 @@ def check_flash_lse(gen) -> None:
         (2, 8, 2, 130, 130, 32, torch.bfloat16, True, 0, "tma"),
         (2, 32, 8, 512, 512, 64, torch.float32, True, None, "fp32"),
         (2, 8, 2, 130, 190, 128, torch.float32, False, 77, "fp32"),
-        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "pad"))]
+        (2, 8, 8, 256, 256, 96, torch.bfloat16, True, None, "tma"),
+        (2, 8, 2, 130, 130, 16, torch.bfloat16, True, None, "pad"),
+        (8, 20, 20, 1, 1500, 64, torch.bfloat16, False, None, "split"),
+        (2, 32, 8, 4, 1000, 64, torch.bfloat16, True, 0, "split"))]
     for B, H, K, Sq, Sk, hd, dt, causal, kv_len, want_path, cap in cases:
         x = CHECK_CAP_INPUTS if cap else 1.0
         q = _strided((B, Sq, H, hd), dt, gen, x)
@@ -1161,6 +1207,26 @@ def time_flash(flash, ref, gen, peaks, shape, causal: bool = True, sq: int | Non
                                                                       is_causal=causal))), bnd
 
 
+def split_by_kernel(flash, gen, calls: int = 20) -> dict[str, float]:
+    """-> {kernel: device ms a call} of K3's ``split`` path (the split
+    kernel and its merge) at whisper-large-v3's decode cross-attention (one
+    query over its 1500 frames), from ``torch.profiler`` over ``calls``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, H, K, S, hd = K3_WHISPER
+    q = _strided((B, 1, H, hd), torch.bfloat16, gen)
+    k, v = (_strided((B, S, K, hd), torch.bfloat16, gen) for _ in range(2))
+    flash(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flash(q, k, v, causal=False)
+        torch.cuda.synchronize()
+    return {key: sum(t for name, t in _kernel_ms(prof)[0].items() if key in name) / calls
+            for key in ("flash_fwd_split", "flash_fwd_merge")}
+
+
 def time_flash_f32(gen, peaks, shape=LM100M_K3, causal: bool = True, suffix: str = ""
                    ) -> tuple[dict, dict, dict, dict]:
     """-> ({name: (ms, plain ms, library ms)}, {name: bound}, {name: max abs
@@ -1590,22 +1656,25 @@ def served_config(arch: str, cut: dict):
     return dataclasses.replace(cfg, **cut)
 
 
-def expected_launches(cfg, kname: str, decode_len: int) -> tuple[int, str]:
-    """-> (launches, path) of the prefill kernel ``kname`` in one
+def expected_launches(cfg, kname: str, decode_len: int) -> dict[str, int]:
+    """-> {path: launches} of the prefill kernel ``kname`` in one
     ``serve_smoke`` of ``cfg``: one per attention (or RWKV-6) layer of the
     prefill; for the encoder-decoder also one per encoder layer and one
-    cross-attention per decoder layer, in the prefill and then in each
-    decode step (the warm-up before the capture, which runs eagerly, and
-    each of the ``decode_len`` replays, counted through them as the fused
-    path counts).  K3 pads a head dim that is not built (MLA's 96)."""
+    cross-attention per decoder layer, in the prefill (``tma``) and then in
+    each decode step (the warm-up before the capture, which runs eagerly,
+    and each of the ``decode_len`` replays, counted through them as the
+    fused path counts): one query row over the encoder's frames, ``split``.
+    K3 pads a head dim that is not built (none of the served ones)."""
     if kname == "wkv6":
-        return cfg.n_layers, "ring"
+        return {"ring": cfg.n_layers}
     from repro_torch.kernels.flash_attention import built_head_dim
 
     n = cfg.attn_layer_count()
+    want = {"tma" if built_head_dim(cfg.hd) == cfg.hd else "pad": n}
     if cfg.enc_dec:
-        n += cfg.n_encoder_layers + cfg.n_layers * (1 + 1 + decode_len)
-    return n, "tma" if built_head_dim(cfg.hd) == cfg.hd else "pad"
+        want["tma"] += cfg.n_encoder_layers + cfg.n_layers
+        want["split"] = cfg.n_layers * (1 + decode_len)
+    return want
 
 
 def init_in_dtype(cfg, dev) -> None:
@@ -1650,7 +1719,7 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
     launches = kernel.launches
     by_path = dict(kernel.launches_by_path)
     capped = getattr(kernel, "launches_capped", 0)
-    want, path = expected_launches(cfg, kname, serve["decode_len"])
+    want = expected_launches(cfg, kname, serve["decode_len"])
     if capped != (launches if cfg.attn_logit_softcap else 0):
         raise AssertionError(f"{cfg.name}: {capped} of {kname}'s {launches} launches capped, "
                              f"attn_logit_softcap {cfg.attn_logit_softcap}")
@@ -1658,9 +1727,9 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
         raise AssertionError(f"{cfg.name}: non-finite logits")
     if tuple(tokens.shape) != (serve["n_requests"], serve["decode_len"] + 1):
         raise AssertionError(f"{cfg.name}: tokens {tuple(tokens.shape)}")
-    if launches != want or by_path[path] != launches:
-        raise AssertionError(f"{cfg.name}: {kname} launched {launches} times (by path "
-                             f"{by_path}), not {want}, all on {path}")
+    if launches != sum(want.values()) or {p: n for p, n in by_path.items() if n} != want:
+        raise AssertionError(f"{cfg.name}: {kname} launched {launches} times, by path "
+                             f"{by_path}, not {want}")
     if not stats.capture_ms > 0:
         raise AssertionError(f"{cfg.name}: serve_smoke on the card captured no decode graph")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1672,8 +1741,8 @@ def serve_full_width(cfg, kname: str, prompt_len: int, n_requests: int, dev, smi
           f"{serve['decode_len']} decode tokens, bf16: prefill {stats.prefill_ms:.1f} ms, "
           f"decode {stats.decode_ms_per_token:.2f} ms/token through one CUDA graph per step "
           f"(captured in {stats.capture_ms:.1f} ms), {stats.tokens_per_s:.1f} tokens/s; "
-          f"{kernel.__name__} launches {launches} == expected {want}, all on {path} (by path "
-          f"{by_path}), {capped} capped; peak memory {peak_gb:.1f} GB; tokens sha256 "
+          f"{kernel.__name__} launches {launches}, by path {by_path} == expected {want}, "
+          f"{capped} capped; peak memory {peak_gb:.1f} GB; tokens sha256 "
           f"{hashlib.sha256(tokens.numpy().tobytes()).hexdigest()[:16]}; {smi}")
     return {"launches": launches, "prefill_ms": stats.prefill_ms, "by_path": by_path,
             "capped": capped}
@@ -3167,7 +3236,9 @@ def build_report(build) -> None:
     (a logit cap; labelled ``capped``).  Raises when a K1 ``wgmma``, K3,
     K3b, K4 or K4b specialisation spills or is missing, when K4b's main
     pass at N 64 keeps fewer than 12 warps an SM, or when ``ptxas``
-    serialised the ``wgmma``s of a bf16 K3b kernel, capped or not."""
+    serialised the ``wgmma``s of a bf16 K3b kernel, capped or not.  K3's
+    ``split`` pair (``flash_fwd_split``, capped or not, and
+    ``flash_fwd_merge``) is held like K3."""
     import ctypes
     import re
 
@@ -3185,21 +3256,31 @@ def build_report(build) -> None:
             k1 = re.search(r"mm_wgmmaI(f|13__nv_bfloat16)Lb([01])ELb([01])E", name)
             k3b = re.search(r"(bwd_dq|bwd_dkdv|flash_bwd_tf32)(_wgmma)?ILi(\d+)ELb([01])E",
                             name)
+            split = re.search(r"flash_fwd_(split|merge)ILi(\d+)E(?:Lb([01])E)?", name)
             cur = {"src": src, "name": name,
                    "k3": k3 and (k3.group(1), int(k3.group(2)), k3.group(3) == "1"),
                    "k1": k1 and ("f32" if k1.group(1) == "f" else "bf16",
                                  "KM"[int(k1.group(2))], "KN"[int(k1.group(3))]),
                    "k3b": k3b and (k3b.group(1), "f32" if k3b.group(1) == "flash_bwd_tf32"
-                                   else "bf16", int(k3b.group(3)), k3b.group(4) == "1")}
+                                   else "bf16", int(k3b.group(3)), k3b.group(4) == "1"),
+                   "split": split and (split.group(1), int(split.group(2)),
+                                       split.group(3) == "1")}
             kernels.append(cur)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             cur["spill"] = (int(m.group(1)), int(m.group(2)))
         elif m := re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line):
             cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
-    k1, k3, k4, k3b, k4b = {}, {}, {}, {}, {}
+    k1, k3, k4, k3b, k4b, k3s = {}, {}, {}, {}, {}, {}
     for kern in kernels:
         label = kern["name"]
-        if m := re.search(r"wkv6_ringILi(\d+)E", kern["name"]):
+        if kern["split"]:
+            which, hd, capped = kern["split"]
+            k3s[kern["split"]] = kern
+            label = f"flash_fwd_{which}<bf16, hd {hd}{', capped' if capped else ''}>"
+            if which == "split":
+                most = lib.repro_flash_attention_split_smem(hd)
+                kern["smem"] = f"{kern['smem']} bytes static + at most {most} dynamic"
+        elif m := re.search(r"wkv6_ringILi(\d+)E", kern["name"]):
             k4[int(m.group(1))] = kern
             label = f"wkv6_ring<N {m.group(1)}>"
         elif m := re.search(r"wkv6_bwd_(ckpt|main)ILi(\d+)E", kern["name"]):
@@ -3250,9 +3331,14 @@ def build_report(build) -> None:
         wgmma = ", wgmma serialised by ptxas" if kern["name"] in serialised else ""
         print(f"[build] {kern['src']} {label}: {kern['regs']} registers, spill stores/loads "
               f"{kern['spill'][0]}/{kern['spill'][1]} bytes, smem {kern['smem']}{wgmma}")
-    want = {(dt, hd, c) for dt in ("f32", "bf16") for hd in (32, 64, 128) for c in (False, True)}
+    want = {(dt, hd, c) for dt in ("f32", "bf16") for hd in (32, 64, 96, 128)
+            for c in (False, True)}
     if set(k3) != want:
         raise AssertionError(f"K3 specialisations built {sorted(k3)}, want {sorted(want)}")
+    want = ({("split", hd, c) for hd in (32, 64, 96, 128) for c in (False, True)}
+            | {("merge", hd, False) for hd in (32, 64, 96, 128)})
+    if set(k3s) != want:
+        raise AssertionError(f"K3 split kernels built {sorted(k3s)}, want {sorted(want)}")
     want = {(dt, a, b) for dt in ("f32", "bf16") for a in "KM" for b in "KN"}
     if set(k1) != want:
         raise AssertionError(f"K1 wgmma specialisations built {sorted(k1)}, want {sorted(want)}")
@@ -3270,7 +3356,7 @@ def build_report(build) -> None:
     if k4b[("main", 64)]["warps"] < 12:  # the design's occupancy at the training shape
         raise AssertionError(f"K4b's main pass at N 64: {k4b[('main', 64)]['warps']} resident "
                              f"warps an SM, want at least 12")
-    spilled = [key for key, kern in {**k1, **k3, **k4, **k3b, **k4b}.items()
+    spilled = [key for key, kern in {**k1, **k3, **k3s, **k4, **k3b, **k4b}.items()
                if any(kern["spill"])]
     if spilled:
         raise AssertionError(f"K1 wgmma, K3, K3b, K4 or K4b specialisations spill: {spilled}")
@@ -3343,7 +3429,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"matmul": check_matmul(matmul, ref, gen),
             "matadd": check_matadd(matadd, ref, gen)}
-    errs["flash_attention"], errs["flash_attention+cap"] = check_flash(flash_attention, ref, gen)
+    errs["flash_attention"], errs["flash_attention+cap"], errs["flash_attention+split"] = \
+        check_flash(flash_attention, ref, gen)
     errs["wkv6"] = check_wkv6(wkv6, ref, gen)
     check_flash_lse(gen)
     errs["flash_attention_bwd"], errs["flash_attention_bwd+cap"] = check_flash_bwd(gen)
@@ -3440,9 +3527,10 @@ def main() -> int:
                                                  .format(*K3_WHISPER_F32)}
     rows = [(k, shapes[k], t, bounds[k]) for k, t in times.items()]
     # K3 beside granite's shape: minitron-4b's prefill (head_dim 128),
-    # minicpm3-4b's MLA prefill (96, on the pad path), whisper-large-v3's
+    # minicpm3-4b's MLA prefill (96, built), whisper-large-v3's
     # encoder (1500 x 1500, not causal) and one decode step's cross-attention
-    # (one query over the 1500 frames)
+    # (one query over the 1500 frames, the split path: also the JSON line's
+    # flash_attention+split)
     k3_ms = {}
     for label, shape, causal, sq in (("minitron_4b", K3_MINITRON, True, None),
                                      ("minicpm3_4b", K3_MINICPM3, True, None),
@@ -3451,6 +3539,8 @@ def main() -> int:
                                      ("whisper decode", K3_WHISPER, False, 1)):
         t, bnd = time_flash(flash_attention, ref, gen, peaks, shape, causal, sq)
         k3_ms[label] = t[0]
+        if sq == 1:
+            times["flash_attention+split"], bounds["flash_attention+split"] = t, bnd
         B_, H_, K_, S_, hd_ = shape
         desc = (f"B{B_} H{H_}/K{K_} Sq{sq or S_} Sk{S_} hd{hd_} bf16 "
                 f"{'causal' if causal else 'full'} ({label})")
@@ -3481,6 +3571,11 @@ def main() -> int:
                      f"{k4_issue_ms[2.5]:.4f} ms at the two-step form's 2.5)")
         print(f"[time] {k} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}; {smi}")
+    split_ms = split_by_kernel(flash_attention, gen)
+    print(f"[time] flash_attention split path at whisper-large-v3's decode cross-attention "
+          "B{} H{}/K{} Sq1 Sk{} hd{} by kernel (torch.profiler, ms a call): ".format(*K3_WHISPER)
+          + ", ".join(f"{k} {t:.4f}" for k, t in split_ms.items())
+          + f" (the call, back to back: {times['flash_attention+split'][0]:.4f} ms); {smi}")
     print(f"[time] flash_attention with its LSE (flash_attention_fwd, the training forward) "
           "B{} H{}/K{} S{} hd{} bf16 causal: kernel ".format(*K3_SHAPE)
           + f"{k3_lse_ms:.4f} ms (without: {times['flash_attention'][0]:.4f} ms); {smi}")
@@ -3717,6 +3812,8 @@ def main() -> int:
         if k != "matmul":
             launches[f"{k}+f32"] = counts["fp32"]
     launches.update(whisper_f32)
+    # the split path's launches: whisper-large-v3's decode cross-attention
+    launches["flash_attention+split"] = by_path["flash_attention"]["split"]
     mark("examples")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
 

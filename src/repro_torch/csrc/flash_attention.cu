@@ -13,7 +13,7 @@
 // lse = m + log(max(l, 1e-30)) in natural-log units as the reference's
 // `_flash_fwd_inner` computes it; serving passes nullptr and nothing else
 // changes.  GQA is native: query head h reads KV head h / G.  Built
-// for head dims 32, 64 and 128, in f32 or bf16.  The caller passes the
+// for head dims 32, 64, 96 and 128, in f32 or bf16.  The caller passes the
 // scale, 1/sqrt of its own head dim: the wrapper zero-pads q, k and v of any
 // other head dim up to the next built one (zero columns add nothing to
 // Q K^T, and the output's extra columns are cropped), so the scale cannot
@@ -33,8 +33,9 @@
 // stages, each guarded by a "full" and an "empty" mbarrier, so later tiles
 // arrive while one is computed.  The tensor maps are built on the host for
 // each call over the strided (B, S, heads, hd) storage, with a 128-byte
-// swizzle (two 64-wide boxes at hd 128; a 64-byte swizzle at hd 32); TMA's
-// zero fill gives the ragged tails past Sq and Sk.  Each consumer warpgroup
+// swizzle where hd is a multiple of 64 (two 64-wide boxes at hd 128) and a
+// 64-byte one of 32-wide boxes otherwise (one at hd 32, three at hd 96);
+// TMA's zero fill gives the ragged tails past Sq and Sk.  Each consumer warpgroup
 // computes S = Q K^T with wgmma (both operands K-major in shared memory),
 // masks only the tiles that cross the causal diagonal, kv_len or Sk,
 // updates m and l in registers (row max and sum by shuffles within each quad
@@ -47,6 +48,55 @@
 // two warpgroups also overlap each other's softmax and products.  The scale
 // times log2(e) is folded into exp2.  Query blocks are launched with the
 // most keys first, so the causal diagonal's heavy blocks do not finish last.
+//
+// hd 96 (minicpm3-4b's MLA: qk_nope 64 + qk_rope 32, v zero-padded to 96 by
+// the model) is built as three 32-wide boxes a row with the 64-byte swizzle:
+// S = Q K^T is 6 k16 steps, two in each box, and P V one m64n96k16 wgmma a
+// k16 step whose B spans the three boxes of V, one leading offset (a box,
+// 8 KB) apart.  Q and three stages of K and V take 168 KB of shared memory
+// (hd 128: 224 KB) and the accumulator 48 registers (64).  At the prefill
+// shape (B 8, H 40, S 2048, causal) its 4 x 96 operations a kept pair take
+// 0.261 ms at the bf16 tensor peak; until this build the wrapper zero-padded
+// q, k and v to 128, three copies of 168 MB a layer, and the kernel did 4/3
+// of the products.
+//
+// bf16 at a few query rows (the wrapper's `split` path: Sq <= 4; whisper's
+// decode cross-attention has one query over 1500 encoder frames) is bound
+// by bytes: a key costs 4 hd operations a query row against 4 hd bytes of K
+// and V, so at one row the tensor cores would idle 63 of the 64 rows of
+// each wgmma, and the CUDA cores' f32 rate (67 TFLOP/s, 20 operations a
+// byte of the 3.35 TB/s) covers the arithmetic of up to ~16 rows inside the
+// time the bytes take.  The prefill launch gives such a call one block of
+// 128 mostly empty rows a (batch, head), 160 blocks of 384 threads at
+// whisper's shape on 132 SMs, each walking all 12 key tiles in turn.
+// Instead the keys of each (batch, KV head) are cut into splits (the
+// wrapper's rule, from the shapes alone: ceil(rows / 4) tiles of 128 keys,
+// rows = min(G Sq, 16), so the partials stay near 1/16 of the keys' bytes;
+// 12 splits of one tile at whisper's (8, 20/20, 1 over 1500, 64)).  An item
+// is one split of all G x Sq query rows of a KV head (16 at most; more rows
+// make more row groups, each rereading the keys), so K and V are read once.
+// Persistent blocks of 128 threads, as many as the SMs hold, take the items
+// in turn; in each, thread 0 keeps two steps (a tile of K and V and the
+// item's q rows) in flight by TMA, with the prefill kernel's boxes and
+// swizzle, each stage completing on its mbarrier, while the block computes
+// one: each key's dots in f32 (a thread a key), the online softmax (a warp
+// a row) with the prefill kernel's masks, rounding and -1e30, and P V (a
+// thread per two output columns, the tile's keys in order, in up to 4 key
+// slices summed in order where the rows have few columns).  An item writes
+// its rows' (m, l) and unnormalised O in f32 to a scratch buffer the
+// wrapper allocates; a second kernel, launched as a programmatic dependent
+// launch so its start overlaps the first's tail, takes M = max m and sums
+// l and O over the splits in order, each times 2^(m - M), and writes out =
+// O / max(l, 1e-30) and the LSE.  No atomics: a second launch gives the
+// same bits, and the split count depends on the shapes alone (which block
+// takes an item does not change its sums), so a CUDA graph's replays give
+// eager decode's bits.  Splits whose keys all lie past the last key any row
+// sees (causal, or past kv_len > 0) are neither run nor merged.  Forms of
+// this kernel with per-thread cp.async copies into 64-key tiles were bound
+// by their copy and index instructions, not by bytes; issuing the copies by
+// TMA from one thread, 128-key tiles and index math once an item make the
+// split kernel take 0.021 ms at whisper's shape on an H100 (SXM, 700 W;
+// scripts/time_attention_rows.py), ~89% of the HBM rate.
 //
 // f32 runs on the tensor cores as 3xTF32, as K1 does (matmul.cu): each
 // operand x is split into hi = x with its low 13 mantissa bits cleared and
@@ -346,10 +396,11 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int BK = 128;                  // keys per tile
-  static constexpr int RB = HD >= 64 ? 128 : 64;  // bytes per swizzled row of a box
-  static constexpr int BOX = RB / 2;              // hd values per box
-  static constexpr int NBOX = HD / BOX;           // boxes per row: 1, 1, 2
+  static constexpr int BK = 128;                       // keys per tile
+  static constexpr int RB = HD % 64 == 0 ? 128 : 64;   // bytes per swizzled row of a box
+  static constexpr int BOX = RB / 2;                   // hd values per box
+  static constexpr int NBOX = HD / BOX;                // boxes per row: 1, 1, 3, 2
+  static_assert(NBOX * BOX == HD, "a row is whole boxes");
   static constexpr uint32_t SWIZZLE = RB == 128 ? SWIZZLE_128B : SWIZZLE_64B;
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
@@ -507,7 +558,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // O += P V for the tile in stage `s`: BK / 16 steps of k16 over the keys,
   // P from registers, V's 16 key rows of each step read transposed
-  // (MN-major); at hd 128 the two boxes of a row are one leading offset apart
+  // (MN-major); the boxes of a row (two of 64 at hd 128, three of 32 at hd
+  // 96) are one leading offset apart
   auto issue_pv = [&](int s) {
     const uint32_t sV = sKV + (2 * s + 1) * C::KV_BYTES;
 #pragma unroll
@@ -673,6 +725,573 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace bf16
 
+// ---------------------------------------------------------------------------
+// bf16 at a few query rows: the keys split over blocks, then a merge
+// ---------------------------------------------------------------------------
+
+namespace split {
+
+using namespace hopper;
+using bf16::ex2;
+using bf16::LN2;
+using bf16::LOG2E;
+
+constexpr int THREADS = 128;
+constexpr int TK = 128;         // keys a tile: a thread a key
+constexpr int ROWS = 16;        // query rows an item, of the G x Sq rows of its KV head
+constexpr int STAGES = 2;       // tiles in flight a block
+constexpr int MERGE_WARPS = 4;  // a merge block: one output row, its splits in 4 runs
+
+template <int HD>
+struct Cfg {
+  using T = bf16::Cfg<HD>;                  // the prefill kernel's boxes and swizzle
+  static constexpr int RB = T::RB;          // bytes a swizzled row of a box
+  static constexpr int BOX = T::BOX;        // hd values a box
+  static constexpr int KV_BYTES = TK * HD * 2;  // one K or V tile, NBOX boxes
+  static constexpr int QLD = (HD + 63) / 64 * 64;  // a q row's values: 128-byte aligned rows
+  static constexpr int NP = ROWS * HD / 2 / THREADS;  // output column pairs a thread, at most
+  // a stage: the K and V tiles, then an item's q rows, in 1024-byte units
+  // (the 128-byte swizzle's period)
+  __host__ __device__ static constexpr int stage_bytes(int rows) {
+    return (2 * KV_BYTES + rows * QLD * 2 + 1023) / 1024 * 1024;
+  }
+  // the stages, their mbarriers, then in f32 the P V key slices' sums, a
+  // tile's logits (then P), each row's m, l and rescale factor; and slack to
+  // align the base to 1024
+  static constexpr int smem(int rows) {
+    return STAGES * stage_bytes(rows) + 8 * STAGES + THREADS * 2 * 4 + rows * (TK + 3) * 4 +
+           1024;
+  }
+  static constexpr int SMEM = smem(ROWS);
+};
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// byte offset of the 16-byte chunk `chunk` (of hd / 8) of row j in a TMA tile
+// of TK rows stored as boxes of BOX values with the box's swizzle
+template <int HD>
+__device__ __forceinline__ uint32_t tile_off(int j, int chunk) {
+  using C = Cfg<HD>;
+  constexpr int CPB = C::BOX / 8;  // chunks a box row
+  const int box = chunk / CPB;
+  const int cc = chunk % CPB;
+  const int swz = C::RB == 128 ? (j & 7) : ((j >> 1) & 3);
+  return box * TK * C::RB + j * C::RB + ((cc ^ swz) << 4);
+}
+
+// An item: one split of one group of up to ROWS query rows of a (batch, KV
+// head); `tiles` steps of TK keys
+struct Item {
+  int b, kh, row0, rows, split, k_begin, k_end, tiles;
+};
+
+// item `it` of the numbering below (split fastest, then row group, KV head
+// and batch)
+__device__ __forceinline__ Item item_of(int it, int n_active, int n_rg, int Kh, int R, int chunk,
+                                        int k_stop) {
+  Item x;
+  x.split = it % n_active;
+  const int grp = it / n_active;
+  const int rg = grp % n_rg;
+  x.b = grp / n_rg / Kh;
+  x.kh = grp / n_rg % Kh;
+  x.row0 = rg * ROWS;
+  x.rows = min(ROWS, R - x.row0);
+  x.k_begin = x.split * chunk;
+  x.k_end = min(x.k_begin + chunk, k_stop);
+  x.tiles = (x.k_end - x.k_begin + TK - 1) / TK;
+  return x;
+}
+
+// Thread 0's load of step (x, tile) into the stage at `st` on mbarrier
+// `bar`: the tile's K and V rows (TMA zero-fills past Sk; rows past the
+// item's last key are never read) and the item's q rows
+template <int HD>
+__device__ __forceinline__ void issue_step(uint32_t st, uint32_t bar, const Item& x, int tile,
+                                           const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                           const CUtensorMap* vmap, int G, int Sq) {
+  using C = Cfg<HD>;
+  mbar_expect_tx(bar, 2 * C::KV_BYTES + x.rows * HD * 2);
+  const int k0 = x.k_begin + tile * TK;
+#pragma unroll
+  for (int box = 0; box < C::T::NBOX; ++box) {
+    tma_load_4d(st + box * TK * C::RB, kmap, bar, box * C::BOX, k0, x.kh, x.b);
+    tma_load_4d(st + C::KV_BYTES + box * TK * C::RB, vmap, bar, box * C::BOX, k0, x.kh, x.b);
+  }
+#pragma unroll 1
+  for (int r = 0; r < x.rows; ++r) {
+    const int i = x.row0 + r;
+    tma_load_4d(st + 2 * C::KV_BYTES + r * C::QLD * 2, qmap, bar, 0, i % Sq, x.kh * G + i / Sq,
+                x.b);
+  }
+}
+
+// The keys of each (batch, KV head) are cut into n_split splits of `chunk`
+// keys; an item is one split of one group of up to ROWS query rows (row i of
+// KV head kh's G x Sq rows is query head kh G + i / Sq at position i % Sq).
+// Items whose keys all lie at or past k_stop (the last key any row sees:
+// kv_len > 0, and Sq where causal) add exactly 0 and are not run; the
+// others, n_active a group, are numbered split-fastest, and block x takes
+// items x, x + gridDim.x, ...  A step is one tile of TK keys of an item.
+// Thread 0 keeps STAGES steps' K and V tiles and q rows in flight by TMA,
+// each stage completing on its mbarrier, while the block computes one:
+// S = the tile's dots (a thread a key, every row), the online softmax (a
+// warp a row; m, l across the item's tiles), O = O corr + P V (a thread a
+// column pair; where rows x hd / 2 < THREADS the tile's keys are cut into
+// up to 4 slices, summed in order).  An item's last step writes its rows'
+// (m, l) and unnormalised O in f32.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)  // 1: ptxas spills at its own target
+    flash_fwd_split(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, float* __restrict__ part_o,
+                    float* __restrict__ part_ml, int H, int G, int Sq, int Sk, int kv_len,
+                    int causal, float scale_log2, float tanh_scale, int chunk, int n_rg,
+                    int n_split, int n_active, int n_items) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_split[];
+  const int R = G * Sq;
+  const int rmax = R < ROWS ? R : ROWS;  // rows of the largest item
+  const int sbytes = C::stage_bytes(rmax);
+  const uint32_t base = (smem_u32(smem_split) + 1023) & ~1023u;
+  uint8_t* gbase = smem_split + (base - smem_u32(smem_split));
+  const uint32_t bars = base + STAGES * sbytes;
+  float2* Red = reinterpret_cast<float2*>(gbase + STAGES * sbytes + 8 * STAGES);
+  float* Sc = reinterpret_cast<float*>(Red + THREADS);
+  float* Ms = Sc + rmax * TK;
+  float* Ls = Ms + rmax;
+  float* Cs = Ls + rmax;
+  const int Kh = H / G;
+  const int t = threadIdx.x;
+  const bool any_valid = kv_len > 0;
+  int k_stop = any_valid ? kv_len : Sk;
+  if (causal && any_valid) k_stop = min(k_stop, Sq);
+
+  auto item = [&](int it) { return item_of(it, n_active, n_rg, Kh, R, chunk, k_stop); };
+
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_init_fence();
+    prefetch_tensormap(&qmap);
+    prefetch_tensormap(&kmap);
+    prefetch_tensormap(&vmap);
+  }
+  __syncthreads();
+
+  // the load cursor (thread 0) runs STAGES steps ahead of the compute
+  // cursor
+  int ld_it = blockIdx.x, ld_tile = 0;
+  Item ld = item(ld_it < n_items ? ld_it : 0);
+  if (t == 0) {
+#pragma unroll 1
+    for (int s = 0; s < STAGES && ld_it < n_items; ++s) {
+      issue_step<HD>(base + s * sbytes, bars + 8 * s, ld, ld_tile, &qmap, &kmap, &vmap, G, Sq);
+      if (++ld_tile == ld.tiles) {
+        ld_tile = 0;
+        ld_it += gridDim.x;
+        ld = item(ld_it < n_items ? ld_it : 0);
+      }
+    }
+  }
+
+  float acc[C::NP][2];
+  int n = 0;  // the block's steps so far
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const Item x = item(it);
+    const int rows = x.rows;
+    const int pairs = rows * (HD / 2);
+    const int ks = pairs * 4 <= THREADS ? 4 : pairs * 2 <= THREADS ? 2 : 1;
+    for (int r = t; r < rows; r += THREADS) {  // m, l and O start afresh
+      Ms[r] = NEG_INF;
+      Ls[r] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < C::NP; ++i) acc[i][0] = acc[i][1] = 0.0f;
+    for (int tile = 0; tile < x.tiles; ++tile, ++n) {
+      const int slot = n % STAGES;
+      const uint8_t* Kg = gbase + slot * sbytes;
+      const uint8_t* Vg = Kg + C::KV_BYTES;
+      const __nv_bfloat16* Qs = reinterpret_cast<const __nv_bfloat16*>(Kg + 2 * C::KV_BYTES);
+      const int k0 = x.k_begin + tile * TK;
+      const int nk = min(TK, x.k_end - k0);
+      mbar_wait(bars + 8 * slot, (n / STAGES) & 1);
+
+      // S: thread t takes key t of the tile for every row, four rows at a
+      // time: the dot in f32 over hd in order, then capped, scaled to log2
+      // units and masked as the prefill kernel does
+      const int key = k0 + t;
+#pragma unroll 1
+      for (int r0 = 0; r0 < rows; r0 += 4) {
+        float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(Kg + tile_off<HD>(t, c));
+          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float kf[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(k2[e]);
+            kf[2 * e] = f.x;
+            kf[2 * e + 1] = f.y;
+          }
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            if (r0 + rr < rows) {
+              const uint4 qraw =
+                  *reinterpret_cast<const uint4*>(Qs + (r0 + rr) * C::QLD + 8 * c);
+              const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qraw);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 f = __bfloat1622float2(q2[e]);
+                dot[rr] = fmaf(f.x, kf[2 * e], dot[rr]);
+                dot[rr] = fmaf(f.y, kf[2 * e + 1], dot[rr]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int r = r0 + rr;
+          if (r < rows) {
+            float xv = dot[rr];
+            if (CAP) xv = tanh_ex2(xv * tanh_scale);
+            const bool valid = key < kv_len && (!causal || key <= (x.row0 + r) % Sq);
+            // a slot past the item's keys does not exist: -inf gives it p = 0
+            Sc[r * TK + t] = t >= nk ? -INFINITY : valid ? xv * scale_log2 : NEG_INF;
+          }
+        }
+      }
+      __syncthreads();
+
+      // the online softmax, a warp a row: m and l updated, P rounded to
+      // bf16 (l sums the unrounded p, as the prefill kernel's)
+      {
+        const int lane = t % 32;
+        for (int r = t / 32; r < rows; r += THREADS / 32) {
+          float xs[TK / 32];
+          float mx = -INFINITY;
+#pragma unroll
+          for (int u = 0; u < TK / 32; ++u) {
+            xs[u] = Sc[r * TK + lane + 32 * u];
+            mx = fmaxf(mx, xs[u]);
+          }
+#pragma unroll
+          for (int d = 16; d > 0; d /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+          const float m_old = Ms[r];
+          const float m_new = fmaxf(m_old, mx);
+          float sum = 0.0f;
+#pragma unroll
+          for (int u = 0; u < TK / 32; ++u) {
+            const float p = ex2(xs[u] - m_new);
+            sum += p;
+            Sc[r * TK + lane + 32 * u] = round_bf16(p);
+          }
+#pragma unroll
+          for (int d = 16; d > 0; d /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+          __syncwarp();  // every lane has read Ms[r]
+          if (lane == 0) {
+            const float corr = ex2(m_old - m_new);
+            Ms[r] = m_new;
+            Ls[r] = Ls[r] * corr + sum;
+            Cs[r] = corr;
+          }
+        }
+      }
+      __syncthreads();
+
+      // O = O corr + P V over the tile's keys below nk in order; with few
+      // column pairs, key slices of TK / ks keys summed in slice order
+      if (ks == 1) {
+#pragma unroll
+        for (int i = 0; i < C::NP; ++i) {
+          const int p = t + THREADS * i;
+          if (p < pairs) {
+            const int r = p / (HD / 2);
+            const int c = 2 * (p % (HD / 2));
+            const float* pr = Sc + r * TK;
+            float o0 = acc[i][0] * Cs[r];
+            float o1 = acc[i][1] * Cs[r];
+            for (int j = 0; j < nk; ++j) {
+              const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  Vg + tile_off<HD>(j, c / 8) + (c % 8) * 2));
+              o0 = fmaf(pr[j], vv.x, o0);
+              o1 = fmaf(pr[j], vv.y, o1);
+            }
+            acc[i][0] = o0;
+            acc[i][1] = o1;
+          }
+        }
+      } else {
+        const int per = THREADS / ks;  // threads a slice
+        const int p = t % per;
+        const int sl = t / per;
+        if (p < pairs) {
+          const int r = p / (HD / 2);
+          const int c = 2 * (p % (HD / 2));
+          const float* pr = Sc + r * TK;
+          float o0 = 0.0f, o1 = 0.0f;
+          const int j0 = sl * (TK / ks);
+          const int j1 = min(j0 + TK / ks, nk);
+          for (int j = j0; j < j1; ++j) {
+            const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                Vg + tile_off<HD>(j, c / 8) + (c % 8) * 2));
+            o0 = fmaf(pr[j], vv.x, o0);
+            o1 = fmaf(pr[j], vv.y, o1);
+          }
+          Red[t] = make_float2(o0, o1);
+        }
+        __syncthreads();
+        if (sl == 0 && p < pairs) {
+          const int r = p / (HD / 2);
+          float2 sum = Red[p];
+          for (int w = 1; w < ks; ++w) {
+            sum.x += Red[w * per + p].x;
+            sum.y += Red[w * per + p].y;
+          }
+          acc[0][0] = fmaf(acc[0][0], Cs[r], sum.x);
+          acc[0][1] = fmaf(acc[0][1], Cs[r], sum.y);
+        }
+      }
+      __syncthreads();  // the step's stage, P and the slices' sums consumed
+      if (t == 0 && ld_it < n_items) {
+        issue_step<HD>(base + slot * sbytes, bars + 8 * slot, ld, ld_tile, &qmap, &kmap, &vmap, G,
+                       Sq);
+        if (++ld_tile == ld.tiles) {
+          ld_tile = 0;
+          ld_it += gridDim.x;
+          ld = item(ld_it < n_items ? ld_it : 0);
+        }
+      }
+    }
+
+    // the item's partials of row (b, h, qi) and split s at
+    // ((b H + h) Sq + qi) n_split + s; with key slices, the first slice's
+    // threads hold O
+#pragma unroll
+    for (int i = 0; i < C::NP; ++i) {
+      const int p = t + THREADS * i;
+      if (ks == 1 ? p < pairs : i == 0 && t < pairs) {
+        const int ri = x.row0 + p / (HD / 2);
+        const long long prow = ((long long)x.b * H + x.kh * G + ri / Sq) * Sq + ri % Sq;
+        *reinterpret_cast<float2*>(part_o + (prow * n_split + x.split) * HD +
+                                   2 * (p % (HD / 2))) = make_float2(acc[i][0], acc[i][1]);
+      }
+    }
+    for (int r = t; r < rows; r += THREADS) {
+      const int ri = x.row0 + r;
+      const long long prow = ((long long)x.b * H + x.kh * G + ri / Sq) * Sq + ri % Sq;
+      *reinterpret_cast<float2*>(part_ml + (prow * n_split + x.split) * 2) =
+          make_float2(Ms[r], Ls[r]);
+    }
+    __syncthreads();  // m and l read before the next item resets them
+  }
+  // the merge may launch: it waits for this grid to finish before it reads
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// One block an output row: M = max m over the row's active splits; each
+// warp sums l and O over its run of consecutive splits in order, each times
+// 2^(m - M), and the first warp adds the runs in order; out = O / max(l,
+// 1e-30) and the LSE from M and l, as the prefill kernel forms them.  Each
+// warp's loads of its run are independent, so they fly together.  Splits at
+// or past n_active hold no key any row sees and are not read.
+template <int HD>
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+    flash_fwd_merge(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
+                    int n_split, int n_active, Strides so) {
+  constexpr int NC = (HD + 63) / 64;  // column pairs a lane: 2 lane + 64 i
+  // launched early (programmatic dependent launch): wait until the split
+  // kernel has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __shared__ float red_o[MERGE_WARPS][HD];
+  __shared__ float red_l[MERGE_WARPS];
+  const long long row = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float2* ml = reinterpret_cast<const float2*>(part_ml) + row * n_split;
+  const float* po = part_o + row * n_split * HD;
+  float M = NEG_INF;
+  for (int s = lane; s < n_active; s += 32) M = fmaxf(M, ml[s].x);
+#pragma unroll
+  for (int d = 16; d > 0; d /= 2) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, d));
+  const int per = (n_active + MERGE_WARPS - 1) / MERGE_WARPS;
+  const int s_end = min(n_active, (warp + 1) * per);
+  float l = 0.0f;
+  float acc[NC][2];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) acc[i][0] = acc[i][1] = 0.0f;
+#pragma unroll 4
+  for (int s = warp * per; s < s_end; ++s) {
+    const float2 x = ml[s];
+    const float w = ex2(x.x - M);
+    l = fmaf(w, x.y, l);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = 2 * lane + 64 * i;
+      if (c < HD) {
+        const float2 y = *reinterpret_cast<const float2*>(po + (long long)s * HD + c);
+        acc[i][0] = fmaf(w, y.x, acc[i][0]);
+        acc[i][1] = fmaf(w, y.y, acc[i][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = 2 * lane + 64 * i;
+    if (c < HD) {
+      red_o[warp][c] = acc[i][0];
+      red_o[warp][c + 1] = acc[i][1];
+    }
+  }
+  if (lane == 0) red_l[warp] = l;
+  __syncthreads();
+  if (warp != 0) return;
+  l = red_l[0];
+#pragma unroll
+  for (int w = 1; w < MERGE_WARPS; ++w) l += red_l[w];
+  const float inv = 1.0f / fmaxf(l, 1e-30f);
+  const long long b = row / ((long long)H * Sq);
+  const int h = row / Sq % H;
+  const int qi = row % Sq;
+  __nv_bfloat16* op = o + b * so.b + h * so.h + (long long)qi * so.s;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = 2 * lane + 64 * i;
+    if (c < HD) {
+      float x0 = red_o[0][c], x1 = red_o[0][c + 1];
+#pragma unroll
+      for (int w = 1; w < MERGE_WARPS; ++w) {
+        x0 += red_o[w][c];
+        x1 += red_o[w][c + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(op + c) = __floats2bfloat162_rn(x0 * inv, x1 * inv);
+    }
+  }
+  // M is in log2 units of the scaled (capped) logits, but a row whose keys
+  // are all masked keeps the unscaled -1e30 (the reference's -1e30 + log l)
+  if (lse != nullptr && lane == 0)
+    lse[row] = M == NEG_INF ? NEG_INF + logf(fmaxf(l, 1e-30f))
+                            : (M + log2f(fmaxf(l, 1e-30f))) * LN2;
+}
+
+// a rank-4 map over q's (B, H, Sq, hd) view with element strides `st` (b,
+// h, s, d; d == 1), one row a box, not swizzled
+template <int HD>
+bool q_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int Sq, int H, int B,
+           const long long* st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)Sq, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)HD, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool CAP>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* part, int B,
+           int H, int G, int Sq, int Sk, int kv_len, int causal, float scale, float cap,
+           int n_split, int chunk, const long long* st, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  if (!q_map<HD>(enc, &qm, q, Sq, H, B, st) ||
+      !bf16::make_map<HD>(enc, &km, k, Sk, H / G, B, st + 4, TK) ||
+      !bf16::make_map<HD>(enc, &vm, v, Sk, H / G, B, st + 8, TK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the dynamic shared memory above 48 KB, and the largest shared-memory
+  // carveout, so the SM keeps as many blocks as it has room for; set once on
+  // each device for each specialisation
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set >> dev & 1ull)) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_split<HD, CAP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_fwd_split<HD, CAP>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set |= 1ull << dev;
+  }
+  const int R = G * Sq;
+  const int n_rg = (R + ROWS - 1) / ROWS;
+  const int rmax = R < ROWS ? R : ROWS;
+  // the splits holding a key some row sees
+  int k_stop = kv_len > 0 ? kv_len : Sk;
+  if (causal && kv_len > 0 && Sq < k_stop) k_stop = Sq;
+  const int n_active = (k_stop + chunk - 1) / chunk;
+  const long long n_items = (long long)B * (H / G) * n_rg * n_active;
+  if (n_items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  // persistent blocks: as many as the SMs keep at once, or one an item
+  const int smem = C::smem(rmax);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, flash_fwd_split<HD, CAP>, THREADS, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(n_items < resident ? n_items : resident);
+  const Strides so{st[12], st[13], st[14], st[15]};
+  const long long rows_total = (long long)B * H * Sq;
+  float* part_ml = part + rows_total * n_split * HD;
+  // capped, the exponent is tanh(s scale / cap) times cap log2(e)
+  const float scale_log2 = LOG2E * (CAP ? cap : scale);
+  const float tanh_scale = CAP ? scale / cap : 0.0f;
+  flash_fwd_split<HD, CAP><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, part, part_ml, H, G, Sq, Sk, kv_len, causal, scale_log2, tanh_scale, chunk,
+      n_rg, n_split, n_active, static_cast<int>(n_items));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the merge as a programmatic dependent launch: its blocks start as the
+  // split kernel's last ones finish and wait (griddepcontrol.wait) for its
+  // writes, so the launch gap between the two kernels is hidden
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows_total));
+  cfg.blockDim = dim3(MERGE_WARPS * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* po = part;
+  const float* pml = part_ml;
+  auto* out = static_cast<__nv_bfloat16*>(o);
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_merge<HD>, po, pml, out, lse, H, Sq, n_split, n_active,
+                           so);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, float*, int, int,
+                         int, int, int, int, int, float, float, int, int, const long long*,
+                         cudaStream_t);
+
+template <bool CAP>
+LaunchFn pick(int hd) {
+  switch (hd) {
+    case 32:
+      return launch<32, CAP>;
+    case 64:
+      return launch<64, CAP>;
+    case 96:
+      return launch<96, CAP>;
+    case 128:
+      return launch<128, CAP>;
+    default:
+      return nullptr;
+  }
+}
+
+}  // namespace split
+
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
                          int, int, int, int, float, float, const long long*, cudaStream_t);
 
@@ -683,6 +1302,8 @@ int dynamic_smem(int dtype, int hd) {
       return f ? f32::Cfg<32>::SMEM : bf16::Cfg<32>::SMEM;
     case 64:
       return f ? f32::Cfg<64>::SMEM : bf16::Cfg<64>::SMEM;
+    case 96:
+      return f ? f32::Cfg<96>::SMEM : bf16::Cfg<96>::SMEM;
     case 128:
       return f ? f32::Cfg<128>::SMEM : bf16::Cfg<128>::SMEM;
     default:
@@ -698,6 +1319,8 @@ LaunchFn pick(int dtype, int hd) {
       return f ? f32::launch<32, CAP> : bf16::launch<32, CAP>;
     case 64:
       return f ? f32::launch<64, CAP> : bf16::launch<64, CAP>;
+    case 96:
+      return f ? f32::launch<96, CAP> : bf16::launch<96, CAP>;
     case 128:
       return f ? f32::launch<128, CAP> : bf16::launch<128, CAP>;
     default:
@@ -710,7 +1333,7 @@ LaunchFn pick(int dtype, int hd) {
 // o (B, H, Sq, hd) = attention of q (B, H, Sq, hd) over k, v (B, H / G, Sk, hd).
 // `strides` holds 16 element strides: (b, h, s, d) of q, k, v and o in turn.
 // dtype: 0 = float32 (any strides), 1 = bfloat16 (d strides 1, the others and
-// the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 128};
+// the pointers 16-byte aligned, o's row stride even); hd in {32, 64, 96, 128};
 // 0 <= kv_len <= Sk (Sk when every key is valid); (Sq + 127) / 128 < 65536
 // in bfloat16 and (Sq + 31) / 32 < 65536 in float32.
 // Logits are scaled by `scale`: 1/sqrt(hd) of the caller's head dim, which is
@@ -737,3 +1360,39 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 // bytes of dynamic shared memory a block of the (dtype, hd) kernel takes
 // (-1 for a pair that is not built)
 extern "C" int repro_flash_attention_smem(int dtype, int hd) { return dynamic_smem(dtype, hd); }
+
+// The same attention for bfloat16 q, k, v at a few query rows, its keys split
+// over blocks: split s takes keys [s chunk, (s + 1) chunk), s < n_split,
+// and writes its rows' partial (m, l, O) into `part`, a float32 buffer of
+// B H Sq n_split (hd + 2) values; a second kernel merges them in order of s.
+// q, k, v as repro_flash_attention's bfloat16 ones (o's last stride 1, its
+// row stride even); hd in {32, 64, 96, 128}; n_split chunk >= Sk.
+extern "C" int repro_flash_attention_split(const void* q, const void* k, const void* v, void* o,
+                                           float* lse, float* part, int B, int H, int G, int Sq,
+                                           int Sk, int hd, int kv_len, int causal, float scale,
+                                           float cap, int n_split, int chunk,
+                                           const long long* strides, void* stream) {
+  const bool capped = cap > 0.0f;
+  const split::LaunchFn fn = capped ? split::pick<true>(hd) : split::pick<false>(hd);
+  if (fn == nullptr || n_split < 1 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, lse, part, B, H, G, Sq, Sk, kv_len, causal, scale, capped ? cap : 0.0f,
+            n_split, chunk, strides, static_cast<cudaStream_t>(stream));
+}
+
+// bytes of shared memory a block of the split kernel at head dim hd takes
+// at most (-1 for a head dim that is not built)
+extern "C" int repro_flash_attention_split_smem(int hd) {
+  switch (hd) {
+    case 32:
+      return split::Cfg<32>::SMEM;
+    case 64:
+      return split::Cfg<64>::SMEM;
+    case 96:
+      return split::Cfg<96>::SMEM;
+    case 128:
+      return split::Cfg<128>::SMEM;
+    default:
+      return -1;
+  }
+}

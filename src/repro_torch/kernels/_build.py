@@ -56,6 +56,12 @@ SIGNATURES = {
                               _F, _LP, _P),
     # dtype, hd -> bytes of dynamic shared memory of that kernel
     "repro_flash_attention_smem": (_I, _I),
+    # q, k, v, o, lse (or NULL), part, B, H, G, Sq, Sk, hd, kv_len, causal, scale, cap,
+    # n_split, chunk, strides[16], stream
+    "repro_flash_attention_split": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _F, _I, _I, _LP, _P),
+    # hd -> bytes of shared memory a block of the split kernel takes at most
+    "repro_flash_attention_split_smem": (_I,),
     # dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, G, Sq, Sk, hd, kv_len, causal,
     # scale, cap (<= 0: none), strides[32], stream
     "repro_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

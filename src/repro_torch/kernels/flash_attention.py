@@ -8,14 +8,20 @@ float32 or bfloat16 CUDA tensors; the semantics are
 in the model's ``(B, Sq, H, hd)`` layout and returned as its ``(B, H, Sq,
 hd)`` view, so ``o.transpose(1, 2)`` is contiguous.
 
-The kernel is built for head dims 32, 64 and 128 (:data:`HEAD_DIMS`) and
-takes the scale as an argument.  What the wrapper hands it is decided from
-the dtype, the head dim and the layout alone (:func:`prepare`) and counted
-by path:
+The kernel is built for head dims 32, 64, 96 and 128 (:data:`HEAD_DIMS`)
+and takes the scale as an argument.  What the wrapper hands it is decided
+from the dtype, the head dim, the number of query rows and the layout alone
+(:func:`prepare`) and counted by path:
 
 * ``tma``: bf16 read in place by TMA, which takes a layout only when the
   last dimension is contiguous and every other stride and each base address
   is a multiple of 16 bytes (the model's views are);
+* ``split``: the same bf16 layouts at ``Sq <=`` :data:`SPLIT_MAX_SQ` query
+  rows (whisper's decode cross-attention: one query over 1500 frames), read
+  in place by TMA on the CUDA cores: the keys of each (batch, KV head) are
+  cut into :func:`split_count` splits, persistent blocks write each split's
+  partial (m, l, O) in f32 to a scratch buffer, and a second kernel merges
+  them in a fixed order;
 * ``fp32``: f32 on the tensor cores as 3xTF32 (each operand split into two
   TF32 parts, three products summed in f32), read in place through any
   strides: 16-byte ``cp.async`` copies where the last dimension is
@@ -49,20 +55,38 @@ from . import _build
 from .layout import copy_bshd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # built, for both dtypes; smaller head dims are padded
-PATHS = ("tma", "fp32", "copy", "pad")
+HEAD_DIMS = (32, 64, 96, 128)  # built, for both dtypes; other head dims are padded
+PATHS = ("tma", "fp32", "copy", "pad", "split")
+SPLIT_MAX_SQ = 4  # bf16 calls with at most this many query rows take ``split``
+SPLIT_TILE = 128  # keys a tile of the split kernel; a split is whole tiles
+SPLIT_ROWS = 16  # query rows (of a KV head's G x Sq) an item of the split kernel
 _INT_MAX = 2**31 - 1
 # query rows per block, by dtype; blocks per (batch, head) stay below 2**16
 _BQ = {torch.float32: 32, torch.bfloat16: 128}
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
 
 
-def built_head_dim(hd: int) -> int:
-    """The smallest built head dim that holds ``hd``; raises above 128."""
-    for built in HEAD_DIMS:
+def built_head_dim(hd: int, built_dims: tuple[int, ...] = HEAD_DIMS) -> int:
+    """The smallest of ``built_dims`` (K3's by default) that holds ``hd``;
+    raises above the largest."""
+    for built in built_dims:
         if hd <= built:
             return built
-    raise ValueError(f"flash_attention kernel takes head_dim up to {HEAD_DIMS[-1]}, got {hd}")
+    raise ValueError(f"flash_attention kernel takes head_dim up to {built_dims[-1]}, got {hd}")
+
+
+def split_count(G: int, Sq: int, Sk: int) -> tuple[int, int]:
+    """-> (n_split, keys a split) of the ``split`` path, from the shapes
+    alone, so that eager calls and a CUDA graph's replays compute the same
+    bits: ``ceil(rows / 4)`` tiles of :data:`SPLIT_TILE` keys a split, rows
+    being an item's ``min(G Sq, SPLIT_ROWS)`` query rows, so the partials
+    (``rows (hd + 2)`` f32 a split, written and read once) stay near 1/16
+    of the split's K and V bytes.  The kernel's persistent blocks take the
+    (KV head, row group, split) items in turn, so the split count need not
+    fill the card: at one query row a split is one tile."""
+    rows = min(G * Sq, SPLIT_ROWS)
+    chunk = SPLIT_TILE * -(-rows // 4)
+    return -(-Sk // chunk), chunk
 
 
 def tma_addressable(t: torch.Tensor) -> bool:
@@ -76,8 +100,8 @@ def tma_addressable(t: torch.Tensor) -> bool:
 def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             ) -> tuple[str, torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (path, q, k, v) as the kernel reads them, from the dtype, the head
-    dim and the layout alone (see the module's docstring).  Device-agnostic:
-    the tests run it on the CPU."""
+    dim, the query rows and the layout alone (see the module's docstring).
+    Device-agnostic: the tests run it on the CPU."""
     hd = q.shape[-1]
     built = built_head_dim(hd)
     if built != hd:
@@ -86,7 +110,7 @@ def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return "fp32", q, k, v
     ok = [tma_addressable(t) for t in (q, k, v)]
     if all(ok):
-        return "tma", q, k, v
+        return "split" if q.shape[2] <= SPLIT_MAX_SQ else "tma", q, k, v
     return ("copy", *(t if good else copy_bshd(t) for t, good in zip((q, k, v), ok)))
 
 
@@ -139,10 +163,22 @@ def _launch(q, k, v, causal, kv_len, cap, want_lse: bool):
         strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(),
                                            *out.stride())
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, H, H // Kh, Sq, Sk, built, kv,
-            int(causal), 1.0 / math.sqrt(hd), float(cap), strides, stream)
+        lse_ptr = None if lse is None else lse.data_ptr()
+        if path == "split":
+            n_split, chunk = split_count(H // Kh, Sq, Sk)
+            # each split's (O, m, l) a query row, f32; inside a CUDA graph
+            # capture this comes from the graph's pool
+            part = torch.empty(B * H * Sq * n_split * (hd + 2), dtype=torch.float32,
+                               device=q.device)
+            err = lib.repro_flash_attention_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                part.data_ptr(), B, H, H // Kh, Sq, Sk, hd, kv, int(causal),
+                1.0 / math.sqrt(hd), float(cap), n_split, chunk, strides, stream)
+        else:
+            err = lib.repro_flash_attention(
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse_ptr, B, H, H // Kh, Sq, Sk, built, kv, int(causal), 1.0 / math.sqrt(hd),
+                float(cap), strides, stream)
     _build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1

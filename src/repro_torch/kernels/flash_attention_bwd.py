@@ -11,9 +11,10 @@ returns ``(dq, dk, dv)`` with the semantics of
 bfloat16 CUDA tensors.  The gradients are allocated in the model's ``(B, S,
 heads, hd)`` layout and returned as their ``(B, heads, S, hd)`` views.
 
-The kernel is built for head dims 32, 64 and 128.  What the wrapper hands
-it is decided from the dtype, the head dim and the layout alone
-(:func:`prepare`, mirroring K3's) and counted by path:
+The kernel is built for head dims 32, 64 and 128 (:data:`HEAD_DIMS`; K3's
+forward also builds 96, which the backward still pads to 128).  What the
+wrapper hands it is decided from the dtype, the head dim and the layout
+alone (:func:`prepare`, mirroring K3's) and counted by path:
 
 * ``tma``: bf16 on the tensor cores, q, k, v and dout read in place by TMA,
   which takes a layout only when the last dimension is contiguous and every
@@ -48,6 +49,7 @@ from .flash_attention import built_head_dim, tma_addressable
 from .layout import copy_bshd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)  # built, for both dtypes; other head dims are padded
 PATHS = ("tma", "fp32", "copy", "pad")
 _INT_MAX = 2**31 - 1
 _BLOCK = 128  # the bf16 kernels' query rows and keys a block: a grid dimension each
@@ -59,7 +61,7 @@ def prepare(q, k, v, o, dout) -> tuple[str, tuple[torch.Tensor, ...]]:
     dtype, the head dim and the layout alone (see the module's docstring).
     Device-agnostic: the tests run it on the CPU."""
     hd = q.shape[-1]
-    built = built_head_dim(hd)
+    built = built_head_dim(hd, HEAD_DIMS)
     if built != hd:
         return "pad", tuple(copy_bshd(t, built) for t in (q, k, v, o, dout))
     if q.dtype == torch.float32:
@@ -95,7 +97,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd kernel needs a contiguous float32 lse of shape "
                          f"{(B, H, Sq)}, got {lse.dtype} {tuple(lse.shape)}")
-    built = built_head_dim(hd)
+    built = built_head_dim(hd, HEAD_DIMS)
     if Sk == 0 or max(B * H, Sq, Sk) > _INT_MAX or max(Sq, Sk) >= _BLOCK * (2**16 - 1):
         raise ValueError(f"flash_attention_bwd kernel needs 0 < Sk, int32 sizes and Sq, Sk "
                          f"< {_BLOCK * (2**16 - 1)}: {(B, H, Sq, Sk)}")

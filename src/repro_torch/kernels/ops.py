@@ -240,8 +240,9 @@ def warm_up(device) -> None:
     """Build and load the CUDA kernels and launch each once at a tiny shape,
     on every path: K1's ``wgmma`` path in each dtype and each operand layout
     (K-major or MN-major A and B) and its ``fma`` path; K2 ``direct`` and
-    ``copy``; K3 in each dtype at each built head dim (``tma``, ``fp32``),
-    uncapped and with a logit cap, on a bf16 view TMA cannot address
+    ``copy``; K3 in each dtype at each built head dim (``tma``, ``fp32``,
+    and ``split`` at one query row), uncapped and with a logit cap, on a bf16
+    view TMA cannot address
     (``copy``) and at a head dim that is padded (``pad``); K4 at each built
     head size (``ring``), with unequal strides (``copy``) and at a padded
     head size (``pad``); K4b likewise
@@ -266,9 +267,10 @@ def warm_up(device) -> None:
     _matadd_kernel(x.T, x)  # not contiguous: copy
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (*HEAD_DIMS, 4):  # 4 is padded up to 32
-            a = torch.zeros(1, 1, 8, hd, device=device, dtype=dtype)
-            for cap in (0.0, 1.0):
-                _flash_kernel(a, a, a, cap=cap)
+            for sq in (8, 1):  # in bf16, 8 query rows take tma and 1 split
+                a = torch.zeros(1, 1, sq, hd, device=device, dtype=dtype)
+                for cap in (0.0, 1.0):
+                    _flash_kernel(a, a, a, cap=cap)
     a = torch.zeros(1, 1, 8, 64, device=device, dtype=torch.bfloat16)[..., ::2]
     _flash_kernel(a, a, a)  # a strided last dimension: copy
     for n in (*WKV6_HEAD_SIZES, 4):  # 4 is padded up to 32

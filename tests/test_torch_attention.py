@@ -161,8 +161,9 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_flash_kernel_takes_head_dims_32_64_and_128():
-    """The served head dims: granite-3-2b's 64 and minitron-4b's 128."""
-    assert HEAD_DIMS == (32, 64, 128)
+    """The served head dims: granite-3-2b's 64, minitron-4b's 128 and
+    minicpm3-4b's MLA 96, built since it stopped being padded."""
+    assert HEAD_DIMS == (32, 64, 96, 128)
 
 
 def test_bf16_layout_check_takes_the_models_views_and_refuses_strided_rows():
@@ -197,26 +198,30 @@ def test_prepare_picks_each_path_from_dtype_head_dim_and_layout():
     assert prepare(x, x, x)[0] == "fp32"
     assert prepare(x[..., ::2], x[..., ::2], x[..., ::2])[0] == "fp32"  # any strides
     assert prepare(*[x.to(torch.bfloat16)] * 3)[0] == "tma"
-    for hd, built in ((4, 32), (16, 32), (33, 64), (96, 128)):
+    for hd, built in ((4, 32), (16, 32), (33, 64), (80, 96), (100, 128)):
         for dt in (torch.float32, torch.bfloat16):
             y = torch.ones(1, 2, 8, hd, dtype=dt)
             path, q, k, v = prepare(y, y, y)
             assert path == "pad" and q.shape[-1] == built == built_head_dim(hd)
             assert torch.equal(q[..., :hd], y) and not q[..., hd:].any()
+    for dt, want in ((torch.float32, "fp32"), (torch.bfloat16, "tma")):  # 96 is built
+        y = torch.ones(1, 2, 8, 96, dtype=dt)
+        assert prepare(y, y, y)[0] == want and built_head_dim(96) == 96
     with pytest.raises(ValueError, match="up to 128"):
         built_head_dim(160)
 
 
-@pytest.mark.parametrize("hd", [4, 16, 96])
+@pytest.mark.parametrize("hd", [4, 16, 96, 80])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dim_with_its_scale_equals_plain_and_reference(hd, causal):
     """pad (the wrapper's ``prepare``) -> plain at scale 1/sqrt(hd) -> crop
     equals the plain version on the original head dim, and the reference:
-    the zero columns add nothing to Q K^T, and the scale is the caller's."""
+    the zero columns add nothing to Q K^T, and the scale is the caller's.
+    A built head dim (96, minicpm3-4b's MLA) passes through unpadded."""
     q, k, v = _qkv(2, 4, 2, 40, 40, hd, "float32", seed=hd)
     tq, tk, tv = map(_t, (q, k, v))
     path, pq, pk, pv = prepare(tq, tk, tv)
-    assert path == "pad" and pq.shape[-1] == built_head_dim(hd)
+    assert path == ("fp32" if hd in HEAD_DIMS else "pad") and pq.shape[-1] == built_head_dim(hd)
     got = ref.flash_attention(pq, pk, pv, causal=causal, kv_len=33,
                               scale=1.0 / np.sqrt(hd))[..., :hd]
     plain = ref.flash_attention(tq, tk, tv, causal=causal, kv_len=33)
@@ -238,7 +243,8 @@ CAPPED = [
     (2, 32, 32, 2, 2, 16, True, None),
     (1, 48, 32, 1, 4, 32, True, None),    # GQA, Sq > Sk
     (2, 32, 48, 2, 1, 32, False, 40),     # Sq < Sk, kv_len < Sk
-    (1, 32, 48, 2, 2, 96, True, None),    # hd 96: the pad path
+    (1, 32, 48, 2, 2, 96, True, None),    # hd 96: built (fp32 here)
+    (1, 32, 48, 2, 2, 80, False, 40),     # hd 80: the pad path, up to 96
     (1, 16, 32, 2, 2, 16, False, 0),      # every key masked: the mean of V
 ]
 
@@ -263,8 +269,8 @@ def _bhsd(a):
 def test_capped_forward_and_lse_match_fusedkernel_flash_fwd(case):
     """The plain capped forward and LSE against the reference's blockwise
     forward with ``logit_cap``, on the inputs as given and on what the
-    wrapper hands the kernel (``prepare``: hd 16 and 96 zero-padded to 32 and
-    128 with the caller's scale), at the suite's f32 tolerance."""
+    wrapper hands the kernel (``prepare``: hd 16 and 80 zero-padded to 32 and
+    96 with the caller's scale), at the suite's f32 tolerance."""
     B, Sq, Sk, K, G, hd, causal, kv_len = case
     q, k, v = _capped_inputs(B, Sq, Sk, K, G, hd, seed=hd + Sq)
     o, lse = jL.fusedkernel_flash_fwd(q, k, v, 0, causal=causal, scale=1 / np.sqrt(hd), Cq=16,

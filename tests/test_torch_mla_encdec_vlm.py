@@ -39,7 +39,7 @@ from repro.models import transformer as jT
 from repro.models.params import init_params as jinit_params
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import prepare
+from repro_torch.kernels.flash_attention import SPLIT_MAX_SQ, prepare
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as tT
@@ -113,9 +113,10 @@ K3_CASES = {  # B, H, K, Sq, Sk, hd, causal
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(K3_CASES))
 def test_k3_prepare_at_the_new_shapes_feeds_the_plain_version_the_reference(case, dtype):
-    """On the model's (B, S, heads, hd) views: the path (``fp32``, ``tma`` for
-    bf16, ``pad`` for hd 96), then the plain version at the kernel's scale,
-    cropped, against ``repro.kernels.ref`` (2e-5 in f32, 2e-2 in bf16)."""
+    """On the model's (B, S, heads, hd) views: the path (``fp32``; in bf16
+    ``split`` for whisper's one query, ``tma`` otherwise, hd 96 built), then
+    the plain version at the kernel's scale, cropped, against
+    ``repro.kernels.ref`` (2e-5 in f32, 2e-2 in bf16)."""
     Bq, H, K, Sq, Sk, hd, causal = K3_CASES[case]
     rng = np.random.default_rng(hd + Sq)
     q, k, v = (rng.standard_normal((Bq, S_, n, hd)).astype(np.float32)
@@ -123,8 +124,8 @@ def test_k3_prepare_at_the_new_shapes_feeds_the_plain_version_the_reference(case
     dt = getattr(torch, dtype)
     tq, tk, tv = (torch.from_numpy(a).to(dt).transpose(1, 2) for a in (q, k, v))
     path, pq, pk, pv = prepare(tq, tk, tv)
-    assert path == ("pad" if hd == 96 else "fp32" if dtype == "float32" else "tma")
-    assert pq.shape[-1] == (128 if hd == 96 else hd)
+    assert path == ("fp32" if dtype == "float32" else "split" if Sq <= SPLIT_MAX_SQ else "tma")
+    assert pq.shape[-1] == hd
     got = tref.flash_attention(pq, pk, pv, causal=causal, scale=1.0 / np.sqrt(hd))[..., :hd]
     assert tuple(got.shape) == (Bq, H, Sq, hd) and got.dtype == dt
     jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(dtype) for t in (tq, tk, tv))
